@@ -1,0 +1,39 @@
+"""The port stands alone: ``repro_torch`` imports neither JAX nor the JAX
+package ``repro``, not even its modules that do not import JAX."""
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+PORT = SRC / "repro_torch"
+
+
+@pytest.mark.parametrize("module", ["repro_torch", "repro_torch.core",
+                                    "repro_torch.kernels"])
+def test_import_pulls_in_no_jax_and_no_reference(module):
+    code = (f"import json, sys; import {module}; "
+            "print(json.dumps(sorted(sys.modules)))")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                         capture_output=True, text=True, timeout=120).stdout
+    loaded = json.loads(out.strip().splitlines()[-1])
+    assert module in loaded
+    bad = [m for m in loaded if m == "jax" or m.startswith("jax.")
+           or m.startswith("jaxlib") or m == "repro" or m.startswith("repro.")]
+    assert bad == []
+
+
+def test_no_source_file_names_jax_or_the_reference():
+    pattern = re.compile(r"import jax|from repro\.|from repro ")
+    files = sorted(p for p in PORT.rglob("*") if p.suffix in (".py", ".cu"))
+    assert files
+    offenders = [f"{p.relative_to(SRC)}:{i}"
+                 for p in files
+                 for i, line in enumerate(p.read_text().splitlines(), 1)
+                 if pattern.search(line)]
+    assert offenders == []
