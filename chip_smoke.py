@@ -7,7 +7,8 @@ Phases, each printing its own lines (no phase catches its own failure; any
 failed check exits non-zero):
 
 1. env     — card name and power limit, torch/CUDA/nvcc versions.
-2. build   — compile the hand-written CUDA kernels from the checkout.
+2. build   — compile the three hand-written CUDA kernels from the checkout,
+             one ``nvcc`` each, all started together.
 3. kernel  — every kernel against its plain PyTorch version on the card, at
              test shapes and at the main path's shapes, with times beside
              the card's bound and a PyTorch library call.
@@ -17,6 +18,14 @@ failed check exits non-zero):
              instance i1 (30000^3, float32): kernel launches counted, the bus
              invariants of the measured timeline held, sampled rows of C
              checked against float64, then the card alone for comparison.
+6. serve   — hymba-1.5B at full width (weights from a seed): (a) in float32,
+             prefill through K2/K3 against decode through plain torch on a
+             1300-token prompt; (b) in bfloat16, eight requests dispatched by
+             ``PoasDispatcher`` over two groups and served by
+             ``ServingEngine``, with K2/K3 launches counted (32 each per
+             prefill); (c) one bucket's prefill and decode steps traced with
+             ``torch.profiler``; then K2 and K3 held against their plain
+             versions and timed at that run's shapes.
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or run outside the
@@ -25,10 +34,13 @@ prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -37,12 +49,20 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import (CopyModel, DeviceProfile, HGemms,  # noqa: E402
-                              NO_COPY, Profiler, cuda_kernel_runner,
-                              host_cpu_runner)
-from repro_torch.kernels import matmul  # noqa: E402
+                              LinearTimeModel, NO_COPY, Profiler,
+                              cuda_kernel_runner, host_cpu_runner)
+from repro_torch.kernels import (flash_attention, matmul,  # noqa: E402
+                                 ssd_chunk)
+from repro_torch.kernels.flash_attention import build as build_k2  # noqa: E402
 from repro_torch.kernels.matmul import build  # noqa: E402
-from repro_torch.kernels.ref import matmul_ref  # noqa: E402
+from repro_torch.kernels.ref import (flash_attention_ref,  # noqa: E402
+                                     matmul_ref, ssd_chunk_ref)
+from repro_torch.kernels.ssd_chunk import build as build_k3  # noqa: E402
+from repro_torch.models import Model  # noqa: E402
+from repro_torch.serving.engine import (PoasDispatcher,  # noqa: E402
+                                        Request, ServingEngine)
 
 # Paper instance i1 (benchmarks/common.py): the smallest of the six.
 M = N = K = 30_000
@@ -54,6 +74,13 @@ PEAK = {"float32": (67e12, "67 TFLOP/s fp32 CUDA cores, H100 SXM data sheet"),
         "bfloat16": (989e12, "989 TFLOP/s bf16 dense tensor cores, "
                              "H100 SXM data sheet")}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+K2_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels_flash.py:33
+K3_TOL = {"float32": 1e-4, "bfloat16": 3e-2}   # tests/test_kernels_ssd.py:34,45
+PREFILL_DECODE_TOL = 3e-3                      # tests/test_prefill_decode.py:42
+DTYPE_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+SERVE_ARCH = "hymba-1_5b"
+DEV = "cuda"
+SERVE_REQUESTS, SERVE_MAX_NEW = 8, 16
 
 
 def fail(msg: str) -> None:
@@ -96,15 +123,126 @@ def cuda_ms(fn) -> float:
     return start.elapsed_time(end) / reps
 
 
+def roofline(ops: float, nbytes: float, dtype: str) -> tuple[float, str]:
+    """Least time in ms for ``ops`` operations of ``dtype`` moving
+    ``nbytes``, and what bounds it."""
+    t_ops = ops / PEAK[dtype][0]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def bound_text(row: dict) -> str:
+    return (f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}; "
+            f"{PEAK[row['dtype']][1]}; {HBM_BYTES_PER_S / 1e12} TB/s HBM, "
+            f"H100 SXM data sheet)")
+
+
 def bound_ms(m: int, k: int, n: int, dtype: str) -> tuple[float, str]:
     """Least time for C = A @ B on this card: the larger of the operations
     over the type's peak and the bytes (A, B read once, C written once)
     over the memory rate."""
     size = 4 if dtype == "float32" else 2
-    t_ops = 2.0 * m * n * k / PEAK[dtype][0]
-    t_bytes = size * (m * k + k * n + m * n) / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    return roofline(2.0 * m * n * k, size * (m * k + k * n + m * n), dtype)
+
+
+def band_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs inside the causal/window band: the scores that
+    attention on these inputs must compute."""
+    q = np.arange(sq)
+    hi = np.minimum(q, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(0, q - window + 1) if window > 0 else np.zeros(sq, int)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def flash_row(label, gen, B, S, H, KH, Dk, Dv, window, dtype,
+              causal=True) -> dict:
+    """K2 against its plain version on the same card tensors, then kernel,
+    plain version and ``scaled_dot_product_attention`` timed."""
+    name = DTYPE_NAME[dtype]
+    q, k, v = (torch.randn(shape, generator=gen, device=DEV).to(dtype)
+               for shape in ((B, S, H, Dk), (B, S, KH, Dk), (B, S, KH, Dv)))
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    plain = flash_attention_ref(q, k, v, causal=causal, window=window)
+    diff = (out.float() - plain.float()).abs()
+    tol = K2_TOL[name]
+    row = {"label": label, "dtype": name, "max_abs_err": float(diff.max()),
+           "violations": int((diff > tol + tol * plain.float().abs()).sum()),
+           "tol": tol}
+    del out, plain, diff
+    pos = torch.arange(S, device=DEV)
+    mask = torch.ones((S, S), dtype=torch.bool, device=DEV)
+    if causal:
+        mask &= pos[:, None] >= pos[None, :]
+    if window > 0:
+        mask &= pos[None, :] > pos[:, None] - window
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    row["kernel_ms"] = cuda_ms(lambda: flash_attention(
+        q, k, v, causal=causal, window=window))
+    row["plain_ms"] = cuda_ms(lambda: flash_attention_ref(
+        q, k, v, causal=causal, window=window))
+    row["library_ms"] = cuda_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, scale=1.0 / math.sqrt(Dk),
+            enable_gqa=True))
+    size = q.element_size()
+    ops = 2.0 * B * H * band_pairs(S, S, causal, window) * (Dk + Dv)
+    nbytes = size * (B * S * H * (Dk + Dv) + B * S * KH * (Dk + Dv))
+    row["bound_ms"], row["bound_by"] = roofline(ops, nbytes, name)
+    say("kernel", f"K2 {label} B{B} S{S} H{H}/{KH} Dk{Dk} Dv{Dv} "
+        f"window {window}{'' if causal else ' noncausal'} {name}: vs plain "
+        f"max_abs_err={row['max_abs_err']:.3e} violations="
+        f"{row['violations']} (rtol=atol={tol}); kernel_ms="
+        f"{row['kernel_ms']:.4f} plain_ms={row['plain_ms']:.4f} library_ms="
+        f"{row['library_ms']:.4f} (sdpa, bool mask, enable_gqa) "
+        + bound_text(row))
+    check(row["violations"] == 0, f"K2 disagrees with its plain version: "
+          f"{row}")
+    return row
+
+
+def ssd_row(label, gen, b, nc, Q, nh, G, hp, ds, dtype) -> dict:
+    """K3 against its plain version on the same card tensors, then kernel
+    and plain version timed (no single PyTorch call computes it)."""
+    name = DTYPE_NAME[dtype]
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=DEV)
+
+    xdt = (rnd(b, nc, Q, nh, hp) * 0.5).to(dtype)
+    B = (rnd(b, nc, Q, G, ds) * 0.5).to(dtype)
+    C = (rnd(b, nc, Q, G, ds) * 0.5).to(dtype)
+    cum = torch.cumsum(-torch.nn.functional.softplus(rnd(b, nc, Q, nh)),
+                       dim=2)
+    y, st = ssd_chunk(xdt, B, C, cum)
+    torch.cuda.synchronize()
+    y_ref, st_ref = ssd_chunk_ref(xdt, B, C, cum)
+    tol = K3_TOL[name]
+    dy = (y.float() - y_ref.float()).abs()
+    dst = (st - st_ref).abs()
+    row = {"label": label, "dtype": name,
+           "max_abs_err": max(float(dy.max()), float(dst.max())),
+           "violations": int((dy > tol + tol * y_ref.float().abs()).sum()
+                             + (dst > tol + tol * st_ref.abs()).sum()),
+           "tol": tol, "library_ms": None}
+    del y, st, y_ref, st_ref, dy, dst
+    row["kernel_ms"] = cuda_ms(lambda: ssd_chunk(xdt, B, C, cum))
+    row["plain_ms"] = cuda_ms(lambda: ssd_chunk_ref(xdt, B, C, cum))
+    pairs = Q * (Q + 1) // 2
+    ops = 2.0 * b * nc * nh * (pairs * (ds + hp) + Q * ds * hp)
+    size = xdt.element_size()
+    nbytes = (size * (2 * b * nc * Q * nh * hp + 2 * b * nc * Q * G * ds)
+              + 4 * (b * nc * Q * nh + b * nc * nh * ds * hp))
+    row["bound_ms"], row["bound_by"] = roofline(ops, nbytes, name)
+    say("kernel", f"K3 {label} b{b} NC{nc} Q{Q} nh{nh} G{G} hp{hp} ds{ds} "
+        f"{name}: vs plain max_abs_err={row['max_abs_err']:.3e} violations="
+        f"{row['violations']} (rtol=atol={tol}); kernel_ms="
+        f"{row['kernel_ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+        f"library_ms=— (no single PyTorch call) " + bound_text(row))
+    check(row["violations"] == 0, f"K3 disagrees with its plain version: "
+          f"{row}")
+    return row
 
 
 def compare(a, b, dtype: str, tol, label: str, exact_rows=None) -> dict:
@@ -146,9 +284,7 @@ def compare(a, b, dtype: str, tol, label: str, exact_rows=None) -> dict:
     row["bound_ms"], row["bound_by"] = bound_ms(m, k, n, dtype)
     say("kernel", f"{label} {m}x{k}x{n} {dtype}: kernel_ms="
         f"{row['kernel_ms']:.4f} plain_ms={row['plain_ms']:.4f} library_ms="
-        f"{row['library_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
-        f"({row['bound_by']}; {PEAK[dtype][1]}; "
-        f"{HBM_BYTES_PER_S / 1e12} TB/s HBM, H100 SXM data sheet)")
+        f"{row['library_ms']:.4f} " + bound_text(row))
     return row
 
 
@@ -192,6 +328,188 @@ def check_rows(c, a, b, rows, label: str) -> float:
     return err
 
 
+def prefill_matches_decode(cfg, gen) -> None:
+    """Serve phase (a): in float32, decode through plain torch must give
+    the last-token logits of a prefill through K2/K3 over the same tokens."""
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model = Model(cfg32, device=DEV,
+                  generator=torch.Generator(DEV).manual_seed(0))
+    prompt = np.random.default_rng(1).integers(1, cfg.vocab_size, 1300)
+    fed: list[int] = []
+
+    def prefill(tokens):
+        return model.prefill({"tokens": torch.as_tensor(
+            np.asarray(tokens)[None], device=DEV)})
+
+    with torch.inference_mode():
+        logits, cache = prefill(prompt)
+        cache = model.extend_cache(cache, 4)
+        for step in range(1, 5):
+            tok = logits.argmax(-1)
+            fed.append(int(tok[0]))
+            logits, cache = model.decode_step(cache, {"tokens": tok[:, None]})
+            want, _ = prefill(np.concatenate([prompt, fed]))
+            err = float((logits - want).abs().max())
+            ok = torch.allclose(logits, want, rtol=PREFILL_DECODE_TOL,
+                                atol=PREFILL_DECODE_TOL)
+            say("serve", f"(a) float32 decode step {step} (position "
+                f"{1299 + step}) vs prefill of {1300 + step} tokens: "
+                f"max_abs_err={err:.3e}, logits std {float(want.std()):.3e}"
+                f", allclose(rtol=atol={PREFILL_DECODE_TOL})={ok}")
+            check(bool(torch.isfinite(logits).all()), "decode logits are not "
+                  "finite")
+            check(ok, f"decode step {step} disagrees with the prefill")
+    del model, cache
+    torch.cuda.empty_cache()
+
+
+def profile_serve(model, bucket) -> None:
+    """Where a bucket's time goes on the card: one prefill and three decode
+    steps under ``torch.profiler``; device-busy share of the host wall time
+    and the kernels that take the most device time.  Measurement only."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    plen = max(len(r.tokens) for r in bucket)
+    prompts = np.zeros((len(bucket), plen), np.int64)
+    for i, r in enumerate(bucket):
+        prompts[i, plen - len(r.tokens):] = r.tokens
+    tokens = torch.from_numpy(prompts).to(DEV)
+
+    def traced(label, fn, steps):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in kern) / 1e6
+        launches = sum(e.count for e in kern)
+        if not kern:
+            say("serve", f"(c) {label}: the trace holds no device time")
+            return
+        say("serve", f"(c) {label} under torch.profiler: wall {wall:.4f} s, "
+            f"device busy {busy:.4f} s ({busy / wall * 100:.1f} %, idle "
+            f"{(1 - busy / wall) * 100:.1f} %), {launches / steps:.0f} "
+            f"kernel launches per step")
+        for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
+            t = e.self_device_time_total / 1e6
+            say("serve", f"(c)   {t:.4f} s ({t / busy * 100:.1f} % of busy)"
+                f" x{e.count} {e.key[:90]}")
+
+    with torch.inference_mode():
+        out = {}
+
+        def prefill():
+            out["logits"], out["cache"] = model.prefill({"tokens": tokens})
+
+        traced(f"prefill of {len(bucket)} x {plen}", prefill, 1)
+        cache = model.extend_cache(out["cache"], 4)
+        tok = out["logits"].argmax(-1)[:, None]
+        _, cache = model.decode_step(cache, {"tokens": tok})   # warm
+
+        def decode():
+            c = cache
+            for _ in range(3):
+                _, c = model.decode_step(c, {"tokens": tok})
+
+        traced("3 decode steps", decode, 3)
+
+
+def serve(gen) -> tuple[dict, dict, dict]:
+    """Serve phase: (a) the float32 check, (b) eight requests in bfloat16
+    through ``PoasDispatcher`` and ``ServingEngine`` with K2/K3 launches
+    counted, (c) K2 and K3 at the shapes (b) gave them."""
+    cfg = get_config(SERVE_ARCH)
+    say("serve", f"{cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+        f"{cfg.head_dim}, window {cfg.window} (full on layers "
+        f"{list(cfg.global_layers)}), {cfg.ssm_heads} SSM heads of "
+        f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk {cfg.ssm_chunk}, "
+        f"vocab {cfg.vocab_size}; {cfg.param_count() / 1e9:.3f} B params "
+        f"(ArchConfig.param_count), weights from seed 0")
+    t0 = time.perf_counter()
+    prefill_matches_decode(cfg, gen)
+    say("serve", f"(a) done in {time.perf_counter() - t0:.1f} s")
+
+    model = Model(cfg, device=DEV,
+                  generator=torch.Generator(DEV).manual_seed(0))
+    engine = ServingEngine(model)
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(1500, 3001, size=SERVE_REQUESTS)
+    reqs = [Request(uid=i, tokens=rng.integers(1, cfg.vocab_size, int(n)),
+                    max_new_tokens=SERVE_MAX_NEW)
+            for i, n in enumerate(lengths)]
+    groups = [DeviceProfile(f"group{i}", "gpu-group",
+                            LinearTimeModel(a=(1 + i) * 1e-6, b=1e-3),
+                            NO_COPY) for i in range(2)]
+    disp = PoasDispatcher(groups)
+    buckets = disp.split(reqs)
+    say("serve", f"(b) prompt lengths {lengths.tolist()}; dispatch "
+        f"{[[r.uid for r in b] for b in buckets]} shares "
+        f"{[round(x, 4) for x in disp.last_plan.optimize.shares()]} "
+        f"predicted makespan {disp.predicted_makespan(buckets):.6f} s "
+        f"(modelled groups, as launch/serve.py)")
+    engine.generate([Request(uid=-1, tokens=rng.integers(
+        1, cfg.vocab_size, 300), max_new_tokens=2)])   # warm-up, not counted
+
+    flash_attention.launches = 0
+    ssd_chunk.launches = 0
+    shapes = []
+    for gi, bucket in enumerate(buckets):
+        if not bucket:
+            continue
+        f0, s0 = flash_attention.launches, ssd_chunk.launches
+        torch.cuda.reset_peak_memory_stats()
+        done = engine.generate(bucket)
+        peak = torch.cuda.max_memory_allocated()
+        df, dss = flash_attention.launches - f0, ssd_chunk.launches - s0
+        check(df == cfg.num_layers and dss == cfg.num_layers,
+              f"bucket {gi}: one prefill launched K2 {df} and K3 {dss} "
+              f"times, not {cfg.num_layers} each")
+        for c in done:
+            check(len(c.tokens) == SERVE_MAX_NEW and bool(
+                ((c.tokens >= 0) & (c.tokens < cfg.vocab_size)).all()),
+                f"completion {c.uid}: {c.tokens}")
+        B = len(bucket)
+        plen = max(len(r.tokens) for r in bucket)
+        real = sum(len(r.tokens) for r in bucket)
+        pre, dec = done[0].prefill_s, done[0].decode_s
+        say("serve", f"(b) bucket {gi}: {B} requests, prompts padded to "
+            f"{plen} ({real} real tokens); prefill {pre:.4f} s = "
+            f"{B * plen / pre:.1f} tok/s ({real / pre:.1f} real tok/s); "
+            f"decode {SERVE_MAX_NEW - 1} steps {dec:.4f} s = "
+            f"{B * (SERVE_MAX_NEW - 1) / dec:.1f} tok/s "
+            f"({dec / (SERVE_MAX_NEW - 1) * 1e3:.2f} ms/step); peak "
+            f"max_memory_allocated {peak / 2**30:.3f} GiB; K2 +{df}, K3 "
+            f"+{dss}; first completion {done[0].tokens.tolist()}")
+        shapes.append((B * plen, B, plen))
+    launches = {"flash_attention": flash_attention.launches,
+                "ssd_chunk": ssd_chunk.launches}
+    say("serve", f"(b) main path launches: {launches}")
+    check(all(n > 0 for n in launches.values()),
+          "the serve path launched no K2 or K3")
+    profile_serve(model, max(buckets, key=len))
+    del model, engine
+    torch.cuda.empty_cache()
+
+    # (c) K2 and K3 at the largest bucket's prefill shapes.
+    _, B, S = max(shapes)
+    k2 = flash_row("serve-path", gen, B, S, cfg.num_heads, cfg.num_kv_heads,
+                   cfg.head_dim, cfg.head_dim, cfg.window, torch.bfloat16)
+    flash_row("serve-path", gen, B, S, cfg.num_heads, cfg.num_kv_heads,
+              cfg.head_dim, cfg.head_dim, 0, torch.bfloat16)
+    Q = min(cfg.ssm_chunk, S)
+    k3 = ssd_row("serve-path", gen, B, -(-S // Q), Q, cfg.ssm_heads,
+                 cfg.ssm_groups, cfg.ssm_head_dim, cfg.ssm_state,
+                 torch.float32)
+    torch.cuda.empty_cache()
+    return k2, k3, launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -214,12 +532,16 @@ def main() -> None:
         f"{(nvcc.strip().splitlines() or ['?'])[-1]}; capability {cap} "
         f"(9, 0): {cap == (9, 0)}; python {sys.version.split()[0]}")
 
-    # ---- 2. build --------------------------------------------------------
-    info = build()
-    say("build", f"{info.path.relative_to(ROOT)} in {info.seconds:.1f} s")
-    for line in info.log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            say("build", line.strip())
+    # ---- 2. build: one nvcc per source, all started together --------------
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(3) as pool:
+        infos = list(pool.map(lambda f: f(), (build, build_k2, build_k3)))
+    for info in infos:
+        say("build", f"{info.path.relative_to(ROOT)} in {info.seconds:.1f} s")
+        for line in info.log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                say("build", line.strip())
+    say("build", f"all three in {time.perf_counter() - t0:.1f} s wall")
 
     # ---- 3. kernel vs plain version (test shapes) ------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -254,6 +576,34 @@ def main() -> None:
     check(abs(got - want) / want < 0.02, "bf16 inputs do not accumulate in f32")
     for r in rows_out:
         check(r["violations"] == 0, f"kernel disagrees with plain version: {r}")
+
+    # K2 at the shapes of tests/test_kernels_flash.py, then windowed, GQA,
+    # ragged S and head dims 96/64 (MLA) and 160 (stablelm).
+    f32, bf16 = torch.float32, torch.bfloat16
+    for dt in (f32, bf16):
+        for B, S, H, KH, D in ((1, 128, 4, 4, 64), (2, 256, 8, 2, 64),
+                               (1, 96, 4, 1, 128), (2, 128, 2, 2, 32)):
+            flash_row("test", gen, B, S, H, KH, D, D, 0, dt)
+    for window in (16, 64):
+        flash_row("test-window", gen, 1, 128, 4, 2, 32, 32, window, f32)
+    flash_row("test-noncausal", gen, 2, 64, 4, 4, 32, 32, 0, f32,
+              causal=False)
+    for dt in (f32, bf16):
+        flash_row("gqa-window-ragged", gen, 2, 1037, 25, 5, 64, 64, 256, dt)
+        flash_row("mla", gen, 2, 300, 8, 8, 96, 64, 0, dt)
+        flash_row("head-dim-160", gen, 1, 333, 8, 2, 160, 160, 0, dt)
+    # K3 at the shapes of tests/test_kernels_ssd.py, a ragged Q, and the
+    # chunk shapes of hymba-1.5B and mamba2-2.7b at ssm_chunk 256.
+    for label, shape, dt in (
+            ("test", (1, 2, 16, 4, 1, 16, 16), torch.float32),
+            ("test-grouped", (2, 3, 32, 4, 2, 32, 16), torch.float32),
+            ("test-mamba2-dims", (1, 1, 64, 8, 1, 64, 128), torch.float32),
+            ("test-bf16", (1, 2, 32, 4, 1, 32, 32), torch.bfloat16),
+            ("ragged-q", (2, 1, 37, 8, 2, 64, 16), torch.float32),
+            ("hymba", (2, 4, 256, 50, 1, 64, 16), torch.float32),
+            ("hymba", (2, 4, 256, 50, 1, 64, 16), torch.bfloat16),
+            ("mamba2", (1, 4, 256, 80, 1, 64, 128), torch.float32)):
+        ssd_row(label, gen, *shape, dt)
 
     # ---- 4. predict: fit the node ----------------------------------------
     t0 = time.perf_counter()
@@ -367,6 +717,12 @@ def main() -> None:
         + f"; predicted "
         f"{plan1.schedule.timeline.makespan / plan.schedule.timeline.makespan:.4f}x")
     say("main", f"total {time.perf_counter() - t_start:.1f} s")
+    del a, b, b64
+    torch.cuda.empty_cache()
+
+    # ---- 6. serve: hymba-1.5B at full width -------------------------------
+    k2_row, k3_row, serve_launches = serve(gen)
+    say("serve", f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = [{"name": "matmul", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/matmul.cu",
@@ -378,6 +734,20 @@ def main() -> None:
                 "bound_ms": main_row["bound_ms"],
                 "bound_by": main_row["bound_by"],
                 "library_ms": main_row["library_ms"]}]
+    for name, row, source, replaces in (
+            ("flash_attention", k2_row,
+             "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:70"),
+            ("ssd_chunk", k3_row, "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+             "src/repro/kernels/ssd_chunk.py:56")):
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces,
+                        "launches": serve_launches[name],
+                        "max_abs_err": row["max_abs_err"],
+                        "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+                        "bound_ms": row["bound_ms"],
+                        "bound_by": row["bound_by"],
+                        "library_ms": row["library_ms"]})
     print(smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,9 @@
+"""Qwen2-72B — GQA with QKV bias [arXiv:2407.10671; hf]."""
+from ..models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen2-72b", family="dense",
+    num_layers=80, d_model=8192, num_heads=64, num_kv_heads=8,
+    d_ff=29568, vocab_size=152064, head_dim=128,
+    attention="gqa", qkv_bias=True,
+)

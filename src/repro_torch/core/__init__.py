@@ -1,6 +1,7 @@
 """POAS core — the paper's contribution (Predict, Optimize, Adapt, Schedule).
 
-The port of ``repro.core``'s GEMM slice.  Public API:
+The port of ``repro.core`` minus the task-graph builders (``graph.py``).
+Public API:
     DeviceProfile, LinearTimeModel, RooflineTimeModel, CopyModel
     fit_linear, Profiler, host_cpu_runner, cuda_kernel_runner
     solve_bisection, solve_analytic, solve_local_search, OptimizeResult
@@ -10,6 +11,7 @@ The port of ``repro.core``'s GEMM slice.  Public API:
     Domain, PlanCache, register_domain, get_domain, list_domains
     OverlappedExecutor, DeviceTask
     POAS, GemmWorkload, GemmDomain, make_gemm_poas, HGemms
+    CoExecutionRuntime, ObservationPump, Tenant, StreamJob
 """
 from .bus import (BusEvent, BusTopology, ClockState, GraphSimContext,
                   GraphSimState, GraphTimelineSpec,
@@ -39,6 +41,10 @@ from .executor import (DeviceTask, JobHandle, OverlappedExecutor, StreamCore,
 from .framework import (GemmDomain, GemmWorkload, POAS, POASPlan,
                         make_gemm_poas)
 from .hgemms import ExecutionReport, HGemms
+from .runtime import (AdmissionRejected, CoExecutionRuntime, FairAdmission,
+                      ObservationPump, ReplanRecord, StreamJob, Tenant,
+                      copy_throttled, model_sleep_tasks, throttled,
+                      truth_from_profiles, verify_stream_invariants)
 
 __all__ = [
     "BusEvent", "BusTopology", "Link", "build_timeline",
@@ -63,6 +69,10 @@ __all__ = [
     "GemmDomain", "GemmWorkload", "POAS", "POASPlan", "make_gemm_poas",
     "ExecutionReport", "HGemms",
     "ClockState", "TimelineSpec", "carry_clocks",
+    "AdmissionRejected", "CoExecutionRuntime", "FairAdmission",
+    "ObservationPump", "ReplanRecord", "StreamJob", "Tenant",
+    "copy_throttled", "model_sleep_tasks", "throttled",
+    "truth_from_profiles", "verify_stream_invariants",
     "GraphSimContext", "GraphSimState",
     "GraphTimelineSpec", "TaskSpec", "build_graph_timeline",
     "graph_finish_times", "GraphScheduleResult", "solve_list_schedule",

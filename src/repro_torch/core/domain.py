@@ -6,9 +6,11 @@ produces a DS-POAS (domain-specific POAS).  This module defines that binding
 point as a protocol, a process-wide registry of domain factories, and the
 ``PlanCache`` that memoizes solved plans across repeated ``plan()`` calls.
 
-One domain ships with this package so far:
+Two domains ship with this package so far:
 
 * ``gemm``             — heterogeneous GEMM (``core.framework.GemmDomain``)
+* ``serving-dispatch`` — request-batch dispatch across model replicas
+                         (``serving.engine.ServingDispatchDomain``)
 """
 from __future__ import annotations
 
@@ -172,9 +174,10 @@ def list_domains() -> list[str]:
 def _ensure_builtin_domains() -> None:
     """Import the modules that register the shipped domains (idempotent).
 
-    Only ``gemm`` is ported so far; ``task-graph``, ``serving-dispatch``
-    and ``train-step`` register once their modules exist in this package."""
+    ``task-graph`` and ``train-step`` register once their modules exist in
+    this package."""
     from . import framework  # noqa: F401  (registers "gemm")
+    from ..serving import engine  # noqa: F401  ("serving-dispatch")
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,19 @@
 """Hand-written Hopper kernels for the port's compute hot spots.
 
-* ``matmul`` — K1, the hgemms per-device GEMM (``csrc/matmul.cu``)
+* ``matmul``          — K1, the hgemms per-device GEMM (``csrc/matmul.cu``)
+* ``flash_attention`` — K2, causal / windowed GQA attention for prefill
+                        (``csrc/flash_attention.cu``)
+* ``ssd_chunk``       — K3, the Mamba-2 SSD intra-chunk part
+                        (``csrc/ssd_chunk.cu``)
 
 Each kernel has a plain PyTorch version in ``ref.py``.  A wrapper runs the
 plain version on CPU tensors and the kernel on CUDA tensors, and keeps a
-count of kernel launches (``matmul.launches``).
+count of kernel launches (``matmul.launches``, ``flash_attention.launches``,
+``ssd_chunk.launches``).  ``_nvcc`` builds every source at its first launch.
 """
+from .flash_attention import flash_attention
 from .matmul import matmul
+from .ssd_chunk import ssd_chunk
 from . import ref
 
-__all__ = ["matmul", "ref"]
+__all__ = ["flash_attention", "matmul", "ssd_chunk", "ref"]

@@ -1,0 +1,92 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Every kernel source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a``
+into a shared library with a plain C interface, loaded with ``ctypes``.
+The build happens at a kernel's first CUDA launch (never at import, so
+machines without a toolkit import the package), lands in ``_build/`` under
+a name keyed by the hash of the source and the flags, and is reused while
+that hash holds.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).parent / "csrc"
+BUILD_DIR = Path(__file__).parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: dict[Path, ctypes.CDLL] = {}
+
+
+@dataclasses.dataclass(frozen=True)
+class BuildInfo:
+    path: Path
+    seconds: float     # 0.0 when the library for this source already existed
+    log: str           # nvcc's output (ptxas register/shared-memory report)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the "
+                           "CUDA kernels cannot be built")
+    return path
+
+
+def build(source: Path) -> BuildInfo:
+    """Compile ``source`` into ``_build/`` unless this exact source was
+    built already.  Raises ``RuntimeError`` with nvcc's output on failure."""
+    digest = hashlib.sha256(source.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    path = BUILD_DIR / f"{source.stem}-{digest}.so"
+    if path.exists():
+        return BuildInfo(path, 0.0, "")
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source.name} "
+                           f"({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, path)   # atomic: a concurrent build never sees half a file
+    return BuildInfo(path, time.perf_counter() - t0,
+                     proc.stdout + proc.stderr)
+
+
+def load(source: Path, argtypes: dict[str, list]) -> ctypes.CDLL:
+    """The library built from ``source``, built and loaded once per process;
+    each entry point of ``argtypes`` gets its argument types and an ``int``
+    (``cudaError_t``) result."""
+    with _lock:
+        lib = _libs.get(source)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(source).path))
+            for name, types in argtypes.items():
+                fn = getattr(lib, name)
+                fn.argtypes = types
+                fn.restype = ctypes.c_int
+            _libs[source] = lib
+        return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if err:
+        raise RuntimeError(f"{what}: CUDA kernel launch failed with "
+                           f"cudaError {err}")

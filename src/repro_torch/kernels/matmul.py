@@ -10,30 +10,19 @@ Dispatch rule: CPU tensors take the plain version (``ref.matmul_ref``);
 CUDA tensors launch the kernel or raise — there is no fallback.
 
 The kernel is compiled with ``nvcc`` into ``_build/`` at its first CUDA
-launch (never at import, so machines without a toolkit can import this
-module), loaded with ``ctypes``, and rebuilt whenever the source's hash
-changes.
+launch (never at import) by ``_nvcc``, which all the port's kernels share.
 """
 from __future__ import annotations
 
 import ctypes
-import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
-import time
-from pathlib import Path
 
 import torch
 
+from . import _nvcc
 from .ref import matmul_ref
 
-SOURCE = Path(__file__).parent / "csrc" / "matmul.cu"
-BUILD_DIR = Path(__file__).parent / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = _nvcc.CSRC / "matmul.cu"
 
 # Rows of C per thread block (``BM`` in csrc/matmul.cu); with grid.y below
 # 2**16 it bounds M.
@@ -42,66 +31,20 @@ MAX_M = 65535 * TILE_M
 
 _ENTRY = {torch.float32: "poas_matmul_f32",
           torch.bfloat16: "poas_matmul_bf16"}
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 6 + [ctypes.c_void_p]
 
-_load_lock = threading.Lock()
 _count_lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
 
 
-@dataclasses.dataclass(frozen=True)
-class BuildInfo:
-    path: Path
-    seconds: float     # 0.0 when the library for this source already existed
-    log: str           # nvcc's output (ptxas register/shared-memory report)
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the "
-                           "CUDA matmul kernel cannot be built")
-    return path
-
-
-def build() -> BuildInfo:
+def build() -> _nvcc.BuildInfo:
     """Compile ``csrc/matmul.cu`` into ``_build/`` unless this exact source
     was built already.  Raises ``RuntimeError`` with nvcc's output on
     failure."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    path = BUILD_DIR / f"matmul-{digest}.so"
-    if path.exists():
-        return BuildInfo(path, 0.0, "")
-    nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)   # atomic: a concurrent build never sees half a file
-    return BuildInfo(path, time.perf_counter() - t0,
-                     proc.stdout + proc.stderr)
+    return _nvcc.build(SOURCE)
 
 
 def _library() -> ctypes.CDLL:
-    global _lib
-    with _load_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build().path))
-            for name in _ENTRY.values():
-                fn = getattr(lib, name)
-                fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 6 \
-                    + [ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+    return _nvcc.load(SOURCE, {name: _ARGTYPES for name in _ENTRY.values()})
 
 
 def _check_layout(x: torch.Tensor, name: str) -> None:
@@ -155,9 +98,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         err = getattr(lib, _ENTRY[out_dtype])(
             a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
             a.stride(0), b.stride(0), c.stride(0), stream)
-    if err:
-        raise RuntimeError(f"matmul: CUDA kernel launch failed with "
-                           f"cudaError {err}")
+    _nvcc.check(err, "matmul")
     with _count_lock:
         matmul.launches += 1
     return c

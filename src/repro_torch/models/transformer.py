@@ -1,0 +1,227 @@
+"""Model assembly: embedding → per-layer blocks → norm → logits, plus the
+KV-cache decode path.  One ``Model`` covers the dense, SSM, hybrid, VLM and
+audio families and MLA — family differences are config-driven.  MoE configs
+wait for ``models/moe.py``.
+
+Blocks live in an ``nn.ModuleList``, one module per layer, and run in a
+Python loop with each layer's own attention window.  Caches keep the
+reference's layout and keys: ``k``/``v`` (L, B, S, KH, hd), ``ckv``
+(L, B, S, kvr), ``krope`` (L, B, S, rope), ``state`` (L, B, nh, hp, ds) in
+f32, ``conv`` (L, B, K-1, conv_dim), and ``pos``, a Python int.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+from torch import nn
+
+from .config import ArchConfig
+from .layers import (MLA, MLP, Attention, Init, RMSNorm, _dtype, _linear,
+                     rmsnorm)
+from .ssm import SSM, init_ssm_cache
+
+_SEQ_KEYS = ("k", "v", "ckv", "krope")
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: ArchConfig, init: Init):
+        super().__init__()
+        dt = _dtype(cfg)
+        self.cfg = cfg
+        self.ln1 = RMSNorm(cfg.d_model, dt, init)
+        if cfg.attention == "mla":
+            self.attn = MLA(cfg, init)
+        elif cfg.attention in ("gqa", "swa"):
+            self.attn = Attention(cfg, init)
+        if cfg.uses_ssm:
+            self.ssm = SSM(cfg, init)
+            if cfg.family == "hybrid":
+                self.ln_attn_out = RMSNorm(cfg.d_model, dt, init)
+                self.ln_ssm_out = RMSNorm(cfg.d_model, dt, init)
+        if cfg.d_ff:
+            self.ln2 = RMSNorm(cfg.d_model, dt, init)
+            self.mlp = MLP(cfg, init)
+
+    def _mix(self, attn, ssm) -> torch.Tensor:
+        """The token mixer's residual update from the attention and/or SSM
+        branch outputs (hybrid: both, normalised and averaged)."""
+        eps = self.cfg.norm_eps
+        if self.cfg.family == "hybrid":
+            return 0.5 * (self.ln_attn_out(attn, eps)
+                          + self.ln_ssm_out(ssm, eps))
+        return ssm if self.cfg.uses_ssm else attn
+
+    def _ffn(self, x: torch.Tensor) -> torch.Tensor:
+        if self.cfg.d_ff:
+            x = x + self.mlp(self.ln2(x, self.cfg.norm_eps))
+        return x
+
+    def forward(self, x: torch.Tensor, *, window: int = 0):
+        """Full-sequence forward; returns (x, this layer's cache entry)."""
+        cfg = self.cfg
+        h = self.ln1(x, cfg.norm_eps)
+        entry: dict = {}
+        a = s = None
+        if not cfg.is_attention_free:
+            a, kv = self.attn(h, window=window)
+            entry.update(kv)
+        if cfg.uses_ssm:
+            s, st = self.ssm(h)
+            entry.update(st)
+        return self._ffn(x + self._mix(a, s)), entry
+
+    def decode(self, x: torch.Tensor, cache: dict, pos: int, *,
+               window: int = 0) -> torch.Tensor:
+        """One token; updates this layer's cache views in place."""
+        cfg = self.cfg
+        h = self.ln1(x, cfg.norm_eps)
+        a = s = None
+        if not cfg.is_attention_free:
+            a = self.attn.decode(h, cache, pos, window=window)
+        if cfg.uses_ssm:
+            s = self.ssm.decode(h, cache)
+        return self._ffn(x + self._mix(a, s))
+
+
+def _layer_windows(cfg: ArchConfig) -> list[int]:
+    """Per-layer window sizes: 0 = full attention."""
+    if cfg.attention != "swa" or not cfg.window:
+        return [0] * cfg.num_layers
+    return [0 if i in set(cfg.global_layers) else cfg.window
+            for i in range(cfg.num_layers)]
+
+
+class Model(nn.Module):
+    """The model of one ``ArchConfig`` with weights drawn from ``generator``
+    (a ``torch.Generator`` on ``device``; seed 0 when omitted).
+
+    ``logits``, ``prefill``, ``extend_cache``, ``init_cache`` and
+    ``decode_step`` follow the reference's methods; the parameters live in
+    the module, so they take no ``params`` argument.
+    """
+
+    def __init__(self, cfg: ArchConfig, *, device="cuda",
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if cfg.uses_moe:
+            raise NotImplementedError(
+                f"{cfg.name}: MoE layers are not ported yet (ROADMAP A5b, "
+                f"models/moe.py)")
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"Model({cfg.name}): device {device} asked "
+                               f"for, but torch.cuda.is_available() is False")
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        init = Init(device, generator)
+        dt = _dtype(cfg)
+        self.cfg = cfg
+        self.windows = _layer_windows(cfg)
+        self.embed = init.normal((cfg.vocab_size, cfg.d_model), 0.02, dt)
+        self.final_norm = RMSNorm(cfg.d_model, dt, init)
+        self.layers = nn.ModuleList(Block(cfg, init)
+                                    for _ in range(cfg.num_layers))
+        if not cfg.tie_embeddings:
+            self.lm_head = init.normal((cfg.d_model, cfg.vocab_size), 0.02, dt)
+        if cfg.frontend != "none":
+            self.adapter = init.normal((cfg.d_model, cfg.d_model), 0.02, dt)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    # ---- forward ----------------------------------------------------------
+
+    def embed_inputs(self, batch: dict) -> torch.Tensor:
+        """Token ids (B, S) or, for a stub frontend, embeddings (B, S, d):
+        torch tensors or anything ``np.asarray`` takes."""
+        key = "embeds" if self.cfg.frontend != "none" else "tokens"
+        x = batch[key]
+        if not isinstance(x, torch.Tensor):
+            x = torch.as_tensor(np.asarray(x))
+        if key == "embeds":
+            return _linear(x.to(self.device, _dtype(self.cfg)), self.adapter)
+        return self.embed[x.to(self.device, torch.long)]
+
+    def unembed(self) -> torch.Tensor:
+        return self.embed.T if self.cfg.tie_embeddings else self.lm_head
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        h = rmsnorm(self.final_norm.scale, x, self.cfg.norm_eps)
+        return h.float() @ self.unembed().float()
+
+    @torch.no_grad()
+    def logits(self, batch: dict) -> torch.Tensor:
+        """Full (B, S, V) logits in f32 — small inputs only (tests)."""
+        x = self.embed_inputs(batch)
+        for blk, w in zip(self.layers, self.windows):
+            x, _ = blk(x, window=w)
+        return self._head(x)
+
+    @torch.no_grad()
+    def prefill(self, batch: dict) -> tuple[torch.Tensor, dict]:
+        """Process a prompt, returning (last-token logits (B, V), cache).
+
+        The cache length equals the prompt length; callers wanting headroom
+        pad via ``extend_cache``.  MLA caches the latent; SSM caches the
+        final recurrent state + conv tail — so decode continues exactly.
+        """
+        x = self.embed_inputs(batch)
+        entries = []
+        for blk, w in zip(self.layers, self.windows):
+            x, entry = blk(x, window=w)
+            entries.append(entry)
+        cache: dict[str, Any] = {kk: torch.stack([e[kk] for e in entries])
+                                 for kk in entries[0]}
+        cache["pos"] = x.shape[1]
+        return self._head(x[:, -1:])[:, 0], cache
+
+    @staticmethod
+    def extend_cache(cache: dict, extra: int) -> dict:
+        """Pad sequence-indexed cache entries by ``extra`` zero positions."""
+        out = {}
+        for kk, vv in cache.items():
+            if kk in _SEQ_KEYS:
+                shape = list(vv.shape)
+                shape[2] = extra
+                out[kk] = torch.cat([vv, vv.new_zeros(shape)], dim=2)
+            else:
+                out[kk] = vv
+        return out
+
+    # ---- decode -------------------------------------------------------------
+
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        cfg = self.cfg
+        dt, dev, L = _dtype(cfg), self.device, cfg.num_layers
+        cache: dict[str, Any] = {"pos": 0}
+        if cfg.attention in ("gqa", "swa"):
+            shape = (L, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+            cache["k"] = torch.zeros(shape, dtype=dt, device=dev)
+            cache["v"] = torch.zeros(shape, dtype=dt, device=dev)
+        elif cfg.attention == "mla":
+            cache["ckv"] = torch.zeros((L, batch, max_len, cfg.kv_lora_rank),
+                                       dtype=dt, device=dev)
+            cache["krope"] = torch.zeros(
+                (L, batch, max_len, cfg.qk_rope_head_dim), dtype=dt,
+                device=dev)
+        if cfg.uses_ssm:
+            sc = init_ssm_cache(cfg, batch, dt, dev)
+            cache["state"] = sc["state"].expand(L, *sc["state"].shape).clone()
+            cache["conv"] = sc["conv"].expand(L, *sc["conv"].shape).clone()
+        return cache
+
+    @torch.no_grad()
+    def decode_step(self, cache: dict, batch: dict
+                    ) -> tuple[torch.Tensor, dict]:
+        """One token for every sequence.  batch: {"tokens": (B, 1)} or
+        {"embeds": (B, 1, d)}.  Returns (logits (B, V), cache): the cache's
+        tensors are updated in place and its ``pos`` advanced by one."""
+        x = self.embed_inputs(batch)
+        pos = int(cache["pos"])
+        for i, (blk, w) in enumerate(zip(self.layers, self.windows)):
+            layer = {kk: vv[i] for kk, vv in cache.items() if kk != "pos"}
+            x = blk.decode(x, layer, pos, window=w)
+        return self._head(x)[:, 0], dict(cache, pos=pos + 1)

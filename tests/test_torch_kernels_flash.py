@@ -1,0 +1,131 @@
+"""The port's K2 wrapper (``repro_torch.kernels.flash_attention``) against
+the JAX package's Pallas flash kernel (interpret mode) and its oracle, on
+the CPU.
+
+On CPU tensors the wrapper runs its plain version; the CUDA kernel itself is
+held against that plain version on the card by ``chip_smoke.py``.  Inputs
+are made with numpy from a seed and handed to both packages.  Tolerances
+are the reference's own (``tests/test_kernels_flash.py``): 2e-5 in float32,
+2e-2 in bfloat16.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention_pallas
+from repro.kernels.ref import flash_attention_ref as jax_flash_ref
+from repro.models.layers import flash_attention as jax_model_flash
+from repro_torch.kernels import flash_attention
+from repro_torch.kernels.flash_attention import build
+from repro_torch.kernels.ref import flash_attention_ref
+
+DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def _qkv(seed, B, Sq, Skv, H, KH, Dk, Dv, dtype):
+    """The same q, k, v as JAX arrays and torch tensors."""
+    rng = np.random.default_rng(seed)
+    jdt, tdt, _ = DTYPES[dtype]
+    xs = [rng.standard_normal(s).astype(np.float32)
+          for s in ((B, Sq, H, Dk), (B, Skv, KH, Dk), (B, Skv, KH, Dv))]
+    return ([jnp.asarray(x).astype(jdt) for x in xs],
+            [torch.from_numpy(x).to(tdt) for x in xs])
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+CASES = {   # B, Sq, Skv, H, KH, Dk, Dv, causal, window, (bq, bk)
+    "causal-mha": (1, 128, 128, 4, 4, 64, 64, True, 0, (64, 64)),
+    "mqa-ragged-blocks": (1, 96, 96, 4, 1, 128, 128, True, 0, (64, 64)),
+    "window": (1, 128, 128, 4, 2, 32, 32, True, 16, (64, 64)),
+    "noncausal": (2, 64, 64, 4, 4, 32, 32, False, 0, (32, 64)),
+    "gqa-window-ragged": (1, 77, 77, 4, 2, 32, 32, True, 20, (64, 64)),
+    "mla-dk96-dv64": (1, 70, 70, 2, 2, 96, 64, True, 0, (64, 64)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_matches_pallas_and_oracle(case, dtype):
+    B, Sq, Skv, H, KH, Dk, Dv, causal, window, (bq, bk) = CASES[case]
+    (jq, jk, jv), (tq, tk, tv) = _qkv(len(case), B, Sq, Skv, H, KH, Dk, Dv,
+                                      dtype)
+    out = flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert out.dtype == DTYPES[dtype][1]
+    assert tuple(out.shape) == (B, Sq, H, Dv)
+    pallas = flash_attention_pallas(jq, jk, jv, causal=causal, window=window,
+                                    block_q=bq, block_k=bk, interpret=True)
+    oracle = jax_flash_ref(jq, jk, jv, causal=causal, window=window)
+    tol = DTYPES[dtype][2]
+    np.testing.assert_allclose(_f32(out), _f32(pallas), rtol=tol, atol=tol)
+    np.testing.assert_allclose(_f32(out), _f32(oracle), rtol=tol, atol=tol)
+
+
+def test_flash_matches_model_stack_flash():
+    """The port's K2 and the reference model stack's chunked flash agree
+    (the reference model never calls its Pallas kernel)."""
+    (jq, jk, jv), (tq, tk, tv) = _qkv(2, 2, 128, 128, 8, 2, 64, 64,
+                                      "float32")
+    out = flash_attention(tq, tk, tv, causal=True, window=48)
+    ref = jax_model_flash(jq, jk, jv, causal=True, window=48, kv_chunk=64)
+    np.testing.assert_allclose(_f32(out), _f32(ref), rtol=2e-5, atol=2e-5)
+
+
+def test_flash_scale_and_strided_inputs():
+    """An explicit scale, and q/k/v that are strided views (the model hands
+    the kernel slices), give the oracle's result."""
+    (jq, jk, jv), (tq, tk, tv) = _qkv(5, 1, 40, 40, 4, 2, 32, 32, "float32")
+    wide = torch.cat([tq, tq], dim=-1)[..., :32]          # non-contiguous
+    assert not wide.is_contiguous()
+    out = flash_attention(wide, tk, tv, scale=0.3)
+    oracle = jax_flash_ref(jq, jk, jv, scale=0.3)
+    np.testing.assert_allclose(_f32(out), _f32(oracle), rtol=2e-5, atol=2e-5)
+
+
+def test_plain_version_masks_with_a_select():
+    """A window of 1 keeps only the diagonal: the output is v itself."""
+    _, (tq, tk, tv) = _qkv(7, 1, 16, 16, 2, 2, 8, 8, "float32")
+    out = flash_attention_ref(tq, tk, tv, window=1)
+    torch.testing.assert_close(out, tv, rtol=0, atol=1e-6)
+
+
+def test_rejects_bad_inputs():
+    q = torch.zeros(1, 8, 4, 16)
+    k = torch.zeros(1, 8, 3, 16)
+    with pytest.raises(ValueError, match="do not group"):
+        flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="disagree"):
+        flash_attention(q, torch.zeros(1, 8, 2, 8), torch.zeros(1, 8, 2, 8))
+    with pytest.raises(TypeError, match="float32 or"):
+        flash_attention(q.half(), q.half(), q.half())
+    meta = torch.empty((1, 8, 4, 16), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_attention(meta, meta, meta)
+
+
+def test_cpu_calls_do_not_count_launches():
+    before = flash_attention.launches
+    x = torch.ones(1, 8, 2, 16)
+    flash_attention(x, x, x)
+    flash_attention(x.bfloat16(), x.bfloat16(), x.bfloat16(), window=3)
+    assert flash_attention.launches == before
+
+
+def test_cuda_without_a_card_raises(monkeypatch, tmp_path):
+    """No fallback: without a card no CUDA tensor can reach the wrapper,
+    and without a toolkit the kernel cannot be built — both raise."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises((AssertionError, RuntimeError)):
+        torch.zeros(1, device="cuda")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr("repro_torch.kernels._nvcc.BUILD_DIR", tmp_path)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build()

@@ -1,0 +1,139 @@
+"""The port's model stack (``repro_torch.models``) against the reference
+model (``repro.models.Model``) on the CPU, for every non-MoE architecture at
+its tiny config (float32).
+
+Weights are the reference's ``Model.init(PRNGKey(0))`` loaded into the port
+through ``params_from_reference``; tokens (or stub-frontend embeddings) are
+made with numpy from a seed.  S = 40 crosses the tiny sliding window (32)
+and five SSD chunks (8).  Tolerance 1e-4 (rtol and atol) on float32 logits
+and caches: the two stacks sum in different orders (the port's K2 plain
+version takes a full softmax where the reference scans KV chunks, and the
+port's chunk recurrence is a loop where the reference's is an associative
+scan).
+"""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCH_IDS as REF_ARCH_IDS
+from repro.configs import get_config as ref_config
+from repro.configs import get_tiny_config as ref_tiny_config
+from repro.models import Model as RefModel
+from repro_torch.configs import ARCH_IDS, get_config, get_tiny_config
+from repro_torch.models import Model
+from repro_torch.models.convert import params_from_reference
+
+B, S, DECODE_STEPS = 2, 40, 4
+TOL = 1e-4
+MOE = [a for a in ARCH_IDS if get_config(a).uses_moe]
+DENSE = [a for a in ARCH_IDS if a not in MOE]
+
+
+def _pair(arch):
+    cfg = ref_tiny_config(arch)
+    ref = RefModel(cfg)
+    params = ref.init(jax.random.PRNGKey(0))
+    tree = jax.tree_util.tree_map(np.asarray, params)
+    port = params_from_reference(get_tiny_config(arch), tree)
+    return cfg, ref, params, port
+
+
+def _inputs(cfg, seed, steps):
+    """A prompt of S positions and ``steps`` single-position decode inputs,
+    as numpy arrays (tokens, or embeddings for a stub frontend)."""
+    rng = np.random.default_rng(seed)
+    if cfg.frontend != "none":
+        x = (rng.standard_normal((B, S + steps, cfg.d_model)) * 0.02
+             ).astype(np.float32)
+        key = "embeds"
+    else:
+        x = rng.integers(0, cfg.vocab_size, (B, S + steps)).astype(np.int32)
+        key = "tokens"
+    return key, x[:, :S], [x[:, S + t:S + t + 1] for t in range(steps)]
+
+
+def _close(got, want, what):
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want,
+                                                               np.float32),
+                               rtol=TOL, atol=TOL, err_msg=what)
+
+
+def test_configs_are_the_reference_configs():
+    assert ARCH_IDS == REF_ARCH_IDS
+    for arch in ARCH_IDS:      # two classes of the same fields and values
+        assert (dataclasses.asdict(get_config(arch))
+                == dataclasses.asdict(ref_config(arch)))
+        assert (dataclasses.asdict(get_tiny_config(arch))
+                == dataclasses.asdict(ref_tiny_config(arch)))
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_logits_match_reference(arch):
+    cfg, ref, params, port = _pair(arch)
+    key, prompt, _ = _inputs(cfg, 1, 0)
+    want = ref.logits(params, {key: prompt})
+    got = port.logits({key: prompt})
+    assert got.dtype == torch.float32
+    _close(got, want, f"{arch}: logits")
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_prefill_and_decode_match_reference(arch):
+    cfg, ref, params, port = _pair(arch)
+    key, prompt, steps = _inputs(cfg, 2, DECODE_STEPS)
+    want_logits, want_cache = jax.jit(ref.prefill)(params, {key: prompt})
+    got_logits, got_cache = port.prefill({key: prompt})
+    _close(got_logits, want_logits, f"{arch}: prefill logits")
+    assert sorted(got_cache) == sorted(want_cache)
+
+    want_cache = ref.extend_cache(want_cache, DECODE_STEPS)
+    got_cache = port.extend_cache(got_cache, DECODE_STEPS)
+    step = jax.jit(ref.decode_step)
+    for t, x in enumerate(steps, 1):
+        want_logits, want_cache = step(params, want_cache, {key: x})
+        got_logits, got_cache = port.decode_step(got_cache, {key: x})
+        _close(got_logits, want_logits, f"{arch}: decode step {t} logits")
+        assert got_cache["pos"] == int(want_cache["pos"]) == S + t
+        for name in sorted(k for k in want_cache if k != "pos"):
+            _close(got_cache[name], want_cache[name],
+                   f"{arch}: decode step {t} cache {name!r}")
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_init_cache_matches_reference(arch):
+    cfg = get_tiny_config(arch)
+    want = RefModel(ref_tiny_config(arch)).init_cache(3, 11)
+    got = Model(cfg, device="cpu").init_cache(3, 11)
+    assert sorted(got) == sorted(want) and got["pos"] == int(want["pos"]) == 0
+    for name in (k for k in want if k != "pos"):
+        assert tuple(got[name].shape) == want[name].shape, name
+        assert str(got[name].dtype).split(".")[-1] == str(want[name].dtype)
+        assert not got[name].any()
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_configs_wait_for_their_module(arch):
+    with pytest.raises(NotImplementedError, match="A5b"):
+        Model(get_tiny_config(arch), device="cpu")
+
+
+def test_cuda_model_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        Model(get_tiny_config("hymba-1_5b"))      # the default device
+
+
+def test_seeded_weights_are_reproducible():
+    cfg = get_tiny_config("hymba-1_5b")
+    a = Model(cfg, device="cpu",
+              generator=torch.Generator().manual_seed(3))
+    b = Model(cfg, device="cpu",
+              generator=torch.Generator().manual_seed(3))
+    for (na, pa), (nb, pb) in zip(a.state_dict().items(),
+                                  b.state_dict().items()):
+        assert na == nb and torch.equal(pa, pb)
+    assert a.windows == [0, 32]                   # global layer 0, then SWA
