@@ -7,11 +7,16 @@ Phases, each printing its own lines (no phase catches its own failure; any
 failed check exits non-zero):
 
 1. env     — card name and power limit, torch/CUDA/nvcc versions.
-2. build   — compile the three hand-written CUDA kernels from the checkout,
-             one ``nvcc`` each, all started together.
+2. build   — compile the four hand-written CUDA sources from the checkout
+             (K1, K2 on both routes, K3), one ``nvcc`` each, all started
+             together; ptxas's registers and spills for each kernel.
 3. kernel  — every kernel against its plain PyTorch version on the card, at
              test shapes and at the main path's shapes, with times beside
-             the card's bound and a PyTorch library call.
+             the card's bound and a PyTorch library call.  K2 runs bf16 at
+             head dims that are multiples of 16 on its tensor-core route
+             (``sm90``), and float32 and bf16 at other head dims on its
+             CUDA-core route (``simt``); every row prints its route and
+             fails if it is not the rule's.
 4. predict — fit the node (host CPU + card) with ``Profiler``/``fit_linear``
              and a timed host->device copy; no rate is hard-coded.
 5. main    — ``HGemms(fitted, device="cuda").execute`` on the paper's
@@ -19,13 +24,16 @@ failed check exits non-zero):
              invariants of the measured timeline held, sampled rows of C
              checked against float64, then the card alone for comparison.
 6. serve   — hymba-1.5B at full width (weights from a seed): (a) in float32,
-             prefill through K2/K3 against decode through plain torch on a
-             1300-token prompt; (b) in bfloat16, eight requests dispatched by
+             prefill through K2 (``simt``)/K3 against decode through plain
+             torch on a 1300-token prompt, K2 launches counted per route;
+             (b) in bfloat16, eight requests dispatched by
              ``PoasDispatcher`` over two groups and served by
              ``ServingEngine``, with K2/K3 launches counted (32 each per
-             prefill); (c) one bucket's prefill and decode steps traced with
-             ``torch.profiler``; then K2 and K3 held against their plain
-             versions and timed at that run's shapes.
+             prefill, every K2 launch on ``sm90``); (c) one bucket's prefill
+             and decode steps traced with ``torch.profiler``; then K2 and K3
+             held against their plain versions and timed at those runs'
+             shapes (at window 0 K2 is also timed against sdpa's
+             ``is_causal`` form).
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or run outside the
@@ -56,6 +64,9 @@ from repro_torch.core import (CopyModel, DeviceProfile, HGemms,  # noqa: E402
 from repro_torch.kernels import (flash_attention, matmul,  # noqa: E402
                                  ssd_chunk)
 from repro_torch.kernels.flash_attention import build as build_k2  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    build_sm90 as build_k2_sm90, reset_counts as reset_k2_counts, route,
+    sm90_smem_bytes)
 from repro_torch.kernels.matmul import build  # noqa: E402
 from repro_torch.kernels.ref import (flash_attention_ref,  # noqa: E402
                                      matmul_ref, ssd_chunk_ref)
@@ -81,6 +92,7 @@ DTYPE_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 SERVE_ARCH = "hymba-1_5b"
 DEV = "cuda"
 SERVE_REQUESTS, SERVE_MAX_NEW = 8, 16
+SERVE_A_PROMPT = 1300     # tokens of phase (a)'s float32 prompt
 
 
 def fail(msg: str) -> None:
@@ -155,19 +167,36 @@ def band_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
     return int(np.maximum(0, hi - lo + 1).sum())
 
 
+def k2_counts() -> tuple[int, int]:
+    return flash_attention.launches_sm90, flash_attention.launches_simt
+
+
 def flash_row(label, gen, B, S, H, KH, Dk, Dv, window, dtype,
               causal=True) -> dict:
     """K2 against its plain version on the same card tensors, then kernel,
-    plain version and ``scaled_dot_product_attention`` timed."""
+    plain version and ``scaled_dot_product_attention`` timed (at window 0,
+    also sdpa's ``is_causal`` form, which needs no mask tensor and may take
+    PyTorch's flash backend).  Fails if the launch did not take the route
+    that ``route`` names, or bf16 at head dims that are multiples of 16 did
+    not run on the tensor cores."""
     name = DTYPE_NAME[dtype]
     q, k, v = (torch.randn(shape, generator=gen, device=DEV).to(dtype)
                for shape in ((B, S, H, Dk), (B, S, KH, Dk), (B, S, KH, Dv)))
+    kind = route(dtype, Dk, Dv)
+    before = k2_counts()
     out = flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
+    ran = [r for r, a, b in zip(("sm90", "simt"), k2_counts(), before)
+           if a > b]
+    check(ran == [kind], f"K2 {label}: launched on {ran}, route says {kind}")
+    if dtype == torch.bfloat16 and Dk % 16 == 0 and Dv % 16 == 0:
+        check(kind == "sm90", f"K2 {label}: bf16 at Dk {Dk}, Dv {Dv} did not "
+              f"take the tensor-core route")
     plain = flash_attention_ref(q, k, v, causal=causal, window=window)
     diff = (out.float() - plain.float()).abs()
     tol = K2_TOL[name]
-    row = {"label": label, "dtype": name, "max_abs_err": float(diff.max()),
+    row = {"label": label, "dtype": name, "route": kind,
+           "max_abs_err": float(diff.max()),
            "violations": int((diff > tol + tol * plain.float().abs()).sum()),
            "tol": tol}
     del out, plain, diff
@@ -186,17 +215,27 @@ def flash_row(label, gen, B, S, H, KH, Dk, Dv, window, dtype,
         lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, scale=1.0 / math.sqrt(Dk),
             enable_gqa=True))
+    causal_text = ""
+    if causal and window == 0:
+        row["library_causal_ms"] = cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, scale=1.0 / math.sqrt(Dk),
+                enable_gqa=True))
+        causal_text = (f" library_causal_ms={row['library_causal_ms']:.4f} "
+                       f"(sdpa, is_causal, enable_gqa)")
     size = q.element_size()
     ops = 2.0 * B * H * band_pairs(S, S, causal, window) * (Dk + Dv)
     nbytes = size * (B * S * H * (Dk + Dv) + B * S * KH * (Dk + Dv))
     row["bound_ms"], row["bound_by"] = roofline(ops, nbytes, name)
+    smem = (f", {sm90_smem_bytes(Dk, Dv) / 1024:.0f} KiB dynamic shared "
+            f"memory" if kind == "sm90" else "")
     say("kernel", f"K2 {label} B{B} S{S} H{H}/{KH} Dk{Dk} Dv{Dv} "
-        f"window {window}{'' if causal else ' noncausal'} {name}: vs plain "
-        f"max_abs_err={row['max_abs_err']:.3e} violations="
-        f"{row['violations']} (rtol=atol={tol}); kernel_ms="
+        f"window {window}{'' if causal else ' noncausal'} {name} route "
+        f"{kind}{smem}: vs plain max_abs_err={row['max_abs_err']:.3e} "
+        f"violations={row['violations']} (rtol=atol={tol}); kernel_ms="
         f"{row['kernel_ms']:.4f} plain_ms={row['plain_ms']:.4f} library_ms="
-        f"{row['library_ms']:.4f} (sdpa, bool mask, enable_gqa) "
-        + bound_text(row))
+        f"{row['library_ms']:.4f} (sdpa, bool mask, enable_gqa)"
+        f"{causal_text} " + bound_text(row))
     check(row["violations"] == 0, f"K2 disagrees with its plain version: "
           f"{row}")
     return row
@@ -334,7 +373,8 @@ def prefill_matches_decode(cfg, gen) -> None:
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     model = Model(cfg32, device=DEV,
                   generator=torch.Generator(DEV).manual_seed(0))
-    prompt = np.random.default_rng(1).integers(1, cfg.vocab_size, 1300)
+    prompt = np.random.default_rng(1).integers(1, cfg.vocab_size,
+                                               SERVE_A_PROMPT)
     fed: list[int] = []
 
     def prefill(tokens):
@@ -353,7 +393,8 @@ def prefill_matches_decode(cfg, gen) -> None:
             ok = torch.allclose(logits, want, rtol=PREFILL_DECODE_TOL,
                                 atol=PREFILL_DECODE_TOL)
             say("serve", f"(a) float32 decode step {step} (position "
-                f"{1299 + step}) vs prefill of {1300 + step} tokens: "
+                f"{SERVE_A_PROMPT - 1 + step}) vs prefill of "
+                f"{SERVE_A_PROMPT + step} tokens: "
                 f"max_abs_err={err:.3e}, logits std {float(want.std()):.3e}"
                 f", allclose(rtol=atol={PREFILL_DECODE_TOL})={ok}")
             check(bool(torch.isfinite(logits).all()), "decode logits are not "
@@ -432,8 +473,14 @@ def serve(gen) -> tuple[dict, dict, dict]:
         f"vocab {cfg.vocab_size}; {cfg.param_count() / 1e9:.3f} B params "
         f"(ArchConfig.param_count), weights from seed 0")
     t0 = time.perf_counter()
+    reset_k2_counts()
     prefill_matches_decode(cfg, gen)
-    say("serve", f"(a) done in {time.perf_counter() - t0:.1f} s")
+    sm90_a, simt_a = k2_counts()
+    say("serve", f"(a) done in {time.perf_counter() - t0:.1f} s; K2 launches "
+        f"sm90 {sm90_a}, simt {simt_a}")
+    check(sm90_a == 0 and simt_a == 5 * cfg.num_layers,
+          f"(a) five float32 prefills launched K2 sm90 {sm90_a}, simt "
+          f"{simt_a} times, not 0 and {5 * cfg.num_layers}")
 
     model = Model(cfg, device=DEV,
                   generator=torch.Generator(DEV).manual_seed(0))
@@ -456,20 +503,24 @@ def serve(gen) -> tuple[dict, dict, dict]:
     engine.generate([Request(uid=-1, tokens=rng.integers(
         1, cfg.vocab_size, 300), max_new_tokens=2)])   # warm-up, not counted
 
-    flash_attention.launches = 0
+    reset_k2_counts()
     ssd_chunk.launches = 0
     shapes = []
     for gi, bucket in enumerate(buckets):
         if not bucket:
             continue
         f0, s0 = flash_attention.launches, ssd_chunk.launches
+        sm0 = flash_attention.launches_sm90
         torch.cuda.reset_peak_memory_stats()
         done = engine.generate(bucket)
         peak = torch.cuda.max_memory_allocated()
         df, dss = flash_attention.launches - f0, ssd_chunk.launches - s0
+        dsm = flash_attention.launches_sm90 - sm0
         check(df == cfg.num_layers and dss == cfg.num_layers,
               f"bucket {gi}: one prefill launched K2 {df} and K3 {dss} "
               f"times, not {cfg.num_layers} each")
+        check(dsm == df, f"bucket {gi}: {df - dsm} of {df} bf16 K2 launches "
+              f"did not take the sm90 route")
         for c in done:
             check(len(c.tokens) == SERVE_MAX_NEW and bool(
                 ((c.tokens >= 0) & (c.tokens < cfg.vocab_size)).all()),
@@ -487,27 +538,35 @@ def serve(gen) -> tuple[dict, dict, dict]:
             f"max_memory_allocated {peak / 2**30:.3f} GiB; K2 +{df}, K3 "
             f"+{dss}; first completion {done[0].tokens.tolist()}")
         shapes.append((B * plen, B, plen))
-    launches = {"flash_attention": flash_attention.launches,
+    launches = {"flash_attention/sm90": flash_attention.launches_sm90,
+                "flash_attention/simt": simt_a,
                 "ssd_chunk": ssd_chunk.launches}
-    say("serve", f"(b) main path launches: {launches}")
+    say("serve", f"(b) main path launches: {launches} (K2 simt: phase (a), "
+        f"float32; sm90 and K3: phase (b))")
     check(all(n > 0 for n in launches.values()),
           "the serve path launched no K2 or K3")
+    check(flash_attention.launches_simt == 0,
+          "the bf16 serve path launched the simt K2")
     profile_serve(model, max(buckets, key=len))
     del model, engine
     torch.cuda.empty_cache()
 
-    # (c) K2 and K3 at the largest bucket's prefill shapes.
+    # (c) K2 and K3 at the largest bucket's prefill shapes; K2's simt route
+    # at phase (a)'s float32 prompt.
     _, B, S = max(shapes)
     k2 = flash_row("serve-path", gen, B, S, cfg.num_heads, cfg.num_kv_heads,
                    cfg.head_dim, cfg.head_dim, cfg.window, torch.bfloat16)
     flash_row("serve-path", gen, B, S, cfg.num_heads, cfg.num_kv_heads,
               cfg.head_dim, cfg.head_dim, 0, torch.bfloat16)
+    k2_simt = flash_row("serve-a", gen, 1, SERVE_A_PROMPT, cfg.num_heads,
+                        cfg.num_kv_heads, cfg.head_dim, cfg.head_dim,
+                        cfg.window, torch.float32)
     Q = min(cfg.ssm_chunk, S)
     k3 = ssd_row("serve-path", gen, B, -(-S // Q), Q, cfg.ssm_heads,
                  cfg.ssm_groups, cfg.ssm_head_dim, cfg.ssm_state,
                  torch.float32)
     torch.cuda.empty_cache()
-    return k2, k3, launches
+    return {"sm90": k2, "simt": k2_simt}, k3, launches
 
 
 def main() -> None:
@@ -534,14 +593,16 @@ def main() -> None:
 
     # ---- 2. build: one nvcc per source, all started together --------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        infos = list(pool.map(lambda f: f(), (build, build_k2, build_k3)))
+    builders = (build, build_k2, build_k2_sm90, build_k3)
+    with ThreadPoolExecutor(len(builders)) as pool:
+        infos = list(pool.map(lambda f: f(), builders))
     for info in infos:
         say("build", f"{info.path.relative_to(ROOT)} in {info.seconds:.1f} s")
-        for line in info.log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
+        for line in info.log.splitlines():   # ptxas -v, one kernel each
+            if ("Compiling entry" in line or "Used" in line
+                    or "spill" in line):
                 say("build", line.strip())
-    say("build", f"all three in {time.perf_counter() - t0:.1f} s wall")
+    say("build", f"all four in {time.perf_counter() - t0:.1f} s wall")
 
     # ---- 3. kernel vs plain version (test shapes) ------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -592,6 +653,15 @@ def main() -> None:
         flash_row("gqa-window-ragged", gen, 2, 1037, 25, 5, 64, 64, 256, dt)
         flash_row("mla", gen, 2, 300, 8, 8, 96, 64, 0, dt)
         flash_row("head-dim-160", gen, 1, 333, 8, 2, 160, 160, 0, dt)
+    # bf16 at head dims that are not multiples of 16 takes the CUDA-core
+    # kernel's bf16 entry; no configuration has such dims.
+    for label, B, S, H, KH, Dk, Dv, window in (
+            ("bf16-simt-40", 2, 257, 8, 2, 40, 40, 0),
+            ("bf16-simt-64-40", 1, 300, 8, 8, 64, 40, 0),
+            ("bf16-simt-40-window", 1, 333, 4, 2, 40, 40, 64)):
+        row = flash_row(label, gen, B, S, H, KH, Dk, Dv, window, bf16)
+        check(row["route"] == "simt", f"K2 {label}: bf16 at Dk {Dk}, Dv {Dv} "
+              f"ran {row['route']}, not the CUDA-core route")
     # K3 at the shapes of tests/test_kernels_ssd.py, a ragged Q, and the
     # chunk shapes of hymba-1.5B and mamba2-2.7b at ssm_chunk 256.
     for label, shape, dt in (
@@ -721,7 +791,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- 6. serve: hymba-1.5B at full width -------------------------------
-    k2_row, k3_row, serve_launches = serve(gen)
+    k2_rows, k3_row, serve_launches = serve(gen)
     say("serve", f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = [{"name": "matmul", "route": "cuda",
@@ -735,7 +805,10 @@ def main() -> None:
                 "bound_by": main_row["bound_by"],
                 "library_ms": main_row["library_ms"]}]
     for name, row, source, replaces in (
-            ("flash_attention", k2_row,
+            ("flash_attention/sm90", k2_rows["sm90"],
+             "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+             "src/repro/kernels/flash_attention.py:70"),
+            ("flash_attention/simt", k2_rows["simt"],
              "src/repro_torch/kernels/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:70"),
             ("ssd_chunk", k3_row, "src/repro_torch/kernels/csrc/ssd_chunk.cu",

@@ -1,14 +1,18 @@
 """Hand-written Hopper kernels for the port's compute hot spots.
 
 * ``matmul``          — K1, the hgemms per-device GEMM (``csrc/matmul.cu``)
-* ``flash_attention`` — K2, causal / windowed GQA attention for prefill
-                        (``csrc/flash_attention.cu``)
+* ``flash_attention`` — K2, causal / windowed GQA attention for prefill:
+                        bf16 on the tensor cores
+                        (``csrc/flash_attention_sm90.cu``), float32 on the
+                        CUDA cores (``csrc/flash_attention.cu``), chosen by
+                        ``flash_attention.route``
 * ``ssd_chunk``       — K3, the Mamba-2 SSD intra-chunk part
                         (``csrc/ssd_chunk.cu``)
 
 Each kernel has a plain PyTorch version in ``ref.py``.  A wrapper runs the
 plain version on CPU tensors and the kernel on CUDA tensors, and keeps a
-count of kernel launches (``matmul.launches``, ``flash_attention.launches``,
+count of kernel launches (``matmul.launches``, ``flash_attention.launches``
+with ``.launches_sm90`` and ``.launches_simt`` per route,
 ``ssd_chunk.launches``).  ``_nvcc`` builds every source at its first launch.
 """
 from .flash_attention import flash_attention

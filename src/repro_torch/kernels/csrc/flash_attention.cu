@@ -8,14 +8,17 @@
 // (k_pos > q_pos - window, window 0 = full) and padding (k_pos < Skv);
 // query head h reads KV head h // (H / KH); the output is in q's dtype.
 //
+// Route: the wrapper sends float32 here (IEEE f32, which the 2e-5 gate
+// needs and TF32 cannot meet) and bf16 only at head dims that are not
+// multiples of 16; bf16 at multiples of 16 runs on the tensor cores in
+// flash_attention_sm90.cu.
+//
 // What bounds it on this card: at hymba-1.5B's prefill (25 query heads,
 // head_dim 64, prompts of a few thousand tokens) the two products do
 // ~4 * Sq * band * Dk operations per head against ~2 * S * D bytes per head
-// read and written, hundreds of operations per byte: it is operation bound.
-// Its bound is the bf16 tensor-core peak (989 TFLOP/s), yet this first
-// kernel keeps the Pallas kernel's f32 arithmetic on the CUDA cores
-// (67 TFLOP/s), so it runs far from that bound; wgmma on bf16 q and k is
-// exact for the first product and is later work, with TMA and pipelining.
+// read and written, hundreds of operations per byte: it is operation bound,
+// by the 67 TFLOP/s f32 CUDA-core peak for float32 inputs.  It keeps the
+// Pallas kernel's f32 arithmetic.
 //
 // What the design does about it:
 //  * One block per (q-tile of 64 rows, q-head, batch); the TPU's sequential

@@ -1,13 +1,19 @@
-"""K2: the hand-written Hopper flash attention — wrapper and launch count.
+"""K2: the hand-written Hopper flash attention — wrappers and launch counts.
 
-Replaces ``src/repro/kernels/flash_attention.py::flash_attention_pallas``.
-The kernel is ``csrc/flash_attention.cu`` (CUDA C++ for ``sm_90a``; its
-header says what bounds it on an H100 and what the design does about it),
-built at its first CUDA launch by ``_nvcc``.
+Replaces ``src/repro/kernels/flash_attention.py::flash_attention_pallas``
+with two CUDA C++ kernels for ``sm_90a`` (each source's header says what
+bounds it on an H100 and what its design does about it), built at their
+first CUDA launch by ``_nvcc``:
 
-Dispatch rule: CPU tensors take the plain version
-(``ref.flash_attention_ref``); CUDA tensors launch the kernel or raise —
-there is no fallback.
+* ``csrc/flash_attention_sm90.cu`` — bf16 on the tensor cores (wgmma, a
+  cp.async ring of K/V tiles); route ``"sm90"``.
+* ``csrc/flash_attention.cu`` — IEEE f32 arithmetic on the CUDA cores, for
+  float32 (whose 2e-5 gate TF32 cannot meet) and bf16 at head dims the
+  tensor-core kernel does not take; route ``"simt"``.
+
+``route(dtype, dk, dv)`` is the whole rule.  CPU tensors take the plain
+version (``ref.flash_attention_ref``); CUDA tensors launch the kernel of
+their route or raise — there is no fallback from one kernel to the other.
 """
 from __future__ import annotations
 
@@ -21,12 +27,17 @@ from . import _nvcc
 from .ref import flash_attention_ref
 
 SOURCE = _nvcc.CSRC / "flash_attention.cu"
-MAX_HEAD_DIM = 256       # the kernel's shared-memory budget at BQ = BK = 64
+SOURCE_SM90 = _nvcc.CSRC / "flash_attention_sm90.cu"
+MAX_HEAD_DIM = 256       # both kernels' shared-memory budget at BQ = BK = 64
 _ENTRY = {torch.float32: "poas_flash_f32",
           torch.bfloat16: "poas_flash_bf16"}
+_ENTRY_SM90 = "poas_flash_sm90_bf16"
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 7
              + [ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int64] * 2
              + [ctypes.c_float, ctypes.c_void_p])
+_ENTRIES = {n: _ARGTYPES for n in _ENTRY.values()}
+_ENTRIES_SM90 = {_ENTRY_SM90: _ARGTYPES,
+                 "poas_flash_sm90_smem": [ctypes.c_int64] * 2}
 
 _count_lock = threading.Lock()
 
@@ -34,6 +45,36 @@ _count_lock = threading.Lock()
 def build() -> _nvcc.BuildInfo:
     """Compile ``csrc/flash_attention.cu`` into ``_build/`` (see ``_nvcc``)."""
     return _nvcc.build(SOURCE)
+
+
+def build_sm90() -> _nvcc.BuildInfo:
+    """Compile ``csrc/flash_attention_sm90.cu`` into ``_build/``."""
+    return _nvcc.build(SOURCE_SM90)
+
+
+def sm90_smem_bytes(dk: int, dv: int) -> int:
+    """Dynamic shared memory an sm90 launch at head dims ``dk``, ``dv``
+    requests, as the kernel's source computes it (builds it if needed)."""
+    return _nvcc.load(SOURCE_SM90, _ENTRIES_SM90).poas_flash_sm90_smem(dk, dv)
+
+
+def route(dtype: torch.dtype, dk: int, dv: int) -> str:
+    """Which kernel a CUDA call runs: ``"sm90"`` (bf16 on the tensor cores)
+    for bfloat16 with Dk and Dv multiples of 16 up to 256, else ``"simt"``
+    (IEEE f32 on the CUDA cores): float32, and bf16 at other head dims."""
+    if dtype == torch.bfloat16 and all(
+            0 < d <= MAX_HEAD_DIM and d % 16 == 0 for d in (dk, dv)):
+        return "sm90"
+    return "simt"
+
+
+def _aligned16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` if its rows start on 16-byte boundaries (what the sm90 kernel's
+    16-byte copies need), else a contiguous copy of it."""
+    step = 16 // x.element_size()
+    if x.data_ptr() % 16 or any(st % step for st in x.stride()[:3]):
+        return x.clone(memory_format=torch.contiguous_format)
+    return x
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -54,6 +95,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise TypeError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, "
                         f"{v.dtype}; the kernel takes one of float32 or "
                         f"bfloat16 for all three")
+    Dv = v.shape[3]
+    if not (1 <= Dk <= MAX_HEAD_DIM and 1 <= Dv <= MAX_HEAD_DIM):
+        raise ValueError(f"flash_attention: head dims Dk={Dk}, Dv={Dv}; the "
+                         f"kernels take 1..{MAX_HEAD_DIM}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -65,9 +110,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bfloat16, unit stride on the last dim (other strides are read as they
     are).  GQA: query head h reads KV head h // (H / KH).  ``window`` > 0
     keeps the last ``window`` keys of each query; 0 is full attention.
-    CPU tensors run the plain version; CUDA tensors launch the kernel on
-    the current stream without synchronising, and raise if the kernel
-    cannot be built or launched.
+    CPU tensors run the plain version; CUDA tensors launch the kernel that
+    ``route`` names on the current stream without synchronising, and raise
+    if it cannot be built or launched.
     """
     _check(q, k, v)
     window = int(window)
@@ -78,9 +123,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     B, Sq, H, Dk = q.shape
     Skv, KH, Dv = k.shape[1], k.shape[2], v.shape[3]
-    if not (1 <= Dk <= MAX_HEAD_DIM and 1 <= Dv <= MAX_HEAD_DIM):
-        raise ValueError(f"flash_attention: head dims Dk={Dk}, Dv={Dv}; the "
-                         f"kernel takes 1..{MAX_HEAD_DIM}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.stride(3) != 1:
             raise ValueError(f"flash_attention: {name} needs unit stride on "
@@ -89,21 +131,42 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: B={B}, H={H} exceed the grid")
     if scale is None:
         scale = 1.0 / math.sqrt(Dk)
+    kind = route(q.dtype, Dk, Dv)
+    if kind == "sm90":   # built, or raises, before anything is allocated
+        entry = getattr(_nvcc.load(SOURCE_SM90, _ENTRIES_SM90), _ENTRY_SM90)
+    else:
+        entry = getattr(_nvcc.load(SOURCE, _ENTRIES), _ENTRY[q.dtype])
     o = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     if o.numel() == 0:
         return o
+    if kind == "sm90":
+        q, k, v = _aligned16(q), _aligned16(k), _aligned16(v)
     strides = (ctypes.c_int64 * 12)(*(s for x in (q, k, v, o)
                                       for s in x.stride()[:3]))
-    lib = _nvcc.load(SOURCE, {name: _ARGTYPES for name in _ENTRY.values()})
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Sq,
+            Skv, H, KH, Dk, Dv, strides, int(causal), window, scale)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = getattr(lib, _ENTRY[q.dtype])(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Sq,
-            Skv, H, KH, Dk, Dv, strides, int(causal), window, scale, stream)
-    _nvcc.check(err, "flash_attention")
+        err = entry(*args, torch.cuda.current_stream(q.device).cuda_stream)
+    _nvcc.check(err, f"flash_attention ({kind})")
     with _count_lock:
         flash_attention.launches += 1
+        if kind == "sm90":
+            flash_attention.launches_sm90 += 1
+        else:
+            flash_attention.launches_simt += 1
     return o
 
 
+# Kernel launches: per route, and ``launches`` = their sum (reset all three
+# together).
 flash_attention.launches = 0
+flash_attention.launches_sm90 = 0
+flash_attention.launches_simt = 0
+
+
+def reset_counts() -> None:
+    """Set ``flash_attention``'s three launch counts to 0."""
+    with _count_lock:
+        flash_attention.launches = 0
+        flash_attention.launches_sm90 = 0
+        flash_attention.launches_simt = 0

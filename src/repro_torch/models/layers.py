@@ -174,11 +174,14 @@ class Attention(nn.Module):
     def decode(self, x: torch.Tensor, cache: dict, pos: int, *,
                window: int = 0) -> torch.Tensor:
         """x: (B, 1, d).  Writes this token's K/V into ``cache["k"]``,
-        ``cache["v"]`` (B, S, KH, hd) at ``pos``, in place."""
+        ``cache["v"]`` (B, S, KH, hd) at ``pos``, in place; a ``pos`` past
+        the end writes the last slot, as the reference's
+        ``dynamic_update_slice`` clamps its start."""
         positions = torch.full((x.shape[0], 1), pos, device=x.device)
         q, k, v = self.qkv(x, positions)
-        cache["k"][:, pos] = k[:, 0]
-        cache["v"][:, pos] = v[:, 0]
+        slot = min(pos, cache["k"].shape[1] - 1)
+        cache["k"][:, slot] = k[:, 0]
+        cache["v"][:, slot] = v[:, 0]
         o = decode_attention(q, cache["k"], cache["v"], pos + 1,
                              window=window)
         return _linear(o.flatten(-2), self.wo.flatten(0, 1))
@@ -248,14 +251,15 @@ class MLA(nn.Module):
                window: int = 0) -> torch.Tensor:
         """Absorbed-matmul MLA decode: score against the *latent* cache
         (``cache["ckv"]`` (B, S, kvr), ``cache["krope"]`` (B, S, rope)),
-        written at ``pos`` in place."""
+        written at ``min(pos, S - 1)`` in place, as in ``Attention.decode``."""
         cfg = self.cfg
         positions = torch.full((x.shape[0], 1), pos, device=x.device)
         q_nope, q_rope = self._q(x, positions)        # (B,1,H,nope/rope)
         ckv_t, k_rope_t = self._latent(x, positions)  # (B,1,kvr), (B,1,rope)
         ckv, kr = cache["ckv"], cache["krope"]
-        ckv[:, pos] = ckv_t[:, 0]
-        kr[:, pos] = k_rope_t[:, 0]
+        slot = min(pos, ckv.shape[1] - 1)
+        ckv[:, slot] = ckv_t[:, 0]
+        kr[:, slot] = k_rope_t[:, 0]
         q_lat = torch.einsum("bqhe,rhe->bqhr", q_nope, self.wk_b)
         s = (torch.einsum("bqhr,bsr->bhqs", q_lat.float(), ckv.float())
              + torch.einsum("bqhe,bse->bhqs", q_rope.float(), kr.float()))

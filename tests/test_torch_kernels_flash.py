@@ -2,8 +2,10 @@
 the JAX package's Pallas flash kernel (interpret mode) and its oracle, on
 the CPU.
 
-On CPU tensors the wrapper runs its plain version; the CUDA kernel itself is
-held against that plain version on the card by ``chip_smoke.py``.  Inputs
+On CPU tensors the wrapper runs its plain version; the two CUDA kernels
+(routes ``sm90`` and ``simt``) are held against that plain version on the
+card by ``chip_smoke.py``.  Here: the route rule, and what the wrapper does
+around the kernels.  Inputs
 are made with numpy from a seed and handed to both packages.  Tolerances
 are the reference's own (``tests/test_kernels_flash.py``): 2e-5 in float32,
 2e-2 in bfloat16.
@@ -17,7 +19,11 @@ from repro.kernels.flash_attention import flash_attention_pallas
 from repro.kernels.ref import flash_attention_ref as jax_flash_ref
 from repro.models.layers import flash_attention as jax_model_flash
 from repro_torch.kernels import flash_attention
-from repro_torch.kernels.flash_attention import build
+from repro_torch.kernels import _nvcc
+from repro_torch.kernels.flash_attention import (SOURCE, SOURCE_SM90,
+                                                 _aligned16, build,
+                                                 build_sm90, reset_counts,
+                                                 route)
 from repro_torch.kernels.ref import flash_attention_ref
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
@@ -129,3 +135,123 @@ def test_cuda_without_a_card_raises(monkeypatch, tmp_path):
     monkeypatch.setattr("repro_torch.kernels._nvcc.BUILD_DIR", tmp_path)
     with pytest.raises(RuntimeError, match="nvcc"):
         build()
+
+
+ROUTES = {   # dtype, Dk, Dv -> route
+    "f32-64": (torch.float32, 64, 64, "simt"),
+    "f32-256": (torch.float32, 256, 256, "simt"),
+    "bf16-64": (torch.bfloat16, 64, 64, "sm90"),
+    "bf16-mla-96-64": (torch.bfloat16, 96, 64, "sm90"),
+    "bf16-160": (torch.bfloat16, 160, 160, "sm90"),
+    "bf16-256": (torch.bfloat16, 256, 256, "sm90"),
+    "bf16-32": (torch.bfloat16, 32, 32, "sm90"),
+    "bf16-40": (torch.bfloat16, 40, 40, "simt"),
+    "bf16-64-40": (torch.bfloat16, 64, 40, "simt"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROUTES))
+def test_route_rule(case):
+    """bf16 at head dims that are multiples of 16 up to 256 goes to the
+    tensor-core kernel; float32 (IEEE, for the 2e-5 gate) and bf16 at any
+    other dims go to the CUDA-core kernel."""
+    dtype, dk, dv, want = ROUTES[case]
+    assert route(dtype, dk, dv) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rejects_head_dims_above_256(dtype):
+    ok = torch.zeros(1, 8, 2, 256, dtype=dtype)
+    wide = torch.zeros(1, 8, 2, 272, dtype=dtype)
+    assert flash_attention(ok, ok, ok).shape == (1, 8, 2, 256)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(wide, wide, wide)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(ok, ok, wide)
+
+
+@pytest.mark.parametrize("case", ["f32-64", "bf16-64", "bf16-mla-96-64",
+                                  "bf16-40"])
+def test_cpu_calls_count_no_launches_on_either_route(case):
+    dtype, dk, dv, _ = ROUTES[case]
+    counts = (flash_attention.launches, flash_attention.launches_sm90,
+              flash_attention.launches_simt)
+    q = torch.ones(1, 8, 2, dk, dtype=dtype)
+    out = flash_attention(q, q, torch.ones(1, 8, 2, dv, dtype=dtype))
+    assert out.shape == (1, 8, 2, dv)
+    assert (flash_attention.launches, flash_attention.launches_sm90,
+            flash_attention.launches_simt) == counts
+
+
+def test_reset_counts_zeroes_all_three():
+    flash_attention.launches_sm90 += 2
+    flash_attention.launches_simt += 1
+    flash_attention.launches += 3
+    reset_counts()
+    assert (flash_attention.launches, flash_attention.launches_sm90,
+            flash_attention.launches_simt) == (0, 0, 0)
+
+
+def test_aligned16_copies_only_misaligned_rows():
+    """The sm90 kernel copies 16-byte rows: a view whose rows start off a
+    16-byte boundary is copied (same values), an aligned one is not."""
+    base = torch.arange(2 * 8 * 3 * 72, dtype=torch.float32).bfloat16()
+    aligned = base.view(2, 8, 3, 72)[..., :64]      # strides multiples of 8
+    assert _aligned16(aligned) is aligned
+    odd = base[4:4 + 2 * 8 * 3 * 66].view(2, 8, 3, 66)[..., :64]
+    fixed = _aligned16(odd)
+    assert fixed is not odd and fixed.is_contiguous()
+    assert fixed.data_ptr() % 16 == 0
+    assert torch.equal(fixed, odd)
+
+
+class _ReportsCuda:
+    """A CPU tensor that reports a CUDA device: it takes the wrapper down
+    its CUDA branch on a machine with no card."""
+    device = torch.device("cuda", 0)
+
+    def __init__(self, t):
+        self._t = t
+
+    def __getattr__(self, name):
+        return getattr(self._t, name)
+
+
+@pytest.mark.parametrize("route_name", ["sm90", "simt"])
+def test_each_route_raises_without_a_card(route_name, monkeypatch, tmp_path):
+    """No fallback on either route: without a card no CUDA tensor exists,
+    and without a toolkit the wrapper's CUDA branch raises when it loads
+    the kernel of its route, and launches and counts nothing."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises((AssertionError, RuntimeError)):
+        torch.zeros(1, device="cuda", dtype=torch.bfloat16)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr("repro_torch.kernels._nvcc.BUILD_DIR", tmp_path)
+    monkeypatch.setattr("repro_torch.kernels._nvcc._libs", {})
+    source, builder = {"sm90": (SOURCE_SM90, build_sm90),
+                       "simt": (SOURCE, build)}[route_name]
+    with pytest.raises(RuntimeError, match="nvcc"):
+        builder()
+    loaded, load = [], _nvcc.load
+
+    def spy(src, entries):
+        loaded.append(src)
+        return load(src, entries)
+
+    monkeypatch.setattr(_nvcc, "load", spy)
+    cases = [c for c in sorted(ROUTES) if ROUTES[c][3] == route_name]
+    assert cases
+    for case in cases:
+        dtype, dk, dv, _ = ROUTES[case]
+        counts = (flash_attention.launches, flash_attention.launches_sm90,
+                  flash_attention.launches_simt)
+        q = _ReportsCuda(torch.ones(1, 8, 2, dk, dtype=dtype))
+        v = _ReportsCuda(torch.ones(1, 8, 2, dv, dtype=dtype))
+        loaded.clear()
+        with pytest.raises(RuntimeError, match="nvcc"):
+            flash_attention(q, q, v)
+        assert loaded == [source], case
+        assert (flash_attention.launches, flash_attention.launches_sm90,
+                flash_attention.launches_simt) == counts
