@@ -8,11 +8,16 @@ failed check exits non-zero):
 
 1. env     — card name and power limit, torch/CUDA/nvcc versions.
 2. build   — compile the four hand-written CUDA sources from the checkout
-             (K1, K2 on both routes, K3), one ``nvcc`` each, all started
+             (K1, K2 on both routes, K3; K1 and K3 include
+             ``csrc/sm90_tf32x3.cuh``), one ``nvcc`` each, all started
              together; ptxas's registers and spills for each kernel.
 3. kernel  — every kernel against its plain PyTorch version on the card, at
              test shapes and at the main path's shapes, with times beside
-             the card's bound and a PyTorch library call.  K2 runs bf16 at
+             the card's bound and a PyTorch library call.  Every K1 and K3
+             row prints the C entry point it launched (K1: float32 through
+             3xTF32 on wgmma, bf16 on bf16 wgmma; K3: 3xTF32 on wgmma, bf16
+             inputs widened), and one K1 row at the i1 depth K = 30000 is
+             held against float64 at the unscaled gate.  K2 runs bf16 at
              head dims that are multiples of 16 on its tensor-core route
              (``sm90``), and float32 and bf16 at other head dims on its
              CUDA-core route (``simt``); every row prints its route and
@@ -68,9 +73,13 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     build_sm90 as build_k2_sm90, reset_counts as reset_k2_counts, route,
     sm90_smem_bytes)
 from repro_torch.kernels.matmul import build  # noqa: E402
+from repro_torch.kernels.matmul import entry as k1_entry  # noqa: E402
 from repro_torch.kernels.ref import (flash_attention_ref,  # noqa: E402
                                      matmul_ref, ssd_chunk_ref)
 from repro_torch.kernels.ssd_chunk import build as build_k3  # noqa: E402
+from repro_torch.kernels.ssd_chunk import entry as k3_entry  # noqa: E402
+from repro_torch.kernels.ssd_chunk import (  # noqa: E402
+    kernel_smem_bytes as k3_kernel_smem, smem_bytes as k3_smem)
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.serving.engine import (PoasDispatcher,  # noqa: E402
                                         Request, ServingEngine)
@@ -80,8 +89,12 @@ M = N = K = 30_000
 SAMPLE_ROWS = 64
 F32_TOL = (1e-4, 1e-3)    # rtol, atol: tests/test_kernels_matmul.py:34
 BF16_TOL = (2e-2, 2e-1)
-# NVIDIA H100 SXM data sheet, dense, at the full 700 W power limit.
+# NVIDIA H100 SXM data sheet, dense, at the full 700 W power limit.  The
+# float32 kernels (K1 f32, K3) run each product as three TF32 products
+# (3xTF32), so their operations are held to a third of the TF32 rate.
 PEAK = {"float32": (67e12, "67 TFLOP/s fp32 CUDA cores, H100 SXM data sheet"),
+        "tf32x3": (495e12 / 3, "495 TFLOP/s TF32 dense tensor cores / 3 "
+                               "for 3xTF32, H100 SXM data sheet"),
         "bfloat16": (989e12, "989 TFLOP/s bf16 dense tensor cores, "
                              "H100 SXM data sheet")}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -135,10 +148,10 @@ def cuda_ms(fn) -> float:
     return start.elapsed_time(end) / reps
 
 
-def roofline(ops: float, nbytes: float, dtype: str) -> tuple[float, str]:
-    """Least time in ms for ``ops`` operations of ``dtype`` moving
-    ``nbytes``, and what bounds it."""
-    t_ops = ops / PEAK[dtype][0]
+def roofline(ops: float, nbytes: float, peak: str) -> tuple[float, str]:
+    """Least time in ms for ``ops`` operations at rate ``PEAK[peak]``
+    moving ``nbytes``, and what bounds it."""
+    t_ops = ops / PEAK[peak][0]
     t_bytes = nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -146,16 +159,16 @@ def roofline(ops: float, nbytes: float, dtype: str) -> tuple[float, str]:
 
 def bound_text(row: dict) -> str:
     return (f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}; "
-            f"{PEAK[row['dtype']][1]}; {HBM_BYTES_PER_S / 1e12} TB/s HBM, "
+            f"{PEAK[row['peak']][1]}; {HBM_BYTES_PER_S / 1e12} TB/s HBM, "
             f"H100 SXM data sheet)")
 
 
-def bound_ms(m: int, k: int, n: int, dtype: str) -> tuple[float, str]:
+def bound_ms(m: int, k: int, n: int, peak: str) -> tuple[float, str]:
     """Least time for C = A @ B on this card: the larger of the operations
-    over the type's peak and the bytes (A, B read once, C written once)
-    over the memory rate."""
-    size = 4 if dtype == "float32" else 2
-    return roofline(2.0 * m * n * k, size * (m * k + k * n + m * n), dtype)
+    over the rate ``PEAK[peak]`` and the bytes (A, B read once, C written
+    once) over the memory rate."""
+    size = 2 if peak == "bfloat16" else 4
+    return roofline(2.0 * m * n * k, size * (m * k + k * n + m * n), peak)
 
 
 def band_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
@@ -226,6 +239,7 @@ def flash_row(label, gen, B, S, H, KH, Dk, Dv, window, dtype,
     size = q.element_size()
     ops = 2.0 * B * H * band_pairs(S, S, causal, window) * (Dk + Dv)
     nbytes = size * (B * S * H * (Dk + Dv) + B * S * KH * (Dk + Dv))
+    row["peak"] = name
     row["bound_ms"], row["bound_by"] = roofline(ops, nbytes, name)
     smem = (f", {sm90_smem_bytes(Dk, Dv) / 1024:.0f} KiB dynamic shared "
             f"memory" if kind == "sm90" else "")
@@ -254,13 +268,16 @@ def ssd_row(label, gen, b, nc, Q, nh, G, hp, ds, dtype) -> dict:
     C = (rnd(b, nc, Q, G, ds) * 0.5).to(dtype)
     cum = torch.cumsum(-torch.nn.functional.softplus(rnd(b, nc, Q, nh)),
                        dim=2)
+    before = ssd_chunk.launches
     y, st = ssd_chunk(xdt, B, C, cum)
     torch.cuda.synchronize()
+    check(ssd_chunk.launches == before + 1, f"K3 {label}: no kernel launch")
     y_ref, st_ref = ssd_chunk_ref(xdt, B, C, cum)
     tol = K3_TOL[name]
     dy = (y.float() - y_ref.float()).abs()
     dst = (st - st_ref).abs()
-    row = {"label": label, "dtype": name,
+    row = {"label": label, "dtype": name, "peak": "tf32x3",
+           "entry": k3_entry(dtype),
            "max_abs_err": max(float(dy.max()), float(dst.max())),
            "violations": int((dy > tol + tol * y_ref.float().abs()).sum()
                              + (dst > tol + tol * st_ref.abs()).sum()),
@@ -273,9 +290,15 @@ def ssd_row(label, gen, b, nc, Q, nh, G, hp, ds, dtype) -> dict:
     size = xdt.element_size()
     nbytes = (size * (2 * b * nc * Q * nh * hp + 2 * b * nc * Q * G * ds)
               + 4 * (b * nc * Q * nh + b * nc * nh * ds * hp))
-    row["bound_ms"], row["bound_by"] = roofline(ops, nbytes, name)
+    row["bound_ms"], row["bound_by"] = roofline(ops, nbytes, "tf32x3")
+    widened = ", bf16 inputs widened to f32" if dtype == torch.bfloat16 else ""
+    smem = k3_kernel_smem(hp, ds)
+    check(smem == k3_smem(hp, ds), f"K3 {label}: the wrapper reckons "
+          f"{k3_smem(hp, ds)} bytes of shared memory, the kernel {smem}")
     say("kernel", f"K3 {label} b{b} NC{nc} Q{Q} nh{nh} G{G} hp{hp} ds{ds} "
-        f"{name}: vs plain max_abs_err={row['max_abs_err']:.3e} violations="
+        f"{name} entry {row['entry']} (3xTF32 wgmma{widened}, "
+        f"{smem / 1024:.0f} KiB dynamic shared memory): vs plain "
+        f"max_abs_err={row['max_abs_err']:.3e} violations="
         f"{row['violations']} (rtol=atol={tol}); kernel_ms="
         f"{row['kernel_ms']:.4f} plain_ms={row['plain_ms']:.4f} "
         f"library_ms=— (no single PyTorch call) " + bound_text(row))
@@ -295,17 +318,25 @@ def compare(a, b, dtype: str, tol, label: str, exact_rows=None) -> dict:
         # The plain version is itself a float32 product: its rounding grows
         # with K (worst case linearly), and the gate was set at K <= 4096.
         atol = tol[1] * k / 4096
+    before = matmul.launches
     out = matmul(a, b)
     torch.cuda.synchronize()
+    check(matmul.launches == before + 1, f"K1 {label}: no kernel launch")
     plain = matmul_ref(a, b)
     torch.cuda.synchronize()
     diff = (out.float() - plain.float()).abs()
     err = float(diff.max())
     bad = int((diff > atol + rtol * plain.float().abs()).sum())
-    row = {"shape": [m, k, n], "dtype": dtype, "max_abs_err": err,
-           "violations": bad, "rtol": rtol, "atol": atol}
-    say("kernel", f"{label} {m}x{k}x{n} {dtype}: vs plain max_abs_err="
-        f"{err:.3e} violations={bad} (rtol {rtol}, atol {atol:.3g})")
+    entry = k1_entry(a.dtype)
+    datapath = ("3xTF32 on wgmma.m64n128k8" if dtype == "float32"
+                else "bf16 wgmma.m64n128k16")
+    row = {"shape": [m, k, n], "dtype": dtype, "entry": entry,
+           "max_abs_err": err, "violations": bad, "rtol": rtol,
+           "atol": atol,
+           "peak": "tf32x3" if dtype == "float32" else "bfloat16"}
+    say("kernel", f"{label} {m}x{k}x{n} {dtype} entry {entry} ({datapath}): "
+        f"vs plain max_abs_err={err:.3e} violations={bad} (rtol {rtol}, "
+        f"atol {atol:.3g})")
     if exact_rows is not None:
         exact = a[exact_rows].double() @ b.double()
         k_err = (out[exact_rows].double() - exact).abs()
@@ -320,10 +351,15 @@ def compare(a, b, dtype: str, tol, label: str, exact_rows=None) -> dict:
     row["kernel_ms"] = cuda_ms(lambda: matmul(a, b))
     row["plain_ms"] = cuda_ms(lambda: matmul_ref(a, b))
     row["library_ms"] = cuda_ms(lambda: torch.matmul(a, b))
-    row["bound_ms"], row["bound_by"] = bound_ms(m, k, n, dtype)
+    row["bound_ms"], row["bound_by"] = bound_ms(m, k, n, row["peak"])
+    fma = ""
+    if dtype == "float32":
+        row["fma_bound_ms"], _ = bound_ms(m, k, n, "float32")
+        fma = (f"; f32 FMA bound {row['fma_bound_ms']:.4f} ms "
+               f"({PEAK['float32'][1]})")
     say("kernel", f"{label} {m}x{k}x{n} {dtype}: kernel_ms="
         f"{row['kernel_ms']:.4f} plain_ms={row['plain_ms']:.4f} library_ms="
-        f"{row['library_ms']:.4f} " + bound_text(row))
+        f"{row['library_ms']:.4f} (torch.matmul) " + bound_text(row) + fma)
     return row
 
 
@@ -626,6 +662,14 @@ def main() -> None:
                             exact_rows=torch.arange(69_936, 70_000,
                                                     device=dev)))
     del big_a
+    # The i1 depth: K = 30000 against float64 at the unscaled gate (the
+    # kernel's 256-deep panels keep its sum within it; one running f32 sum,
+    # the plain version's, does not).
+    rows_out.append(compare(randn(1024, K, dtype=torch.float32),
+                            randn(K, 1024, dtype=torch.float32), "float32",
+                            F32_TOL, "i1-depth",
+                            exact_rows=torch.randperm(
+                                1024, generator=gen, device=dev)[:SAMPLE_ROWS]))
     acc_a = torch.full((8, 4096), 0.01, dtype=torch.bfloat16, device=dev)
     acc_b = torch.full((4096, 128), 0.01, dtype=torch.bfloat16, device=dev)
     rows_out.append(compare(acc_a, acc_b, "bfloat16", BF16_TOL,

@@ -1,13 +1,19 @@
 """Hand-written Hopper kernels for the port's compute hot spots.
 
-* ``matmul``          — K1, the hgemms per-device GEMM (``csrc/matmul.cu``)
+* ``matmul``          — K1, the hgemms per-device GEMM (``csrc/matmul.cu``):
+                        float32 through 3xTF32 and bf16 on wgmma
 * ``flash_attention`` — K2, causal / windowed GQA attention for prefill:
                         bf16 on the tensor cores
                         (``csrc/flash_attention_sm90.cu``), float32 on the
                         CUDA cores (``csrc/flash_attention.cu``), chosen by
                         ``flash_attention.route``
 * ``ssd_chunk``       — K3, the Mamba-2 SSD intra-chunk part
-                        (``csrc/ssd_chunk.cu``)
+                        (``csrc/ssd_chunk.cu``): its products and the
+                        chunk state through 3xTF32 on wgmma
+
+K1 and K3 share ``csrc/sm90_tf32x3.cuh``: the cp.async ring, the 128-byte
+swizzle, wgmma descriptors and issue, and the hi/lo TF32 split that keeps
+float32 accuracy on the tensor cores.
 
 Each kernel has a plain PyTorch version in ``ref.py``.  A wrapper runs the
 plain version on CPU tensors and the kernel on CUDA tensors, and keeps a

@@ -5,7 +5,8 @@ into a shared library with a plain C interface, loaded with ``ctypes``.
 The build happens at a kernel's first CUDA launch (never at import, so
 machines without a toolkit import the package), lands in ``_build/`` under
 a name keyed by the hash of the source and the flags, and is reused while
-that hash holds.
+that hash holds.  Headers under ``csrc/`` (``*.cuh``) are part of every
+source's hash.
 """
 from __future__ import annotations
 
@@ -47,12 +48,19 @@ def _nvcc() -> str:
     return path
 
 
+def source_digest(source: Path) -> str:
+    """Hash of ``source``, the headers beside it and the flags: the key of
+    its built library."""
+    text = source.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
+    return hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
+                          ).hexdigest()[:16]
+
+
 def build(source: Path) -> BuildInfo:
     """Compile ``source`` into ``_build/`` unless this exact source was
     built already.  Raises ``RuntimeError`` with nvcc's output on failure."""
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    path = BUILD_DIR / f"{source.stem}-{digest}.so"
+    path = BUILD_DIR / f"{source.stem}-{source_digest(source)}.so"
     if path.exists():
         return BuildInfo(path, 0.0, "")
     nvcc = _nvcc()
@@ -83,6 +91,22 @@ def load(source: Path, argtypes: dict[str, list]) -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _libs[source] = lib
         return lib
+
+
+def aligned_rows(x):
+    """``x`` if every row (last dim) starts on 16 bytes, as the kernels'
+    16-byte ``cp.async`` copies need, else a copy whose rows are padded to
+    16 bytes, returned as a view of ``x``'s shape.  Dims of size 1 are
+    not walked, so their strides do not matter."""
+    step = 16 // x.element_size()
+    if x.data_ptr() % 16 == 0 and all(
+            st % step == 0 for st, n in zip(x.stride()[:-1], x.shape[:-1])
+            if n > 1):
+        return x
+    last = x.shape[-1]
+    buf = x.new_zeros((*x.shape[:-1], last + (-last) % step))
+    buf[..., :last] = x
+    return buf[..., :last]
 
 
 def check(err: int, what: str) -> None:

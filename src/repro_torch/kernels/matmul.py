@@ -4,7 +4,9 @@ Replaces ``src/repro/kernels/matmul.py::matmul_pallas`` (the hgemms
 per-device compute unit) and the "interpret off-TPU" dispatch of
 ``src/repro/kernels/ops.py``.  The kernel is ``csrc/matmul.cu`` (CUDA C++
 for ``sm_90a``; its header says what bounds it on an H100 and what the
-design does about it).
+design does about it), on the tensor cores: float32 through 3xTF32
+(three TF32 wgmma per product, ``csrc/sm90_tf32x3.cuh``), bfloat16 on bf16
+wgmma.
 
 Dispatch rule: CPU tensors take the plain version (``ref.matmul_ref``);
 CUDA tensors launch the kernel or raise — there is no fallback.
@@ -24,10 +26,11 @@ from .ref import matmul_ref
 
 SOURCE = _nvcc.CSRC / "matmul.cu"
 
-# Rows of C per thread block (``BM`` in csrc/matmul.cu); with grid.y below
-# 2**16 it bounds M.
+# C tile of one thread block (``BM`` x ``BN`` in csrc/matmul.cu); the grid
+# is 1-D, one block per tile, so the tile count is what bounds a call.
 TILE_M = 128
-MAX_M = 65535 * TILE_M
+TILE_N = 128
+MAX_BLOCKS = 2**31 - 1
 
 _ENTRY = {torch.float32: "poas_matmul_f32",
           torch.bfloat16: "poas_matmul_bf16"}
@@ -59,6 +62,28 @@ def _check_layout(x: torch.Tensor, name: str) -> None:
                          f"{tuple(x.stride())} for shape {tuple(x.shape)})")
 
 
+def entry(dtype: torch.dtype) -> str:
+    """The C entry point a CUDA call in ``dtype`` launches:
+    ``poas_matmul_f32`` (3xTF32 on wgmma) or ``poas_matmul_bf16`` (bf16
+    wgmma)."""
+    return _ENTRY[dtype]
+
+
+def _ld(x: torch.Tensor) -> int:
+    """Row stride to pass: a one-row operand's stride is never walked."""
+    return x.stride(0) if x.shape[0] > 1 else 0
+
+
+def grid_blocks(m: int, n: int) -> int:
+    """Thread blocks of a launch at C (m, n); raises where the grid cannot
+    hold them."""
+    blocks = -(-m // TILE_M) * -(-n // TILE_N)
+    if blocks > MAX_BLOCKS:
+        raise ValueError(f"matmul: C ({m}, {n}) needs {blocks} tiles; the "
+                         f"kernel's grid takes {MAX_BLOCKS}")
+    return blocks
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """C = A @ B in ``promote_types(a, b)`` with float32 accumulation.
 
@@ -66,6 +91,8 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     promoted type first) with unit column stride.  CPU tensors run the plain
     version; CUDA tensors launch the kernel on the current stream without
     synchronising, and raise if the kernel cannot be built or launched.
+    The kernel reads rows that start on 16 bytes; an operand whose rows do
+    not is copied into one whose rows do (``_nvcc.aligned_rows``).
     """
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"matmul: shapes {tuple(a.shape)} @ "
@@ -86,18 +113,17 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
     m, k = a.shape
     n = b.shape[1]
-    if m > MAX_M:
-        raise ValueError(f"matmul: m={m} exceeds the kernel's grid limit "
-                         f"{MAX_M}")
+    grid_blocks(m, n)
+    lib = _library()   # built, or raises, before anything is allocated
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0:
         return c
-    lib = _library()
+    a, b = _nvcc.aligned_rows(a), _nvcc.aligned_rows(b)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = getattr(lib, _ENTRY[out_dtype])(
+        err = getattr(lib, entry(out_dtype))(
             a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
-            a.stride(0), b.stride(0), c.stride(0), stream)
+            _ld(a), _ld(b), c.stride(0), stream)
     _nvcc.check(err, "matmul")
     with _count_lock:
         matmul.launches += 1

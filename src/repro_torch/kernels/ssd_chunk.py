@@ -3,11 +3,15 @@ launch count.
 
 Replaces ``src/repro/kernels/ssd_chunk.py::ssd_chunk_pallas``.  The kernel
 is ``csrc/ssd_chunk.cu`` (CUDA C++ for ``sm_90a``; its header says what
-bounds it on an H100 and what the design does about it), built at its first
-CUDA launch by ``_nvcc``.
+bounds it on an H100 and what the design does about it): C·Bᵀ,
+(C·Bᵀ∘L)·xdt and the chunk state on the tensor cores through 3xTF32 (three
+TF32 wgmma per product, ``csrc/sm90_tf32x3.cuh``).  It is built at its
+first CUDA launch by ``_nvcc``.
 
 Dispatch rule: CPU tensors take the plain version (``ref.ssd_chunk_ref``);
-CUDA tensors launch the kernel or raise — there is no fallback.
+CUDA tensors launch the kernel or raise — there is no fallback.  The kernel
+computes in float32: bfloat16 inputs are widened to float32 on the card
+before the launch and y is rounded back to bfloat16 after it.
 """
 from __future__ import annotations
 
@@ -20,13 +24,17 @@ from . import _nvcc
 from .ref import ssd_chunk_ref
 
 SOURCE = _nvcc.CSRC / "ssd_chunk.cu"
-MAX_DIM = 128            # hp and ds: the kernel's per-thread register tiles
+# hp and ds: hp is padded to the wgmma width 16, 32, 64 or 128 of the y
+# product, ds to the 8-deep k steps of C·Bᵀ; 128 bounds both.
+MAX_DIM = 128
 SMEM_LIMIT = 232_448     # bytes of shared memory one block may use (H100)
-_TILE = 64               # score rows and columns per tile (TQ, TT)
-_ENTRY = {torch.float32: "poas_ssd_chunk_f32",
-          torch.bfloat16: "poas_ssd_chunk_bf16"}
+_TILE = 64               # q rows of a y block, t of a tile (TQ, TT)
+_ATOM = _TILE * 128      # a 64-row K-major tile over 32 of ds (8 KiB)
+_DTYPES = (torch.float32, torch.bfloat16)
+_ENTRY = "poas_ssd_chunk_f32"
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] * 7
              + [ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p])
+_ENTRIES = {_ENTRY: _ARGTYPES, "poas_ssd_chunk_smem": [ctypes.c_int64] * 2}
 
 _count_lock = threading.Lock()
 
@@ -36,8 +44,48 @@ def build() -> _nvcc.BuildInfo:
     return _nvcc.build(SOURCE)
 
 
-def _smem_bytes(Q: int, hp: int, ds: int) -> int:
-    return 4 * (Q + 2 * _TILE * (ds + 1) + _TILE * hp + _TILE * (_TILE + 1))
+def _padded_hp(hp: int) -> int:
+    return 16 if hp <= 16 else 32 if hp <= 32 else 64 if hp <= 64 else 128
+
+
+def _items(hp: int) -> int:
+    """Work items a block takes (``kItems`` in csrc/ssd_chunk.cu): two at
+    hp <= 64 (q tiles k and nq-1-k, or two 64-row tiles of the state), one
+    above."""
+    return 1 if hp > 64 else 2
+
+
+def blocks_per_head(Q: int, hp: int, ds: int) -> int:
+    """Blocks the kernel launches per (batch, chunk, head)."""
+    nq, nsm = -(-Q // _TILE), -(-ds // 64)
+    if _items(hp) == 1:
+        return nq + nsm
+    return (nq + 1) // 2 + (nsm + 1) // 2
+
+
+def smem_bytes(hp: int, ds: int) -> int:
+    """Dynamic shared memory of one block, as ``layout`` in
+    csrc/ssd_chunk.cu lays it out: C of each item a block takes (two at
+    hp <= 64, one above) and B, K-major (hi in place of the raw tile, lo
+    beside it), xdt's hi/lo (``_padded_hp(hp)`` rows x 64 t each; raw xdt
+    lands in lo), a tile of cum, and 1024 bytes of alignment.  The chunk
+    length Q does not enter."""
+    kt = _ATOM * -(-ds // 32)
+    c_slots = 1 if _items(hp) == 1 else 2
+    return 1024 + (2 * c_slots + 2) * kt + 2 * _padded_hp(hp) * 256 + 4 * _TILE
+
+
+def entry(dtype: torch.dtype) -> str:
+    """The C entry point a CUDA call with inputs in ``dtype`` launches: the
+    float32 kernel for both types (bf16 inputs are widened first)."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"ssd_chunk: no kernel for {dtype}")
+    return _ENTRY
+
+
+def kernel_smem_bytes(hp: int, ds: int) -> int:
+    """The kernel's own figure for ``smem_bytes`` (builds it if needed)."""
+    return _nvcc.load(SOURCE, _ENTRIES).poas_ssd_chunk_smem(hp, ds)
 
 
 def _check(xdt, B, C, cum) -> None:
@@ -56,7 +104,7 @@ def _check(xdt, B, C, cum) -> None:
         raise ValueError(f"ssd_chunk: {nh} heads do not group over {G}")
     if not (xdt.device == B.device == C.device == cum.device):
         raise ValueError("ssd_chunk: inputs on different devices")
-    if not (xdt.dtype == B.dtype == C.dtype) or xdt.dtype not in _ENTRY:
+    if not (xdt.dtype == B.dtype == C.dtype) or xdt.dtype not in _DTYPES:
         raise TypeError(f"ssd_chunk: xdt, B, C are {xdt.dtype}, {B.dtype}, "
                         f"{C.dtype}; the kernel takes one of float32 or "
                         f"bfloat16 for all three")
@@ -86,33 +134,37 @@ def ssd_chunk(xdt: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     if not (1 <= hp <= MAX_DIM and 1 <= ds <= MAX_DIM):
         raise ValueError(f"ssd_chunk: hp={hp}, ds={ds}; the kernel takes "
                          f"1..{MAX_DIM}")
-    if _smem_bytes(Q, hp, ds) > SMEM_LIMIT:
-        raise ValueError(f"ssd_chunk: chunk length Q={Q} needs more shared "
+    if smem_bytes(hp, ds) > SMEM_LIMIT:
+        raise ValueError(f"ssd_chunk: hp={hp}, ds={ds} need more shared "
                          f"memory than a block has")
     for name, x in (("xdt", xdt), ("B", B), ("C", C)):
         if x.stride(-1) != 1:
             raise ValueError(f"ssd_chunk: {name} needs unit stride on its "
                              f"last dim, got {tuple(x.stride())}")
-    if nc > 65535 or b > 65535:
-        raise ValueError(f"ssd_chunk: b={b}, NC={nc} exceed the grid")
-    y = torch.empty((b, nc, Q, nh, hp), dtype=xdt.dtype, device=xdt.device)
+    if nc > 65535 or b > 65535 or nh * blocks_per_head(Q, hp, ds) >= 2**31:
+        raise ValueError(f"ssd_chunk: b={b}, NC={nc}, nh={nh}, Q={Q} exceed "
+                         f"the grid")
+    fn = getattr(_nvcc.load(SOURCE, _ENTRIES), entry(xdt.dtype))   # or raises
+    out_dtype = xdt.dtype
+    y = torch.empty((b, nc, Q, nh, hp), dtype=torch.float32,
+                    device=xdt.device)
     states = torch.empty((b, nc, nh, ds, hp), dtype=torch.float32,
                          device=xdt.device)
     if y.numel() == 0:
-        return y, states.zero_()
-    strides = (ctypes.c_int64 * 20)(*(s for x in (xdt, B, C, cum, y)
-                                      for s in x.stride()[:4]))
-    lib = _nvcc.load(SOURCE, {name: _ARGTYPES for name in _ENTRY.values()})
+        return y.to(out_dtype), states.zero_()
+    xdt, B, C = (_nvcc.aligned_rows(x.float()) for x in (xdt, B, C))
+    strides = (ctypes.c_int64 * 20)(*(
+        st if n > 1 else 0 for x in (xdt, B, C, cum, y)
+        for st, n in zip(x.stride()[:4], x.shape[:4])))
     with torch.cuda.device(xdt.device):
         stream = torch.cuda.current_stream(xdt.device).cuda_stream
-        err = getattr(lib, _ENTRY[xdt.dtype])(
-            xdt.data_ptr(), B.data_ptr(), C.data_ptr(), cum.data_ptr(),
-            y.data_ptr(), states.data_ptr(), b, nc, Q, nh, G, hp, ds,
-            strides, stream)
+        err = fn(xdt.data_ptr(), B.data_ptr(), C.data_ptr(), cum.data_ptr(),
+                 y.data_ptr(), states.data_ptr(), b, nc, Q, nh, G, hp, ds,
+                 strides, stream)
     _nvcc.check(err, "ssd_chunk")
     with _count_lock:
         ssd_chunk.launches += 1
-    return y, states
+    return y.to(out_dtype), states
 
 
 ssd_chunk.launches = 0
