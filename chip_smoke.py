@@ -39,6 +39,24 @@ failed check exits non-zero):
              held against their plain versions and timed at those runs'
              shapes (at window 0 K2 is also timed against sdpa's
              ``is_causal`` form).
+7. train   — hymba-1.5B training: (a) the backward kernels K2-bwd and
+             K3-bwd against their plain backwards at test shapes and at the
+             training path's shapes, timed beside their bounds and sdpa's
+             backward; K2's ``lse`` output on both routes against the plain
+             version's at the training shape, K2 forward and K2-bwd chained
+             through autograd there against the plain backward, and K2's
+             forward timed with and without ``lse``; (b) a float32 gradient gate: at full width cut to 2
+             layers (one global, one windowed) and one 1100-token
+             sequence, the loss and every parameter gradient on the card
+             through the kernels against the same model on the CPU
+             through the plain versions; (c) the path itself: bf16, full
+             width and depth, batch 4 x 2048, through the objects
+             ``repro_torch.launch.train`` builds, a few AdamW steps with
+             every K2/K2-bwd/K3/K3-bwd launch counted per step, ms/step,
+             tokens/s, model TFLOP/s, peak memory, one step traced with
+             ``torch.profiler`` and the loss head timed alone; (d) a checkpoint round trip through
+             ``FaultTolerantRunner`` at the 2-layer cut, bit-equal, with
+             the next step's loss equal to the uninterrupted run's.
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or run outside the
@@ -52,6 +70,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -66,23 +85,36 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import (CopyModel, DeviceProfile, HGemms,  # noqa: E402
                               LinearTimeModel, NO_COPY, Profiler,
                               cuda_kernel_runner, host_cpu_runner)
-from repro_torch.kernels import (flash_attention, matmul,  # noqa: E402
-                                 ssd_chunk)
+from repro_torch.checkpoint import store  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
+from repro_torch.distributed.elastic import (  # noqa: E402
+    FaultTolerantRunner, RunnerConfig)
+from repro_torch.kernels import (flash_attention,  # noqa: E402
+                                 flash_attention_bwd, matmul, ssd_chunk,
+                                 ssd_chunk_bwd)
 from repro_torch.kernels.flash_attention import build as build_k2  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
+    _forward as k2_forward, build_bwd as build_k2_bwd,
     build_sm90 as build_k2_sm90, reset_counts as reset_k2_counts, route,
     sm90_smem_bytes)
 from repro_torch.kernels.matmul import build  # noqa: E402
 from repro_torch.kernels.matmul import entry as k1_entry  # noqa: E402
-from repro_torch.kernels.ref import (flash_attention_ref,  # noqa: E402
-                                     matmul_ref, ssd_chunk_ref)
+from repro_torch.kernels.ref import (  # noqa: E402
+    flash_attention_bwd_ref, flash_attention_ref, matmul_ref,
+    ssd_chunk_bwd_ref, ssd_chunk_ref)
 from repro_torch.kernels.ssd_chunk import build as build_k3  # noqa: E402
 from repro_torch.kernels.ssd_chunk import entry as k3_entry  # noqa: E402
 from repro_torch.kernels.ssd_chunk import (  # noqa: E402
-    kernel_smem_bytes as k3_kernel_smem, smem_bytes as k3_smem)
+    build_bwd as build_k3_bwd, kernel_smem_bytes as k3_kernel_smem,
+    smem_bytes as k3_smem)
+from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
+from repro_torch.models.transformer import chunked_xent  # noqa: E402
 from repro_torch.serving.engine import (PoasDispatcher,  # noqa: E402
                                         Request, ServingEngine)
+from repro_torch.training.optim import AdamW, cosine_schedule  # noqa: E402
+from repro_torch.training.step import (init_state,  # noqa: E402
+                                       make_train_step)
 
 # Paper instance i1 (benchmarks/common.py): the smallest of the six.
 M = N = K = 30_000
@@ -106,6 +138,20 @@ SERVE_ARCH = "hymba-1_5b"
 DEV = "cuda"
 SERVE_REQUESTS, SERVE_MAX_NEW = 8, 16
 SERVE_A_PROMPT = 1300     # tokens of phase (a)'s float32 prompt
+# Backward kernels against their plain backwards: float32 sums over up to
+# 2048 keys (K2) or 256 positions (K3) taken in another order (observed
+# ~1e-6 relative).  K2-bwd's bf16 gradients are f32 sums rounded to bf16 on
+# both sides, so they differ by at most one bf16 ulp (<= 2**-7 relative):
+# rtol 1e-2 and an atol of 1e-3 times each output's largest magnitude.
+# K3-bwd's bf16 row as K3's forward band.
+K2B_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-3)}  # rtol, atol
+K3B_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# K2's row log-sum-exp (m * scale + ln l, l a float32 sum of exponentials)
+# against the plain version's torch.logsumexp: rtol = atol.
+LSE_TOL = 1e-5
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 4   # step 1 warms up
+GATE_TOKENS = 1100        # phase 7 (b): one sequence, > the 1024 window
+GATE_LOSS_RTOL, GATE_LEAF_RTOL = 1e-4, 1e-3
 
 
 def fail(msg: str) -> None:
@@ -605,6 +651,531 @@ def serve(gen) -> tuple[dict, dict, dict]:
     return {"sm90": k2, "simt": k2_simt}, k3, launches
 
 
+def sdpa_bwd_ms(q, k, v, do, window: int) -> float:
+    """Device time of the backward alone of one
+    ``scaled_dot_product_attention`` call on the same tensors: ``is_causal``
+    at window 0, a bool band mask with ``enable_gqa`` otherwise."""
+    S, Dk = q.shape[1], q.shape[3]
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    kw = dict(scale=1.0 / math.sqrt(Dk), enable_gqa=True)
+    if window > 0:
+        pos = torch.arange(S, device=DEV)
+        kw["attn_mask"] = ((pos[:, None] >= pos[None, :])
+                           & (pos[None, :] > pos[:, None] - window))
+    else:
+        kw["is_causal"] = True
+    out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, **kw)
+    dot = do.transpose(1, 2)
+    return cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                               retain_graph=True))
+
+
+def k2b_violations(got, want, name: str) -> tuple[float, int, str]:
+    """Max |error| and count of elements outside ``K2B_TOL[name]`` over
+    (dq, dk, dv); in bf16 the atol scales with each output's largest
+    magnitude."""
+    rtol, atol = K2B_TOL[name]
+    err, bad = 0.0, 0
+    for g, w in zip(got, want):
+        w = w.float()
+        a = atol * float(w.abs().max()) if name == "bfloat16" else atol
+        diff = (g.float() - w).abs()
+        err = max(err, float(diff.max()))
+        bad += int((diff > a + rtol * w.abs()).sum())
+    text = (f"rtol {rtol}, atol {atol} x max|want| per output"
+            if name == "bfloat16" else f"rtol=atol={rtol}")
+    return err, bad, text
+
+
+def flash_bwd_row(label, gen, B, S, H, KH, Dk, Dv, window, dtype) -> dict:
+    """K2-bwd against its plain backward on the same card tensors (q, k, v,
+    dO random; o and lse from the plain forward), then kernel, plain
+    version and sdpa's backward timed.  Bound: the five products over the
+    band's pairs, 2 * pairs * (3 Dk + 2 Dv) per head, and the bytes of
+    q, k, v, o, dO, lse read and dq, dk, dv written."""
+    name = DTYPE_NAME[dtype]
+    q, k, v, do = (torch.randn(shape, generator=gen, device=DEV).to(dtype)
+                   for shape in ((B, S, H, Dk), (B, S, KH, Dk),
+                                 (B, S, KH, Dv), (B, S, H, Dv)))
+    o, lse = flash_attention_ref(q, k, v, window=window, return_lse=True)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, do, lse, window=window)
+    torch.cuda.synchronize()
+    check(flash_attention_bwd.launches == before + 1,
+          f"K2-bwd {label}: no kernel launch")
+    want = flash_attention_bwd_ref(q, k, v, o, do, lse, window=window)
+    err, bad, tol = k2b_violations(got, want, name)
+    row = {"label": label, "dtype": name, "max_abs_err": err,
+           "violations": bad, "tol": tol}
+    del got, want
+    row["kernel_ms"] = cuda_ms(lambda: flash_attention_bwd(
+        q, k, v, o, do, lse, window=window))
+    row["plain_ms"] = cuda_ms(lambda: flash_attention_bwd_ref(
+        q, k, v, o, do, lse, window=window))
+    row["library_ms"] = sdpa_bwd_ms(q, k, v, do, window)
+    size = q.element_size()
+    ops = 2.0 * B * H * band_pairs(S, S, True, window) * (3 * Dk + 2 * Dv)
+    nbytes = (size * (B * S * H * 2 * (Dk + Dv) + B * S * KH * 2 * (Dk + Dv))
+              + 4 * B * H * S)   # q, o, dO, dq; k, v, dk, dv; lse
+    row["peak"] = name
+    row["bound_ms"], row["bound_by"] = roofline(ops, nbytes, name)
+    row["fma_bound_ms"], _ = roofline(ops, nbytes, "float32")
+    row["tc_bound_ms"], _ = roofline(ops, nbytes, "bfloat16")
+    say("train", f"(a) K2-bwd {label} B{B} S{S} H{H}/{KH} Dk{Dk} Dv{Dv} "
+        f"window {window} {name}: vs plain max_abs_err={err:.3e} "
+        f"violations={bad} ({tol}); kernel_ms="
+        f"{row['kernel_ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+        f"library_ms={row['library_ms']:.4f} (sdpa backward alone, "
+        f"{'is_causal' if window == 0 else 'bool mask'}, enable_gqa) "
+        + bound_text(row) + f"; at the f32 FMA rate of this route "
+        f"{row['fma_bound_ms']:.4f} ms, at bf16 tensor-core peak "
+        f"{row['tc_bound_ms']:.4f} ms")
+    check(bad == 0, f"K2-bwd disagrees with its plain backward: {row}")
+    return row
+
+
+def ssd_bwd_row(label, gen, b, nc, Q, nh, G, hp, ds, dtype) -> dict:
+    """K3-bwd against its plain backward on the same card tensors, then
+    kernel and plain version timed (no single PyTorch call computes it).
+    Bound, per (batch, chunk) over the Q(Q+1)/2 kept pairs: the two
+    products of hp a pair per head (dM = dy xdt^T, dxdt = M^T dy), the
+    three of ds a pair per group (C B^T, dC = dCB B, dB = dCB^T C: dCB is
+    the sum of the group's heads' dM o L, taken elementwise) and the
+    state terms, 2 Q ds hp per head, at 2 operations a product; the bytes
+    of xdt, B, C, cum, dy, dstates read and dxdt, dB, dC, dcum written."""
+    name = DTYPE_NAME[dtype]
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=DEV)
+
+    xdt = (rnd(b, nc, Q, nh, hp) * 0.5).to(dtype)
+    B = (rnd(b, nc, Q, G, ds) * 0.5).to(dtype)
+    C = (rnd(b, nc, Q, G, ds) * 0.5).to(dtype)
+    cum = torch.cumsum(-torch.nn.functional.softplus(rnd(b, nc, Q, nh)),
+                       dim=2)
+    dy = rnd(b, nc, Q, nh, hp).to(dtype)
+    dst = rnd(b, nc, nh, ds, hp)
+    before = ssd_chunk_bwd.launches
+    got = ssd_chunk_bwd(xdt, B, C, cum, dy, dst)
+    torch.cuda.synchronize()
+    check(ssd_chunk_bwd.launches == before + 1,
+          f"K3-bwd {label}: no kernel launch")
+    want = ssd_chunk_bwd_ref(xdt, B, C, cum, dy, dst)
+    tol = K3B_TOL[name]
+    err, bad = 0.0, 0
+    for g, w in zip(got, want):
+        check(bool(torch.isfinite(g).all()), f"K3-bwd {label}: not finite")
+        diff = (g.float() - w.float()).abs()
+        err = max(err, float(diff.max()))
+        bad += int((diff > tol + tol * w.float().abs()).sum())
+    row = {"label": label, "dtype": name, "max_abs_err": err,
+           "violations": bad, "tol": tol, "library_ms": None,
+           "peak": "tf32x3"}
+    del got, want
+    row["kernel_ms"] = cuda_ms(lambda: ssd_chunk_bwd(xdt, B, C, cum, dy,
+                                                     dst))
+    row["plain_ms"] = cuda_ms(lambda: ssd_chunk_bwd_ref(xdt, B, C, cum, dy,
+                                                        dst))
+    pairs = Q * (Q + 1) // 2
+    ops = 2.0 * b * nc * (pairs * (nh * 2 * hp + G * 3 * ds)
+                          + nh * 2 * Q * ds * hp)
+    size = xdt.element_size()
+    nbytes = (size * (3 * b * nc * Q * nh * hp + 4 * b * nc * Q * G * ds)
+              + 4 * (2 * b * nc * Q * nh + b * nc * nh * ds * hp))
+    row["bound_ms"], row["bound_by"] = roofline(ops, nbytes, "tf32x3")
+    row["fma_bound_ms"], _ = roofline(ops, nbytes, "float32")
+    say("train", f"(a) K3-bwd {label} b{b} NC{nc} Q{Q} nh{nh} G{G} hp{hp} "
+        f"ds{ds} {name}: vs plain max_abs_err={err:.3e} violations={bad} "
+        f"(rtol=atol={tol}); "
+        f"kernel_ms={row['kernel_ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+        f"library_ms=— (no single PyTorch call) " + bound_text(row)
+        + f"; at the f32 FMA rate of this route {row['fma_bound_ms']:.4f} "
+        f"ms")
+    check(bad == 0, f"K3-bwd disagrees with its plain backward: {row}")
+    return row
+
+
+def train_qkv(gen, cfg, dtype, dv: bool = False):
+    """Random q, k, v (and dO when ``dv``) at the training path's attention
+    shape: (4, 2048) tokens, 25 query and 5 KV heads of 64."""
+    shapes = [(TRAIN_BATCH, TRAIN_SEQ, h, cfg.head_dim)
+              for h in (cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads)]
+    if dv:
+        shapes.append(shapes[0])
+    return [torch.randn(shape, generator=gen, device=DEV).to(dtype)
+            for shape in shapes]
+
+
+def k2_lse(gen, cfg) -> None:
+    """K2's ``lse`` output at the training shape, on both routes (bf16 ->
+    sm90, float32 -> simt), against the plain version's log-sum-exp on the
+    same card tensors; then sm90's forward timed with and without ``lse``,
+    in turns (without, with, with, without)."""
+    for dtype, kind in ((torch.bfloat16, "sm90"), (torch.float32, "simt")):
+        q, k, v = train_qkv(gen, cfg, dtype)
+        for window in (cfg.window, 0):
+            before = k2_counts()
+            _, lse = k2_forward(q, k, v, True, window, None, True)
+            torch.cuda.synchronize()
+            ran = [a - b for a, b in zip(k2_counts(), before)]
+            check(ran == ([1, 0] if kind == "sm90" else [0, 1]),
+                  f"K2 lse {DTYPE_NAME[dtype]}: launched sm90/simt {ran}, "
+                  f"not the {kind} route once")
+            want = flash_attention_ref(q, k, v, window=window,
+                                       return_lse=True)[1]
+            diff = (lse - want).abs()
+            bad = int((diff > LSE_TOL + LSE_TOL * want.abs()).sum())
+            say("train", f"(a) K2 lse ({kind}) B{TRAIN_BATCH} S{TRAIN_SEQ} "
+                f"H{cfg.num_heads}/{cfg.num_kv_heads} D{cfg.head_dim} window "
+                f"{window} {DTYPE_NAME[dtype]}: vs plain max_abs_err="
+                f"{float(diff.max()):.3e} violations={bad} (rtol=atol="
+                f"{LSE_TOL}; |lse| up to {float(want.abs().max()):.3f})")
+            check(bad == 0, f"K2's lse ({kind}, window {window}) disagrees "
+                  f"with the plain version's")
+            if kind != "sm90":
+                continue
+            times = [cuda_ms(lambda: k2_forward(q, k, v, True, window, None,
+                                                w))
+                     for w in (False, True, True, False)]
+            say("train", f"(a) K2 forward (sm90) B{TRAIN_BATCH} S{TRAIN_SEQ} "
+                f"window {window}: without lse {times[0]:.4f}/"
+                f"{times[3]:.4f} ms, with lse {times[1]:.4f}/{times[2]:.4f} "
+                f"ms")
+        del q, k, v, lse, want, diff
+
+
+def flash_autograd_row(gen, cfg, window: int) -> None:
+    """K2's forward (sm90, writing ``lse``) and K2-bwd chained through
+    autograd at the training shape in bf16, as the training step runs
+    them: the forward's o against the plain forward at K2's band, and the
+    leaves' gradients against the plain backward given that o and the
+    plain forward's lse.  The backward's D = rowsum(dO o O) takes the
+    forward's own bf16 O (the sm90 kernel's P enters P V as bf16), so only
+    the kernel's o isolates what the chain adds: its lse, and K2-bwd."""
+    q, k, v, do = train_qkv(gen, cfg, torch.bfloat16, dv=True)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = k2_counts() + (flash_attention_bwd.launches,)
+    out = flash_attention(*leaves, window=window)
+    out.backward(do)
+    torch.cuda.synchronize()
+    ran = [a - b for a, b in zip(k2_counts() + (flash_attention_bwd.launches,),
+                                 before)]
+    check(ran == [1, 0, 1], f"K2 autograd: launched sm90/simt/bwd {ran}, "
+          f"not 1/0/1")
+    o, lse = flash_attention_ref(q, k, v, window=window, return_lse=True)
+    tol = K2_TOL["bfloat16"]
+    diff = (out.detach().float() - o.float()).abs()
+    o_bad = int((diff > tol + tol * o.float().abs()).sum())
+    want = flash_attention_bwd_ref(q, k, v, out.detach(), do, lse,
+                                   window=window)
+    err, bad, gtol = k2b_violations([x.grad for x in leaves], want,
+                                    "bfloat16")
+    say("train", f"(a) K2 -> K2-bwd through autograd (sm90 lse) B{TRAIN_BATCH} "
+        f"S{TRAIN_SEQ} H{cfg.num_heads}/{cfg.num_kv_heads} D{cfg.head_dim} "
+        f"window {window} bfloat16: o vs the plain forward max_abs_err="
+        f"{float(diff.max()):.3e} violations={o_bad} (rtol=atol={tol}); dq, "
+        f"dk, dv vs the plain backward (the kernel's o, the plain lse) "
+        f"max_abs_err={err:.3e} violations={bad} ({gtol})")
+    check(o_bad == 0 and bad == 0, f"K2's autograd forward or gradients "
+          f"(window {window}) disagree with the plain versions")
+
+
+def batch_on_card(batch: dict) -> dict:
+    return {k: torch.as_tensor(v).to(DEV) for k, v in batch.items()}
+
+
+def gradient_gate(cfg) -> None:
+    """(b) float32, full width cut to 2 layers (layer 0 global, layer 1
+    windowed) and one sequence longer than the window: the loss and every
+    parameter gradient through the kernels on the card against the same
+    weights through the plain versions on the CPU."""
+    cut = dataclasses.replace(cfg, num_layers=2, global_layers=(0,),
+                              dtype="float32", remat="none")
+    t0 = time.perf_counter()
+    batch = SyntheticLM(DataConfig(vocab_size=cut.vocab_size,
+                                   seq_len=GATE_TOKENS, global_batch=1,
+                                   seed=0)).batch(0)
+    result = {}
+    host = Model(cut, device="cpu",
+                 generator=torch.Generator().manual_seed(0))
+    card = Model(cut, device=DEV)
+    card.load_state_dict(host.state_dict())
+    before = (flash_attention.launches_simt, flash_attention_bwd.launches,
+              ssd_chunk.launches, ssd_chunk_bwd.launches)
+    for where, model in (("host", host), ("card", card)):
+        model.requires_grad_(True)
+        loss = model.loss({k: torch.as_tensor(v).to(model.device)
+                           for k, v in batch.items()})
+        loss.backward()
+        result[where] = (float(loss.detach()),
+                         {n: p.grad.detach().double().cpu()
+                          for n, p in model.named_parameters()})
+    after = (flash_attention.launches_simt, flash_attention_bwd.launches,
+             ssd_chunk.launches, ssd_chunk_bwd.launches)
+    check([a - b for a, b in zip(after, before)] == [2, 2, 2, 2],
+          f"(b) the card's step launched K2 (simt), K2-bwd, K3, K3-bwd "
+          f"{[a - b for a, b in zip(after, before)]} times, not 2 each")
+    (loss_h, g_h), (loss_c, g_c) = result["host"], result["card"]
+    rel = {n: float((g_c[n] - g_h[n]).norm() / g_h[n].norm().clamp(
+        min=1e-30)) for n in g_h}
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(loss_c - loss_h) / abs(loss_h)
+    say("train", f"(b) float32 gate, {cut.name} cut to 2 layers (windows "
+        f"{[0, cut.window]}), 1 x {GATE_TOKENS} tokens: loss card "
+        f"{loss_c:.6f} vs cpu {loss_h:.6f} (rel {loss_rel:.2e} <= "
+        f"{GATE_LOSS_RTOL}); {len(rel)} gradient leaves, worst "
+        f"||g_card - g_cpu|| / ||g_cpu|| = {rel[worst]:.3e} ({worst}) <= "
+        f"{GATE_LEAF_RTOL}; {time.perf_counter() - t0:.1f} s")
+    check(math.isfinite(loss_c) and loss_rel <= GATE_LOSS_RTOL,
+          "(b) the card's loss disagrees with the CPU's")
+    check(rel[worst] <= GATE_LEAF_RTOL, f"(b) gradient of {worst} "
+          f"disagrees: {rel[worst]}")
+    del host, card, result
+    torch.cuda.empty_cache()
+
+
+def launch_counts() -> dict:
+    return {"flash_attention/sm90": flash_attention.launches_sm90,
+            "flash_attention/simt": flash_attention.launches_simt,
+            "flash_attention_bwd": flash_attention_bwd.launches,
+            "ssd_chunk": ssd_chunk.launches,
+            "ssd_chunk_bwd": ssd_chunk_bwd.launches}
+
+
+def profile_step(job, state, batch) -> float:
+    """(c) one training step under ``torch.profiler``: device-busy share of
+    the host wall, the top device ops, and each hand-written kernel's
+    share of device time; returns the busy seconds.  Measurement only."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        job.step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    check(bool(kern), "(c) the trace holds no device time")
+    busy = sum(e.self_device_time_total for e in kern) / 1e6
+    say("train", f"(c) one step under torch.profiler: wall {wall:.4f} s, "
+        f"device busy {busy:.4f} s ({busy / wall * 100:.1f} %, idle "
+        f"{(1 - busy / wall) * 100:.1f} %), "
+        f"{sum(e.count for e in kern)} kernel launches")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
+        t = e.self_device_time_total / 1e6
+        say("train", f"(c)   {t:.4f} s ({t / busy * 100:.1f} % of busy) "
+            f"x{e.count} {e.key[:90]}")
+    groups = (("hand-written K2 sm90", ("flash_sm90_kernel",)),
+              ("hand-written K2-bwd", ("flash_bwd_",)),
+              ("hand-written K3", ("ssd_chunk_tf32x3",)),
+              ("hand-written K3-bwd", ("ssd_bwd_kernel",)),
+              ("library GEMMs", ("gemm", "nvjet", "cutlass", "Kernel2")))
+    seen = set()
+    for label, keys in groups:
+        mine = [e for e in kern if e.key not in seen
+                and any(k in e.key for k in keys)]
+        seen.update(e.key for e in mine)
+        t = sum(e.self_device_time_total for e in mine) / 1e6
+        say("train", f"(c)   {label}: {t:.4f} s ({t / busy * 100:.1f} % "
+            f"of busy), {sum(e.count for e in mine)} launches")
+    rest = [e for e in kern if e.key not in seen]
+    t = sum(e.self_device_time_total for e in rest) / 1e6
+    say("train", f"(c)   other PyTorch kernels (elementwise, copies, "
+        f"reductions, embedding): {t:.4f} s ({t / busy * 100:.1f} % of "
+        f"busy), {sum(e.count for e in rest)} launches")
+    return busy
+
+
+def loss_head(model, busy: float) -> None:
+    """(c) the loss head alone at the training shape: ``chunked_xent``'s
+    forward, its chunks' recompute and backward on random hidden states
+    and labels, timed with CUDA events against the traced step's busy
+    time.  Its four (T, d) x (d, V) products run in f32, as the
+    reference's f32-accumulated head.  Measurement only."""
+    cfg = model.cfg
+    T = TRAIN_BATCH * TRAIN_SEQ
+    g = torch.Generator(DEV).manual_seed(0)
+    h = (torch.randn((T, cfg.d_model), generator=g, device=DEV)
+         .to(model.unembed().dtype).requires_grad_())
+    labels = torch.randint(0, cfg.vocab_size, (T,), generator=g, device=DEV)
+    w = model.unembed().detach().requires_grad_()
+    ms = cuda_ms(lambda: chunked_xent(h, labels, w, cfg.loss_chunk)
+                 .backward())
+    flops = 4 * 2.0 * T * cfg.d_model * cfg.vocab_size
+    say("train", f"(c) loss head alone ({T} tokens x {cfg.vocab_size} "
+        f"logits in chunks of {cfg.loss_chunk}; forward, recompute, "
+        f"backward; f32 products): {ms:.4f} ms = {ms / 1e3 / busy * 100:.1f} "
+        f"% of the traced step's busy time; its products "
+        f"{flops:.4e} FLOP at {flops / ms / 1e9:.2f} TFLOP/s")
+
+
+def train_path(cfg) -> dict:
+    """(c) bf16 at full width and depth through ``launch.train``'s own
+    objects; returns the launch counts of the steps' run."""
+    args = train_cli.parse_args([
+        "--arch", cfg.name, "--batch", str(TRAIN_BATCH), "--seq",
+        str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS), "--device", DEV])
+    t0 = time.perf_counter()
+    job = train_cli.build(args)
+    n_params = sum(p.numel() for p in job.model.parameters())
+    torch.cuda.synchronize()
+    say("train", f"(c) {job.cfg.name} bf16, remat {job.cfg.remat}, AdamW "
+        f"(state {job.opt.state_dtype}), {n_params / 1e9:.4f} B params "
+        f"(seed {args.seed}), batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens of "
+        f"SyntheticLM (seed {args.seed}); built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    fwd = 2 if job.cfg.remat == "full" else 1     # forward, then recompute
+    L = job.cfg.num_layers
+    want = {"flash_attention/sm90": fwd * L, "flash_attention/simt": 0,
+            "flash_attention_bwd": L, "ssd_chunk": fwd * L,
+            "ssd_chunk_bwd": L}
+    data = job.data.stream(0)
+    state = job.state
+    reset_k2_counts()
+    ssd_chunk.launches = ssd_chunk_bwd.launches = 0
+    times = []
+    for step in range(1, TRAIN_STEPS + 1):
+        batch = next(data)
+        if step == 2:
+            torch.cuda.reset_peak_memory_stats()
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = job.step_fn(state, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        per = {k: v - before[k] for k, v in launch_counts().items()}
+        say("train", f"(c) step {step}: loss {loss:.4f} grad_norm "
+            f"{gnorm:.4f} lr {float(m['lr']):.3e}; {dt:.4f} s; launches "
+            f"{per}")
+        check(math.isfinite(loss) and math.isfinite(gnorm),
+              f"(c) step {step}: loss {loss}, grad_norm {gnorm}")
+        check(per == want, f"(c) step {step} launched {per}, remat "
+              f"{job.cfg.remat} implies {want}")
+        if step > 1:
+            times.append(dt)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_s = float(np.mean(times))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    attn = 6.0 * TRAIN_BATCH * job.cfg.num_heads * 2 * job.cfg.head_dim * sum(
+        band_pairs(TRAIN_SEQ, TRAIN_SEQ, True, w) for w in job.model.windows)
+    flops = 6.0 * n_params * tokens + attn
+    say("train", f"(c) steps 2-{TRAIN_STEPS}: {step_s * 1e3:.2f} ms/step "
+        f"({', '.join(f'{t * 1e3:.2f}' for t in times)}), "
+        f"{tokens / step_s:.1f} training tokens/s, model "
+        f"{flops / step_s / 1e12:.2f} TFLOP/s (6*N*T "
+        f"{6.0 * n_params * tokens:.4e} + attention {attn:.4e} = "
+        f"6*B*H*(Dk+Dv)*band pairs over the "
+        f"layers; SSD's intra-chunk products not counted; "
+        f"{flops / step_s / PEAK['bfloat16'][0] * 100:.1f} % of the 989 "
+        f"TFLOP/s bf16 peak); peak max_memory_allocated "
+        f"{peak / 2**30:.3f} GiB; main path launches {launches}")
+    loss_head(job.model, profile_step(job, state, next(data)))
+    del job, state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def checkpoint_round_trip(cfg) -> None:
+    """(d) bf16 at the 2-layer full-width cut through
+    ``FaultTolerantRunner``: run A takes 2 steps and checkpoints; a fresh
+    model and optimizer (other weights) restore it and must hold every
+    parameter and optimizer state bit for bit; then both take step 3 on the
+    same batch, whose losses must be equal."""
+    cut = dataclasses.replace(cfg, num_layers=2, global_layers=(0,))
+    data = SyntheticLM(DataConfig(vocab_size=cut.vocab_size,
+                                  seq_len=TRAIN_SEQ, global_batch=2,
+                                  seed=0))
+
+    def job(seed):
+        model = Model(cut, device=DEV,
+                      generator=torch.Generator(DEV).manual_seed(seed))
+        opt = AdamW(learning_rate=cosine_schedule(1e-3, warmup=20,
+                                                  total=100),
+                    state_dtype=torch.bfloat16)
+        step = make_train_step(model, opt)
+        return init_state(model, opt), (
+            lambda state, batch: step(state, batch_on_card(batch)))
+
+    losses = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        runners = {}
+        for name, seed in (("A", 0), ("B", 1)):
+            state, step_fn = job(seed)
+            runners[name] = FaultTolerantRunner(
+                RunnerConfig(checkpoint_dir=tmp, checkpoint_every=2),
+                step_fn=step_fn, state=state)
+        a, b = runners["A"], runners["B"]
+        a.run(data.stream(0), 2)
+        check(store.latest_step(tmp) == 2, "(d) no checkpoint at step 2")
+        check(b.restore_latest() and b.step == 2, "(d) restore failed")
+        leaves_a, leaves_b = store.flatten(a.state), store.flatten(b.state)
+        same = [ka == kb and x.dtype == y.dtype and torch.equal(x, y)
+                for (ka, x), (kb, y) in zip(leaves_a, leaves_b)]
+        check(len(leaves_a) == len(leaves_b) and all(same),
+              f"(d) {same.count(False)} of {len(same)} leaves differ after "
+              f"restore")
+        for name, r in runners.items():
+            r.run(data.stream(2), 3, on_metrics=lambda s, m, name=name:
+                  losses.setdefault(name, float(m["loss"])))
+    say("train", f"(d) checkpoint round trip at {cut.name} cut to 2 layers, "
+        f"bf16, batch 2 x {TRAIN_SEQ}: {len(leaves_a)} leaves (params, "
+        f"AdamW m/v, step) bit-equal after restore into a fresh model "
+        f"and optimizer; step 3 loss {losses['A']:.6f} uninterrupted vs "
+        f"{losses['B']:.6f} restored")
+    check(losses["A"] == losses["B"], "(d) the restored run's step-3 loss "
+          "differs from the uninterrupted run's")
+    del runners, a, b
+    torch.cuda.empty_cache()
+
+
+def train(gen) -> tuple[dict, dict, dict]:
+    """Train phase: (a) the backward kernels' rows, (b) the float32 gate,
+    (c) the path, (d) the checkpoint round trip."""
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    f32, bf16 = torch.float32, torch.bfloat16
+    for dt in (f32, bf16):
+        for label, B, S, H, KH, Dk, Dv, window in (
+                ("test", 1, 128, 4, 4, 64, 64, 0),
+                ("test-gqa-window-ragged", 2, 77, 4, 2, 32, 32, 20),
+                ("test-mla", 1, 70, 2, 2, 96, 64, 0),
+                ("test-head-dim-160", 1, 130, 8, 2, 160, 160, 0),
+                ("test-head-dim-40-window", 2, 200, 4, 2, 40, 40, 16)):
+            flash_bwd_row(label, gen, B, S, H, KH, Dk, Dv, window, dt)
+    for label, shape, dt in (
+            ("test", (1, 2, 16, 4, 1, 16, 16), f32),
+            ("test-grouped", (2, 3, 32, 4, 2, 32, 16), f32),
+            ("test-mamba2-dims", (1, 1, 64, 8, 1, 64, 128), f32),
+            ("ragged-q", (2, 1, 37, 8, 2, 64, 16), f32),
+            ("test-bf16", (1, 2, 32, 4, 1, 32, 32), bf16)):
+        ssd_bwd_row(label, gen, *shape, dt)
+    k2b = {(dt, window): flash_bwd_row(
+        "train-path", gen, TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads,
+        cfg.num_kv_heads, cfg.head_dim, cfg.head_dim, window, dt)
+        for dt in (bf16, f32) for window in (cfg.window, 0)}
+    torch.cuda.empty_cache()
+    k3b = ssd_bwd_row("train-path", gen, TRAIN_BATCH,
+                      TRAIN_SEQ // cfg.ssm_chunk, cfg.ssm_chunk,
+                      cfg.ssm_heads, cfg.ssm_groups, cfg.ssm_head_dim,
+                      cfg.ssm_state, f32)
+    k2_lse(gen, cfg)
+    for window in (cfg.window, 0):
+        flash_autograd_row(gen, cfg, window)
+    torch.cuda.empty_cache()
+    say("train", f"(a) done in {time.perf_counter() - t0:.1f} s")
+    gradient_gate(cfg)
+    launches = train_path(cfg)
+    checkpoint_round_trip(cfg)
+    return k2b[(bf16, cfg.window)], k3b, launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -629,7 +1200,8 @@ def main() -> None:
 
     # ---- 2. build: one nvcc per source, all started together --------------
     t0 = time.perf_counter()
-    builders = (build, build_k2, build_k2_sm90, build_k3)
+    builders = (build, build_k2, build_k2_sm90, build_k3, build_k2_bwd,
+                build_k3_bwd)
     with ThreadPoolExecutor(len(builders)) as pool:
         infos = list(pool.map(lambda f: f(), builders))
     for info in infos:
@@ -638,7 +1210,8 @@ def main() -> None:
             if ("Compiling entry" in line or "Used" in line
                     or "spill" in line):
                 say("build", line.strip())
-    say("build", f"all four in {time.perf_counter() - t0:.1f} s wall")
+    say("build", f"all {len(builders)} in {time.perf_counter() - t0:.1f} s "
+        f"wall")
 
     # ---- 3. kernel vs plain version (test shapes) ------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -838,6 +1411,10 @@ def main() -> None:
     k2_rows, k3_row, serve_launches = serve(gen)
     say("serve", f"total {time.perf_counter() - t_start:.1f} s")
 
+    # ---- 7. train: hymba-1.5B -------------------------------------------
+    k2b_row, k3b_row, train_launches = train(gen)
+    say("train", f"total {time.perf_counter() - t_start:.1f} s")
+
     kernels = [{"name": "matmul", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/matmul.cu",
                 "replaces": "src/repro/kernels/matmul.py:35",
@@ -860,6 +1437,21 @@ def main() -> None:
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
                         "launches": serve_launches[name],
+                        "max_abs_err": row["max_abs_err"],
+                        "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+                        "bound_ms": row["bound_ms"],
+                        "bound_by": row["bound_by"],
+                        "library_ms": row["library_ms"]})
+    for name, row, source, replaces in (
+            ("flash_attention_bwd", k2b_row,
+             "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+             "src/repro/models/layers.py:90"),
+            ("ssd_chunk_bwd", k3b_row,
+             "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
+             "src/repro/models/ssm.py:67")):
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces,
+                        "launches": train_launches[name],
                         "max_abs_err": row["max_abs_err"],
                         "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],

@@ -10,6 +10,11 @@
 * ``ssd_chunk``       — K3, the Mamba-2 SSD intra-chunk part
                         (``csrc/ssd_chunk.cu``): its products and the
                         chunk state through 3xTF32 on wgmma
+* ``flash_attention_bwd``, ``ssd_chunk_bwd`` — the gradients of K2 and K3
+                        (``csrc/flash_attention_bwd.cu``,
+                        ``csrc/ssd_chunk_bwd.cu``, f32 on the CUDA cores),
+                        the backward of the ``torch.autograd.Function`` that
+                        K2 and K3 run as when autograd records them
 
 K1 and K3 share ``csrc/sm90_tf32x3.cuh``: the cp.async ring, the 128-byte
 swizzle, wgmma descriptors and issue, and the hi/lo TF32 split that keeps
@@ -19,11 +24,14 @@ Each kernel has a plain PyTorch version in ``ref.py``.  A wrapper runs the
 plain version on CPU tensors and the kernel on CUDA tensors, and keeps a
 count of kernel launches (``matmul.launches``, ``flash_attention.launches``
 with ``.launches_sm90`` and ``.launches_simt`` per route,
-``ssd_chunk.launches``).  ``_nvcc`` builds every source at its first launch.
+``ssd_chunk.launches``, ``flash_attention_bwd.launches``,
+``ssd_chunk_bwd.launches``).  ``_nvcc`` builds every source at its first
+launch.
 """
-from .flash_attention import flash_attention
+from .flash_attention import flash_attention, flash_attention_bwd
 from .matmul import matmul
-from .ssd_chunk import ssd_chunk
+from .ssd_chunk import ssd_chunk, ssd_chunk_bwd
 from . import ref
 
-__all__ = ["flash_attention", "matmul", "ssd_chunk", "ref"]
+__all__ = ["flash_attention", "flash_attention_bwd", "matmul", "ssd_chunk",
+           "ssd_chunk_bwd", "ref"]

@@ -37,6 +37,9 @@
 //    depth is a runtime loop and the output columns per thread a template
 //    (4, 8 or 16), so nothing is padded in memory.  The window is a runtime
 //    argument, so per-layer windows share one instantiation.
+//  * For training, each row's log-sum-exp of its scaled scores, m + ln l,
+//    is written to `lse` (B, H, Sq) f32 when the pointer is not null
+//    (flash_attention_bwd.cu reads it); the serving path passes null.
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -93,7 +96,8 @@ __device__ __forceinline__ float row_sum(float x) {
 template <typename T, int DVT>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int64_t sq,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int64_t sq,
                  int64_t skv, int64_t heads, int64_t kv_heads, int dk, int dv,
                  Strides qs, Strides ks, Strides vs, Strides os, int causal,
                  int64_t window, float scale) {
@@ -215,6 +219,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t qp = q0 + ty * RT + i;
     if (qp >= sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0)
+      lse[(b * heads + h) * sq + qp] = l[i] > 0.f ? m[i] + logf(l[i])
+                                                  : NEG_INF;
 #pragma unroll
     for (int j = 0; j < DVT; ++j) {
       const int col = tx + 16 * j;
@@ -225,10 +232,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DVT>
 int launch_dvt(const void* q, const void* k, const void* v, void* o,
-               int64_t batch, int64_t sq, int64_t skv, int64_t heads,
-               int64_t kv_heads, int dk, int dv, Strides qs, Strides ks,
-               Strides vs, Strides os, int causal, int64_t window,
-               float scale, cudaStream_t stream) {
+               float* lse, int64_t batch, int64_t sq, int64_t skv,
+               int64_t heads, int64_t kv_heads, int dk, int dv, Strides qs,
+               Strides ks, Strides vs, Strides os, int causal,
+               int64_t window, float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) *
       (static_cast<size_t>(BQ + BK) * (dk + 1) + BK * dv + BQ * (BK + 1));
   cudaError_t err = cudaFuncSetAttribute(
@@ -240,13 +247,13 @@ int launch_dvt(const void* q, const void* k, const void* v, void* o,
                   static_cast<unsigned>(batch));
   flash_fwd_kernel<T, DVT><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, skv, heads, kv_heads,
-      dk, dv, qs, ks, vs, os, causal, window, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, skv, heads,
+      kv_heads, dk, dv, qs, ks, vs, os, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o,
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int64_t batch, int64_t sq, int64_t skv, int64_t heads,
            int64_t kv_heads, int64_t dk, int64_t dv, const int64_t* st,
            int64_t causal, int64_t window, float scale, void* stream) {
@@ -255,41 +262,43 @@ int launch(const void* q, const void* k, const void* v, void* o,
   auto s = static_cast<cudaStream_t>(stream);
   const int c = static_cast<int>(causal);
   const int ik = static_cast<int>(dk), iv = static_cast<int>(dv);
+  float* l = static_cast<float*>(lse);
   if (dv <= 64)
-    return launch_dvt<T, 4>(q, k, v, o, batch, sq, skv, heads, kv_heads, ik,
-                            iv, qs, ks, vs, os, c, window, scale, s);
+    return launch_dvt<T, 4>(q, k, v, o, l, batch, sq, skv, heads, kv_heads,
+                            ik, iv, qs, ks, vs, os, c, window, scale, s);
   if (dv <= 128)
-    return launch_dvt<T, 8>(q, k, v, o, batch, sq, skv, heads, kv_heads, ik,
-                            iv, qs, ks, vs, os, c, window, scale, s);
-  return launch_dvt<T, 16>(q, k, v, o, batch, sq, skv, heads, kv_heads, ik,
-                           iv, qs, ks, vs, os, c, window, scale, s);
+    return launch_dvt<T, 8>(q, k, v, o, l, batch, sq, skv, heads, kv_heads,
+                            ik, iv, qs, ks, vs, os, c, window, scale, s);
+  return launch_dvt<T, 16>(q, k, v, o, l, batch, sq, skv, heads, kv_heads,
+                           ik, iv, qs, ks, vs, os, c, window, scale, s);
 }
 
 }  // namespace
 
 // Plain C entry points for ctypes.  q (B, Sq, H, Dk), k (B, Skv, KH, Dk),
 // v (B, Skv, KH, Dv), o (B, Sq, H, Dv), each with unit stride on its last
-// dim; `strides` holds 12 element strides: (batch, seq, head) of q, k, v, o
-// in that order.  The caller checks 1 <= Dk, Dv <= 256 and H % KH == 0.  The
+// dim; lse (B, H, Sq) f32, contiguous, or null (not written); `strides`
+// holds 12 element strides: (batch, seq, head) of q, k, v, o in that
+// order.  The caller checks 1 <= Dk, Dv <= 256 and H % KH == 0.  The
 // launch is queued on `stream` and not synchronised; the return value is
 // cudaGetLastError().
 extern "C" int poas_flash_f32(const void* q, const void* k, const void* v,
-                              void* o, int64_t batch, int64_t sq, int64_t skv,
-                              int64_t heads, int64_t kv_heads, int64_t dk,
-                              int64_t dv, const int64_t* strides,
+                              void* o, void* lse, int64_t batch, int64_t sq,
+                              int64_t skv, int64_t heads, int64_t kv_heads,
+                              int64_t dk, int64_t dv, const int64_t* strides,
                               int64_t causal, int64_t window, float scale,
                               void* stream) {
-  return launch<float>(q, k, v, o, batch, sq, skv, heads, kv_heads, dk, dv,
-                       strides, causal, window, scale, stream);
+  return launch<float>(q, k, v, o, lse, batch, sq, skv, heads, kv_heads, dk,
+                       dv, strides, causal, window, scale, stream);
 }
 
 extern "C" int poas_flash_bf16(const void* q, const void* k, const void* v,
-                               void* o, int64_t batch, int64_t sq,
+                               void* o, void* lse, int64_t batch, int64_t sq,
                                int64_t skv, int64_t heads, int64_t kv_heads,
                                int64_t dk, int64_t dv, const int64_t* strides,
                                int64_t causal, int64_t window, float scale,
                                void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, batch, sq, skv, heads, kv_heads,
-                               dk, dv, strides, causal, window, scale,
-                               stream);
+  return launch<__nv_bfloat16>(q, k, v, o, lse, batch, sq, skv, heads,
+                               kv_heads, dk, dv, strides, causal, window,
+                               scale, stream);
 }

@@ -51,6 +51,10 @@
 //    rows; the wrapper copies what is not), the output written in place.
 //  * Dk is a runtime loop of 16-deep steps; Dv is a template of 64-wide
 //    blocks (1-4), its padding columns computed and dropped.
+//  * For training, each row's log-sum-exp of its scaled scores,
+//    scale * m + ln l, is written to `lse` (B, H, Sq) f32 when the pointer
+//    is not null (flash_attention_bwd.cu reads it); the serving path
+//    passes null and pays one untaken branch per row.
 //  * Measured no faster at hymba's shape, so not kept: a ring of 3 or 4
 //    stages, and two or three warpgroups per block sharing one K/V ring
 //    (half or a third of the tile loads, at fewer blocks per SM).
@@ -246,7 +250,8 @@ __global__ void __launch_bounds__(THREADS, DVB == 1 ? 4 : 1)
 flash_sm90_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
-                  __nv_bfloat16* __restrict__ o, int64_t sq, int64_t skv,
+                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                  int64_t sq, int64_t skv,
                   int64_t heads, int64_t kv_heads, int dk, int dv,
                   Strides qs, Strides ks, Strides vs, Strides os, int causal,
                   int64_t window, float scale) {
@@ -366,6 +371,10 @@ flash_sm90_kernel(const __nv_bfloat16* __restrict__ q,
     float x = l[r] + __shfl_xor_sync(0xffffffffu, l[r], 1);
     x += __shfl_xor_sync(0xffffffffu, x, 2);
     inv[r] = 1.f / fmaxf(x, 1e-30f);
+    const int64_t qp = q0 + row + 8 * r;
+    if (lse != nullptr && (lane & 3) == 0 && qp < sq)
+      lse[(b * heads + h) * sq + qp] =
+          x > 0.f ? m[r] * scale + logf(x) : NEG_INF;
   }
   __nv_bfloat16* ob = o + b * os.b + h * os.h;
 #pragma unroll
@@ -395,10 +404,10 @@ size_t smem_bytes(int dk, int dv) {
 
 template <int DVB>
 int launch_cfg(const void* q, const void* k, const void* v, void* o,
-               int64_t batch, int64_t sq, int64_t skv, int64_t heads,
-               int64_t kv_heads, int dk, int dv, Strides qs, Strides ks,
-               Strides vs, Strides os, int causal, int64_t window,
-               float scale, cudaStream_t stream) {
+               float* lse, int64_t batch, int64_t sq, int64_t skv,
+               int64_t heads, int64_t kv_heads, int dk, int dv, Strides qs,
+               Strides ks, Strides vs, Strides os, int causal,
+               int64_t window, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes(dk, dv);
   cudaError_t err = cudaFuncSetAttribute(
       flash_sm90_kernel<DVB>,
@@ -411,7 +420,7 @@ int launch_cfg(const void* q, const void* k, const void* v, void* o,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      sq, skv, heads, kv_heads, dk, dv, qs, ks, vs, os, causal, window,
+      lse, sq, skv, heads, kv_heads, dk, dv, qs, ks, vs, os, causal, window,
       scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -427,15 +436,16 @@ extern "C" int poas_flash_sm90_smem(int64_t dk, int64_t dv) {
 // Plain C entry point for ctypes.  q (B, Sq, H, Dk), k (B, Skv, KH, Dk),
 // v (B, Skv, KH, Dv), o (B, Sq, H, Dv), bf16, each with unit stride on its
 // last dim, 16-byte aligned base and (batch, seq, head) strides that are
-// multiples of 8 elements; `strides` holds those 12 element strides of q,
-// k, v, o in that order.  The caller checks H % KH == 0.  The launch is
-// queued on `stream` and not synchronised; the return value is
-// cudaGetLastError(), or cudaErrorInvalidValue for head dims other than
-// 16, 32, ..., 256.
+// multiples of 8 elements; lse (B, H, Sq) f32, contiguous, or null (not
+// written); `strides` holds those 12 element strides of q, k, v, o in that
+// order.  The caller checks H % KH == 0.  The launch is queued on
+// `stream` and not synchronised; the return value is cudaGetLastError(), or
+// cudaErrorInvalidValue for head dims other than 16, 32, ..., 256.
 extern "C" int poas_flash_sm90_bf16(const void* q, const void* k,
-                                    const void* v, void* o, int64_t batch,
-                                    int64_t sq, int64_t skv, int64_t heads,
-                                    int64_t kv_heads, int64_t dk, int64_t dv,
+                                    const void* v, void* o, void* lse,
+                                    int64_t batch, int64_t sq, int64_t skv,
+                                    int64_t heads, int64_t kv_heads,
+                                    int64_t dk, int64_t dv,
                                     const int64_t* st, int64_t causal,
                                     int64_t window, float scale,
                                     void* stream) {
@@ -446,18 +456,19 @@ extern "C" int poas_flash_sm90_bf16(const void* q, const void* k,
   auto s = static_cast<cudaStream_t>(stream);
   const int c = static_cast<int>(causal);
   const int ik = static_cast<int>(dk), iv = static_cast<int>(dv);
+  float* l = static_cast<float*>(lse);
   switch ((dv + 63) / 64) {
     case 1:
-      return launch_cfg<1>(q, k, v, o, batch, sq, skv, heads, kv_heads, ik,
+      return launch_cfg<1>(q, k, v, o, l, batch, sq, skv, heads, kv_heads, ik,
                            iv, qs, ks, vs, os, c, window, scale, s);
     case 2:
-      return launch_cfg<2>(q, k, v, o, batch, sq, skv, heads, kv_heads, ik,
+      return launch_cfg<2>(q, k, v, o, l, batch, sq, skv, heads, kv_heads, ik,
                            iv, qs, ks, vs, os, c, window, scale, s);
     case 3:
-      return launch_cfg<3>(q, k, v, o, batch, sq, skv, heads, kv_heads, ik,
+      return launch_cfg<3>(q, k, v, o, l, batch, sq, skv, heads, kv_heads, ik,
                            iv, qs, ks, vs, os, c, window, scale, s);
     default:
-      return launch_cfg<4>(q, k, v, o, batch, sq, skv, heads, kv_heads, ik,
+      return launch_cfg<4>(q, k, v, o, l, batch, sq, skv, heads, kv_heads, ik,
                            iv, qs, ks, vs, os, c, window, scale, s);
   }
 }

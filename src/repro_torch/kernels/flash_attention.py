@@ -14,6 +14,16 @@ first CUDA launch by ``_nvcc``:
 ``route(dtype, dk, dv)`` is the whole rule.  CPU tensors take the plain
 version (``ref.flash_attention_ref``); CUDA tensors launch the kernel of
 their route or raise — there is no fallback from one kernel to the other.
+
+Gradients: when autograd records the call, ``flash_attention`` runs as a
+``torch.autograd.Function`` whose forward also writes each row's
+log-sum-exp (an optional output of both forward kernels, null on the
+serving path) and whose backward is ``flash_attention_bwd``: the kernel of
+``csrc/flash_attention_bwd.cu`` (f32 arithmetic on the CUDA cores, reading
+float32 or bf16) on CUDA tensors, ``ref.flash_attention_bwd_ref`` on CPU
+tensors.  It is the gradient of the reference model's ``flash_attention``
+(``src/repro/models/layers.py:90``), which the reference differentiates
+with ``jax.value_and_grad``; the Pallas kernel has no backward.
 """
 from __future__ import annotations
 
@@ -24,20 +34,30 @@ import threading
 import torch
 
 from . import _nvcc
-from .ref import flash_attention_ref
+from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 SOURCE = _nvcc.CSRC / "flash_attention.cu"
 SOURCE_SM90 = _nvcc.CSRC / "flash_attention_sm90.cu"
+SOURCE_BWD = _nvcc.CSRC / "flash_attention_bwd.cu"
 MAX_HEAD_DIM = 256       # both kernels' shared-memory budget at BQ = BK = 64
 _ENTRY = {torch.float32: "poas_flash_f32",
           torch.bfloat16: "poas_flash_bf16"}
 _ENTRY_SM90 = "poas_flash_sm90_bf16"
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 7
+# q, k, v, o, lse (null: not written), then shapes, strides, mask, scale.
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 7
              + [ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int64] * 2
              + [ctypes.c_float, ctypes.c_void_p])
 _ENTRIES = {n: _ARGTYPES for n in _ENTRY.values()}
 _ENTRIES_SM90 = {_ENTRY_SM90: _ARGTYPES,
                  "poas_flash_sm90_smem": [ctypes.c_int64] * 2}
+_ENTRY_BWD = {torch.float32: "poas_flash_bwd_f32",
+              torch.bfloat16: "poas_flash_bwd_bf16"}
+# q, k, v, o, do, lse, dq, dk, dv, D (scratch), shapes, strides of
+# q, k, v, o, do, mask, scale.
+_ARGTYPES_BWD = ([ctypes.c_void_p] * 10 + [ctypes.c_int64] * 7
+                 + [ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int64] * 2
+                 + [ctypes.c_float, ctypes.c_void_p])
+_ENTRIES_BWD = {n: _ARGTYPES_BWD for n in _ENTRY_BWD.values()}
 
 _count_lock = threading.Lock()
 
@@ -50,6 +70,11 @@ def build() -> _nvcc.BuildInfo:
 def build_sm90() -> _nvcc.BuildInfo:
     """Compile ``csrc/flash_attention_sm90.cu`` into ``_build/``."""
     return _nvcc.build(SOURCE_SM90)
+
+
+def build_bwd() -> _nvcc.BuildInfo:
+    """Compile ``csrc/flash_attention_bwd.cu`` into ``_build/``."""
+    return _nvcc.build(SOURCE_BWD)
 
 
 def sm90_smem_bytes(dk: int, dv: int) -> int:
@@ -112,21 +137,33 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     keeps the last ``window`` keys of each query; 0 is full attention.
     CPU tensors run the plain version; CUDA tensors launch the kernel that
     ``route`` names on the current stream without synchronising, and raise
-    if it cannot be built or launched.
+    if it cannot be built or launched.  When autograd records the call
+    (grad mode on and an input requiring grad) the rows' log-sum-exp is
+    kept for the backward, ``flash_attention_bwd``; otherwise nothing extra
+    is written or saved.
     """
     _check(q, k, v)
     window = int(window)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window, scale)
+    return _forward(q, k, v, causal, window, scale, False)[0]
+
+
+def _forward(q, k, v, causal: bool, window: int, scale, with_lse: bool):
+    """(o, lse or None): the plain version on the CPU, the route's kernel on
+    the card; lse (B, H, Sq) float32 when ``with_lse``."""
     if q.device.type == "cpu":
+        if with_lse:
+            return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       scale=scale, return_lse=True)
         return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   scale=scale)
+                                   scale=scale), None
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     B, Sq, H, Dk = q.shape
     Skv, KH, Dv = k.shape[1], k.shape[2], v.shape[3]
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.stride(3) != 1:
-            raise ValueError(f"flash_attention: {name} needs unit stride on "
-                             f"its last dim, got {tuple(x.stride())}")
+    _check_strides("flash_attention", q=q, k=k, v=v)
     if B > 65535 or H > 65535:
         raise ValueError(f"flash_attention: B={B}, H={H} exceed the grid")
     if scale is None:
@@ -137,14 +174,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         entry = getattr(_nvcc.load(SOURCE, _ENTRIES), _ENTRY[q.dtype])
     o = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if o.numel() == 0:
-        return o
+        return o, lse
     if kind == "sm90":
         q, k, v = _aligned16(q), _aligned16(k), _aligned16(v)
     strides = (ctypes.c_int64 * 12)(*(s for x in (q, k, v, o)
                                       for s in x.stride()[:3]))
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Sq,
-            Skv, H, KH, Dk, Dv, strides, int(causal), window, scale)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            0 if lse is None else lse.data_ptr(), B, Sq, Skv, H, KH, Dk, Dv,
+            strides, int(causal), window, scale)
     with torch.cuda.device(q.device):
         err = entry(*args, torch.cuda.current_stream(q.device).cuda_stream)
     _nvcc.check(err, f"flash_attention ({kind})")
@@ -154,19 +194,109 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             flash_attention.launches_sm90 += 1
         else:
             flash_attention.launches_simt += 1
-    return o
+    return o, lse
 
 
-# Kernel launches: per route, and ``launches`` = their sum (reset all three
-# together).
+def _check_strides(what: str, **xs: torch.Tensor) -> None:
+    for name, x in xs.items():
+        if x.stride(3) != 1:
+            raise ValueError(f"{what}: {name} needs unit stride on its "
+                             f"last dim, got {tuple(x.stride())}")
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K2 with its gradient: the forward keeps q, k, v, o and the rows'
+    log-sum-exp; the backward is ``flash_attention_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        o, lse = _forward(q, k, v, causal, window, scale, True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask = (causal, window, scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, window, scale = ctx.mask
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                         window=window, scale=scale)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        scale: float | None = None):
+    """Gradients (dq, dk, dv) of ``flash_attention`` in q's, k's and v's
+    dtypes, from its inputs, its output ``o``, the output's gradient ``do``
+    and the rows' log-sum-exp ``lse`` (B, H, Sq) float32.  CPU tensors run
+    ``ref.flash_attention_bwd_ref``; CUDA tensors launch the kernel of
+    ``csrc/flash_attention_bwd.cu`` (f32 arithmetic; float32 or bf16
+    inputs) on the current stream, or raise."""
+    _check(q, k, v)
+    window = int(window)
+    B, Sq, H, Dk = q.shape
+    if tuple(o.shape) != (B, Sq, H, v.shape[3]) or do.shape != o.shape:
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} and do "
+                         f"{tuple(do.shape)} are not (B, Sq, H, Dv)")
+    if tuple(lse.shape) != (B, H, Sq) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "
+                         f"{lse.dtype} is not ({B}, {H}, {Sq}) float32")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
+                                       window=window, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device "
+                         f"{q.device}")
+    Skv, KH, Dv = k.shape[1], k.shape[2], v.shape[3]
+    o, do = o.to(q.dtype), do.to(q.dtype)
+    if do.stride(3) != 1:
+        do = do.contiguous()
+    _check_strides("flash_attention_bwd", q=q, k=k, v=v, o=o, do=do)
+    if B > 65535 or H > 65535:
+        raise ValueError(f"flash_attention_bwd: B={B}, H={H} exceed the "
+                         f"grid")
+    if scale is None:
+        scale = 1.0 / math.sqrt(Dk)
+    entry = getattr(_nvcc.load(SOURCE_BWD, _ENTRIES_BWD),
+                    _ENTRY_BWD[q.dtype])   # built, or raises
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dq = torch.empty((B, Sq, H, Dk), **f32)   # the kernel writes every
+    dk = torch.empty((B, Skv, KH, Dk), **f32)  # element of dq, dk, dv
+    dv = torch.empty((B, Skv, KH, Dv), **f32)
+    if dq.numel() == 0 or dk.numel() == 0:
+        return (dq.zero_().to(q.dtype), dk.zero_().to(k.dtype),
+                dv.zero_().to(v.dtype))
+    scratch = torch.empty((B, H, Sq), **f32)   # D = rowsum(dO o O)
+    lse = lse.contiguous()
+    strides = (ctypes.c_int64 * 15)(*(s for x in (q, k, v, o, do)
+                                      for s in x.stride()[:3]))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), scratch.data_ptr(), B, Sq, Skv, H, KH, Dk, Dv,
+            strides, int(causal), window, scale)
+    with torch.cuda.device(q.device):
+        err = entry(*args, torch.cuda.current_stream(q.device).cuda_stream)
+    _nvcc.check(err, "flash_attention_bwd")
+    with _count_lock:
+        flash_attention_bwd.launches += 1
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# Kernel launches: per route, and ``launches`` = their sum; the backward's
+# own count (reset all four together).
 flash_attention.launches = 0
 flash_attention.launches_sm90 = 0
 flash_attention.launches_simt = 0
+flash_attention_bwd.launches = 0
 
 
 def reset_counts() -> None:
-    """Set ``flash_attention``'s three launch counts to 0."""
+    """Set ``flash_attention``'s three launch counts and
+    ``flash_attention_bwd.launches`` to 0."""
     with _count_lock:
         flash_attention.launches = 0
         flash_attention.launches_sm90 = 0
         flash_attention.launches_simt = 0
+        flash_attention_bwd.launches = 0

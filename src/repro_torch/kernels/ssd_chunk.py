@@ -12,6 +12,16 @@ Dispatch rule: CPU tensors take the plain version (``ref.ssd_chunk_ref``);
 CUDA tensors launch the kernel or raise — there is no fallback.  The kernel
 computes in float32: bfloat16 inputs are widened to float32 on the card
 before the launch and y is rounded back to bfloat16 after it.
+
+Gradients: when autograd records the call, ``ssd_chunk`` runs as a
+``torch.autograd.Function`` whose backward is ``ssd_chunk_bwd``: the kernel
+of ``csrc/ssd_chunk_bwd.cu`` (f32 on the CUDA cores) on CUDA tensors,
+``ref.ssd_chunk_bwd_ref`` on CPU tensors.  It is the gradient of the
+intra-chunk part of the reference model's ``ssd_scan``
+(``src/repro/models/ssm.py:67``), which the reference differentiates with
+``jax.value_and_grad``; the Pallas kernel has no backward.  Both forms take
+exp only of kept (q >= t) decay differences, so their gradient stays
+finite where the reference's turns NaN (ROADMAP, C3).
 """
 from __future__ import annotations
 
@@ -21,9 +31,10 @@ import threading
 import torch
 
 from . import _nvcc
-from .ref import ssd_chunk_ref
+from .ref import ssd_chunk_bwd_ref, ssd_chunk_ref
 
 SOURCE = _nvcc.CSRC / "ssd_chunk.cu"
+SOURCE_BWD = _nvcc.CSRC / "ssd_chunk_bwd.cu"
 # hp and ds: hp is padded to the wgmma width 16, 32, 64 or 128 of the y
 # product, ds to the 8-deep k steps of C·Bᵀ; 128 bounds both.
 MAX_DIM = 128
@@ -35,6 +46,11 @@ _ENTRY = "poas_ssd_chunk_f32"
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] * 7
              + [ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p])
 _ENTRIES = {_ENTRY: _ARGTYPES, "poas_ssd_chunk_smem": [ctypes.c_int64] * 2}
+_ENTRY_BWD = "poas_ssd_chunk_bwd_f32"
+# xdt, B, C, cum, dy, dstates, dxdt, dB, dC (per head), dcum (two parts),
+# F, then b, NC, Q, nh, G, hp, ds.
+_ENTRIES_BWD = {_ENTRY_BWD: [ctypes.c_void_p] * 11 + [ctypes.c_int64] * 7
+                + [ctypes.c_void_p]}
 
 _count_lock = threading.Lock()
 
@@ -42,6 +58,11 @@ _count_lock = threading.Lock()
 def build() -> _nvcc.BuildInfo:
     """Compile ``csrc/ssd_chunk.cu`` into ``_build/`` (see ``_nvcc``)."""
     return _nvcc.build(SOURCE)
+
+
+def build_bwd() -> _nvcc.BuildInfo:
+    """Compile ``csrc/ssd_chunk_bwd.cu`` into ``_build/``."""
+    return _nvcc.build(SOURCE_BWD)
 
 
 def _padded_hp(hp: int) -> int:
@@ -122,9 +143,17 @@ def ssd_chunk(xdt: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     (b, NC, Q, nh, hp) in xdt's dtype and states (b, NC, nh, ds, hp) in
     float32.  CPU tensors run the plain version; CUDA tensors launch the
     kernel on the current stream without synchronising, and raise if the
-    kernel cannot be built or launched.
+    kernel cannot be built or launched.  When autograd records the call the
+    inputs are kept for the backward, ``ssd_chunk_bwd``.
     """
     _check(xdt, B, C, cum)
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (xdt, B, C, cum)):
+        return _SsdChunk.apply(xdt, B, C, cum)
+    return _forward(xdt, B, C, cum)
+
+
+def _forward(xdt, B, C, cum):
     if xdt.device.type == "cpu":
         return ssd_chunk_ref(xdt, B, C, cum)
     if xdt.device.type != "cuda":
@@ -167,4 +196,77 @@ def ssd_chunk(xdt: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     return y.to(out_dtype), states
 
 
+class _SsdChunk(torch.autograd.Function):
+    """K3 with its gradient: the forward keeps its inputs; the backward is
+    ``ssd_chunk_bwd``."""
+
+    @staticmethod
+    def forward(ctx, xdt, B, C, cum):
+        y, states = _forward(xdt, B, C, cum)
+        ctx.save_for_backward(xdt, B, C, cum)
+        return y, states
+
+    @staticmethod
+    def backward(ctx, dy, dstates):
+        # An output that did not reach the loss gets a zero gradient here
+        # (autograd materialises it), never None.
+        return ssd_chunk_bwd(*ctx.saved_tensors, dy, dstates)
+
+
+def ssd_chunk_bwd(xdt: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                  cum: torch.Tensor, dy: torch.Tensor,
+                  dstates: torch.Tensor):
+    """Gradients (dxdt, dB, dC, dcum) of ``ssd_chunk`` in the inputs'
+    dtypes, given the gradients ``dy`` (b, NC, Q, nh, hp) of y and
+    ``dstates`` (b, NC, nh, ds, hp) of the states.  CPU tensors run
+    ``ref.ssd_chunk_bwd_ref``; CUDA tensors launch the kernel of
+    ``csrc/ssd_chunk_bwd.cu`` on the current stream, or raise.  The kernel
+    writes dB and dC per head; heads are summed over their group here, and
+    the two halves of dcum (and the chunk end's share of the state term)
+    are added here, so no sum depends on the order blocks run in."""
+    _check(xdt, B, C, cum)
+    b, nc, Q, nh, hp = xdt.shape
+    G, ds = B.shape[3], B.shape[4]
+    if tuple(dy.shape) != tuple(xdt.shape) or tuple(dstates.shape) != (
+            b, nc, nh, ds, hp):
+        raise ValueError(f"ssd_chunk_bwd: dy {tuple(dy.shape)} / dstates "
+                         f"{tuple(dstates.shape)} do not match the inputs")
+    if xdt.device.type == "cpu":
+        return ssd_chunk_bwd_ref(xdt, B, C, cum, dy, dstates)
+    if xdt.device.type != "cuda":
+        raise ValueError(f"ssd_chunk_bwd: unsupported device {xdt.device}")
+    if not (1 <= hp <= MAX_DIM and 1 <= ds <= MAX_DIM):
+        raise ValueError(f"ssd_chunk_bwd: hp={hp}, ds={ds}; the kernel "
+                         f"takes 1..{MAX_DIM}")
+    if b * nc > 65535 or nh > 65535:
+        raise ValueError(f"ssd_chunk_bwd: b={b}, NC={nc}, nh={nh} exceed "
+                         f"the grid")
+    fn = getattr(_nvcc.load(SOURCE_BWD, _ENTRIES_BWD), _ENTRY_BWD)
+    f32 = dict(dtype=torch.float32, device=xdt.device)
+    dxdt = torch.empty((b, nc, Q, nh, hp), **f32)
+    dB_h = torch.empty((b, nc, Q, nh, ds), **f32)
+    dC_h = torch.empty((b, nc, Q, nh, ds), **f32)
+    dcum2 = torch.empty((2, b, nc, Q, nh), **f32)
+    F = torch.empty((b, nc, Q, nh), **f32)
+    if dxdt.numel() == 0:
+        return (dxdt.zero_().to(xdt.dtype), B.new_zeros(B.shape),
+                C.new_zeros(C.shape), torch.zeros_like(cum))
+    ins = [x.float().contiguous() for x in (xdt, B, C, cum, dy, dstates)]
+    with torch.cuda.device(xdt.device):
+        stream = torch.cuda.current_stream(xdt.device).cuda_stream
+        err = fn(*(x.data_ptr() for x in ins), dxdt.data_ptr(),
+                 dB_h.data_ptr(), dC_h.data_ptr(), dcum2.data_ptr(),
+                 F.data_ptr(), b, nc, Q, nh, G, hp, ds, stream)
+    _nvcc.check(err, "ssd_chunk_bwd")
+    with _count_lock:
+        ssd_chunk_bwd.launches += 1
+    hg = nh // G
+    dB = dB_h.view(b, nc, Q, G, hg, ds).sum(4)
+    dC = dC_h.view(b, nc, Q, G, hg, ds).sum(4)
+    dcum = dcum2[0] + dcum2[1]
+    dcum[:, :, -1] += F.sum(2)
+    return dxdt.to(xdt.dtype), dB.to(B.dtype), dC.to(C.dtype), dcum
+
+
 ssd_chunk.launches = 0
+ssd_chunk_bwd.launches = 0

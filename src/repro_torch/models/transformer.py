@@ -1,13 +1,23 @@
 """Model assembly: embedding → per-layer blocks → norm → logits, plus the
-KV-cache decode path.  One ``Model`` covers the dense, SSM, hybrid, VLM and
-audio families and MLA — family differences are config-driven.  MoE configs
-wait for ``models/moe.py``.
+KV-cache decode path and the training loss.  One ``Model`` covers the
+dense, SSM, hybrid, VLM and audio families and MLA — family differences
+are config-driven.  MoE configs wait for ``models/moe.py``.
 
 Blocks live in an ``nn.ModuleList``, one module per layer, and run in a
 Python loop with each layer's own attention window.  Caches keep the
 reference's layout and keys: ``k``/``v`` (L, B, S, KH, hd), ``ckv``
 (L, B, S, kvr), ``krope`` (L, B, S, rope), ``state`` (L, B, nh, hp, ds) in
 f32, ``conv`` (L, B, K-1, conv_dim), and ``pos``, a Python int.
+
+Training (``loss``, ``hidden_states``) runs the same blocks with autograd:
+K2 and K3 then run as ``torch.autograd.Function``s whose backward is a
+kernel too (``kernels.flash_attention_bwd``, ``kernels.ssd_chunk_bwd``).
+``cfg.remat`` picks what a layer keeps for the backward, as the reference's
+``jax.checkpoint`` around its layer scan: ``"full"`` keeps only each
+layer's input and recomputes the layer in the backward
+(``torch.utils.checkpoint``, non-reentrant), ``"none"`` keeps everything.
+``"dots"`` (keep matmul outputs; no shipped config sets it) is not ported
+and raises.
 """
 from __future__ import annotations
 
@@ -16,6 +26,7 @@ from typing import Any
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .config import ArchConfig
 from .layers import (MLA, MLP, Attention, Init, RMSNorm, _dtype, _linear,
@@ -23,6 +34,7 @@ from .layers import (MLA, MLP, Attention, Init, RMSNorm, _dtype, _linear,
 from .ssm import SSM, init_ssm_cache
 
 _SEQ_KEYS = ("k", "v", "ckv", "krope")
+F32 = torch.float32
 
 
 class Block(nn.Module):
@@ -83,6 +95,42 @@ class Block(nn.Module):
         if cfg.uses_ssm:
             s = self.ssm.decode(h, cache)
         return self._ffn(x + self._mix(a, s))
+
+
+def _block_out(blk: Block, x: torch.Tensor, window: int) -> torch.Tensor:
+    return blk(x, window=window)[0]
+
+
+def _chunk_xent(hx: torch.Tensor, lx: torch.Tensor, w32: torch.Tensor):
+    """(sum of -log p(label), number of labels >= 0) over one chunk of
+    tokens; logits in f32, as the reference's f32-accumulated head."""
+    logits = hx.to(F32) @ w32
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(1, lx.clamp(min=0)[:, None])[:, 0]
+    valid = (lx >= 0).to(F32)
+    return ((lse - ll) * valid).sum(), valid.sum()
+
+
+def chunked_xent(h: torch.Tensor, labels: torch.Tensor, w_head: torch.Tensor,
+                 chunk: int) -> torch.Tensor:
+    """Mean softmax cross-entropy of hidden states ``h`` (T, d) through the
+    head ``w_head`` (d, V) against ``labels`` (T,), labels < 0 ignored:
+    ``chunk`` tokens at a time, each chunk's (chunk, V) f32 logits
+    recomputed in the backward when autograd records, so no (T, V) logits
+    are ever held.  The head is widened to f32 once, not per chunk."""
+    w32 = w_head.to(F32)
+    loss_sum = torch.zeros((), dtype=F32, device=h.device)
+    count = torch.zeros((), dtype=F32, device=h.device)
+    for i in range(0, h.shape[0], chunk):
+        hx, lx = h[i:i + chunk], labels[i:i + chunk]
+        if torch.is_grad_enabled():
+            part, n = checkpoint(_chunk_xent, hx, lx, w32,
+                                 use_reentrant=False)
+        else:
+            part, n = _chunk_xent(hx, lx, w32)
+        loss_sum = loss_sum + part
+        count = count + n
+    return loss_sum / torch.clamp(count, min=1.0)
 
 
 def _layer_windows(cfg: ArchConfig) -> list[int]:
@@ -151,6 +199,36 @@ class Model(nn.Module):
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         h = rmsnorm(self.final_norm.scale, x, self.cfg.norm_eps)
         return h.float() @ self.unembed().float()
+
+    def hidden_states(self, batch: dict) -> torch.Tensor:
+        """The final-normed hidden states (B, S, d) with autograd, each
+        layer kept for the backward as ``cfg.remat`` says."""
+        remat = self.cfg.remat
+        if remat not in ("none", "full"):
+            raise NotImplementedError(
+                f"{self.cfg.name}: remat={remat!r} is not ported (ROADMAP "
+                f"A7: only 'none' and 'full')")
+        x = self.embed_inputs(batch)
+        for blk, w in zip(self.layers, self.windows):
+            if remat == "full" and torch.is_grad_enabled():
+                x = checkpoint(_block_out, blk, x, w, use_reentrant=False)
+            else:
+                x = _block_out(blk, x, w)
+        return rmsnorm(self.final_norm.scale, x, self.cfg.norm_eps)
+
+    def loss(self, batch: dict) -> torch.Tensor:
+        """Chunked softmax cross-entropy over ``batch["labels"]`` (B, S),
+        labels < 0 ignored: ``cfg.loss_chunk`` tokens at a time, each
+        chunk's (chunk, V) f32 logits recomputed in the backward, so no
+        (T, V) logits are ever held.  Mean over the kept labels, f32."""
+        h = self.hidden_states(batch)
+        B, S, d = h.shape
+        labels = batch["labels"]
+        if not isinstance(labels, torch.Tensor):
+            labels = torch.as_tensor(np.asarray(labels))
+        return chunked_xent(h.reshape(B * S, d),
+                            labels.to(h.device, torch.long).reshape(B * S),
+                            self.unembed(), min(self.cfg.loss_chunk, B * S))
 
     @torch.no_grad()
     def logits(self, batch: dict) -> torch.Tensor:

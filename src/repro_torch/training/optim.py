@@ -1,0 +1,202 @@
+"""Optimizers — AdamW (dtype-configurable states) and Adafactor-style
+factored second moment for the largest models, plus global-norm clipping and
+LR schedules, with the reference's math (``training/optim.py``).
+
+The reference's ``init`` / ``update`` over a tree of arrays is kept, over
+dicts of tensors, rather than ``torch.optim.Optimizer``: the training state
+is one tree ``{"params", "opt"}`` that the checkpoint store and the
+fault-tolerant runner carry leaf for leaf as the reference's does, and
+``torch.optim``'s ``state_dict`` keys states by parameter index and keeps
+the schedule (a callable) in its param groups, which an ``.npy`` store cannot
+hold.  Unlike the reference, ``update`` works in place: it writes the new
+parameters into the tensors it was given (so a module's parameters move with
+them) and the new moments into the state's tensors, and returns those same
+objects.  Arithmetic is float32 throughout; states are stored in
+``state_dtype``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable
+
+import torch
+
+F32 = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# LR schedules
+# ---------------------------------------------------------------------------
+
+
+def cosine_schedule(base_lr: float, warmup: int, total: int,
+                    floor: float = 0.1) -> Callable[[torch.Tensor],
+                                                    torch.Tensor]:
+    def lr(step):
+        step = torch.as_tensor(step).to(F32)
+        warm = base_lr * step / max(warmup, 1)
+        t = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0, 1.0)
+        cos = base_lr * (floor + (1 - floor) * 0.5
+                         * (1 + torch.cos(math.pi * t)))
+        return torch.where(step < warmup, warm, cos)
+    return lr
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of squares of every tensor in a (nested) dict, in
+    float32."""
+    return torch.sqrt(sum(torch.sum(t.to(F32) ** 2) for t in _leaves(tree)))
+
+
+def _leaves(tree) -> list[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
+    return [tree]
+
+
+def _device(params: dict) -> torch.device:
+    return next(iter(params.values())).device
+
+
+def _grad(g, p: torch.Tensor) -> torch.Tensor:
+    """A leaf's gradient; ``None`` (the leaf did not reach the loss) is a
+    zero gradient, as ``jax.grad`` returns."""
+    return torch.zeros_like(p) if g is None else g
+
+
+class _Optimizer:
+    learning_rate: Callable | float
+    clip_norm: float
+
+    def _lr(self, step: torch.Tensor) -> torch.Tensor:
+        if callable(self.learning_rate):
+            return self.learning_rate(step)
+        return torch.tensor(self.learning_rate, dtype=F32,
+                            device=step.device)
+
+    def _clip(self, grads: dict, params: dict):
+        grads = {k: _grad(grads.get(k), p) for k, p in params.items()}
+        gnorm = global_norm(grads)
+        scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-12),
+                            max=1.0)
+        return grads, gnorm, scale
+
+
+# ---------------------------------------------------------------------------
+# AdamW
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamW(_Optimizer):
+    learning_rate: Callable | float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    state_dtype: torch.dtype = F32   # bf16 halves optimizer memory
+
+    def init(self, params: dict) -> dict:
+        def zeros(p):
+            return torch.zeros(p.shape, dtype=self.state_dtype,
+                               device=p.device)
+        return {"step": torch.zeros((), dtype=torch.int32,
+                                    device=_device(params)),
+                "m": {k: zeros(p) for k, p in params.items()},
+                "v": {k: zeros(p) for k, p in params.items()}}
+
+    @torch.no_grad()
+    def update(self, grads: dict, state: dict, params: dict):
+        """One step: clip by the global norm of all grads, Adam moments in
+        f32, bias correction at the new step, decoupled weight decay on
+        tensors of ndim >= 2, lr = schedule(new step).  Returns
+        ``(params, state, {"grad_norm", "lr"})``, updated in place."""
+        step = state["step"] + 1
+        grads, gnorm, scale = self._clip(grads, params)
+        lr = self._lr(step)
+        b1, b2 = self.b1, self.b2
+        stepf = step.to(F32)
+        bc1 = 1 - torch.tensor(b1, dtype=F32, device=step.device) ** stepf
+        bc2 = 1 - torch.tensor(b2, dtype=F32, device=step.device) ** stepf
+        for k, p in params.items():
+            m, v = state["m"][k], state["v"][k]
+            g = grads[k].to(F32) * scale
+            m_new = b1 * m.to(F32) + (1 - b1) * g
+            v_new = b2 * v.to(F32) + (1 - b2) * g * g
+            mh = m_new / bc1
+            vh = v_new / bc2
+            delta = mh / (torch.sqrt(vh) + self.eps)
+            if p.dim() >= 2:   # decoupled weight decay on matrices only
+                delta = delta + self.weight_decay * p.to(F32)
+            p.copy_((p.to(F32) - lr * delta).to(p.dtype))
+            m.copy_(m_new.to(self.state_dtype))
+            v.copy_(v_new.to(self.state_dtype))
+        state["step"].copy_(step)
+        return params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+# ---------------------------------------------------------------------------
+# Adafactor-style factored second moment (for the 400B-class archs)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FactoredAdam(_Optimizer):
+    """First moment in bf16, second moment factored over the two largest
+    dims of >=2D params (O(n+m) instead of O(nm) memory)."""
+    learning_rate: Callable | float = 3e-4
+    b1: float = 0.9
+    decay: float = 0.99
+    eps: float = 1e-30
+    clip_norm: float = 1.0
+    weight_decay: float = 0.0
+
+    def init(self, params: dict) -> dict:
+        def second(p):
+            if p.dim() < 2:
+                return {"v": torch.zeros(p.shape, dtype=F32, device=p.device)}
+            return {"vr": torch.zeros(p.shape[:-1], dtype=F32,
+                                      device=p.device),
+                    "vc": torch.zeros(p.shape[:-2] + p.shape[-1:],
+                                      dtype=F32, device=p.device)}
+        return {"step": torch.zeros((), dtype=torch.int32,
+                                    device=_device(params)),
+                "m": {k: torch.zeros(p.shape, dtype=torch.bfloat16,
+                                     device=p.device)
+                      for k, p in params.items()},
+                "v": {k: second(p) for k, p in params.items()}}
+
+    @torch.no_grad()
+    def update(self, grads: dict, state: dict, params: dict):
+        """One step, in place, as ``AdamW.update``."""
+        step = state["step"] + 1
+        grads, gnorm, scale = self._clip(grads, params)
+        lr = self._lr(step)
+        d = self.decay
+        for k, p in params.items():
+            m, v = state["m"][k], state["v"][k]
+            g = grads[k].to(F32) * scale
+            g2 = g * g + self.eps
+            if p.dim() < 2:
+                v["v"].copy_(d * v["v"] + (1 - d) * g2)
+                precond = torch.rsqrt(v["v"])
+            else:
+                vr = d * v["vr"] + (1 - d) * g2.mean(dim=-1)
+                vc = d * v["vc"] + (1 - d) * g2.mean(dim=-2)
+                v["vr"].copy_(vr)
+                v["vc"].copy_(vc)
+                rfac = torch.rsqrt(
+                    vr / torch.clamp(vr.mean(dim=-1, keepdim=True),
+                                     min=self.eps))
+                cfac = torch.rsqrt(vc)
+                precond = rfac[..., None] * cfac[..., None, :]
+            m_new = self.b1 * m.to(F32) + (1 - self.b1) * g
+            delta = m_new * precond
+            if p.dim() >= 2 and self.weight_decay:
+                delta = delta + self.weight_decay * p.to(F32)
+            p.copy_((p.to(F32) - lr * delta).to(p.dtype))
+            m.copy_(m_new.to(torch.bfloat16))
+        state["step"].copy_(step)
+        return params, state, {"grad_norm": gnorm, "lr": lr}

@@ -16,7 +16,9 @@ PORT = SRC / "repro_torch"
 @pytest.mark.parametrize("module", [
     "repro_torch", "repro_torch.core", "repro_torch.kernels",
     "repro_torch.models", "repro_torch.configs", "repro_torch.serving",
-    "repro_torch.serving.engine", "repro_torch.launch.serve"])
+    "repro_torch.serving.engine", "repro_torch.launch.serve",
+    "repro_torch.training", "repro_torch.data", "repro_torch.checkpoint",
+    "repro_torch.distributed", "repro_torch.launch.train"])
 def test_import_pulls_in_no_jax_and_no_reference(module):
     code = (f"import json, sys; import {module}; "
             "print(json.dumps(sorted(sys.modules)))")
