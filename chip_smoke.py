@@ -7,8 +7,9 @@ Phases, each printing its own lines (no phase catches its own failure; any
 failed check exits non-zero):
 
 1. env     — card name and power limit, torch/CUDA/nvcc versions.
-2. build   — compile the four hand-written CUDA sources from the checkout
-             (K1, K2 on both routes, K3; K1 and K3 include
+2. build   — compile the seven hand-written CUDA sources from the
+             checkout (K1, K2 on both routes, K3, K2-bwd on both routes,
+             K3-bwd; all but K2's forward sources include
              ``csrc/sm90_tf32x3.cuh``), one ``nvcc`` each, all started
              together; ptxas's registers and spills for each kernel.
 3. kernel  — every kernel against its plain PyTorch version on the card, at
@@ -42,10 +43,17 @@ failed check exits non-zero):
 7. train   — hymba-1.5B training: (a) the backward kernels K2-bwd and
              K3-bwd against their plain backwards at test shapes and at the
              training path's shapes, timed beside their bounds and sdpa's
-             backward; K2's ``lse`` output on both routes against the plain
-             version's at the training shape, K2 forward and K2-bwd chained
-             through autograd there against the plain backward, and K2's
-             forward timed with and without ``lse``; (b) a float32 gradient gate: at full width cut to 2
+             backward.  Every K2-bwd row prints its route and fails if it is
+             not ``route_bwd``'s: bf16 ``sm90`` rows (bf16 wgmma) are held
+             against the plain backward that rounds P and dS to bf16 where
+             the kernel does, and at relative norm 1e-2 against the float32
+             plain backward; float32 rows run ``simt`` at 1e-4.  The
+             training-shape rows run each kernel twice and require
+             bit-equal gradients.  K2's ``lse`` output on both routes
+             against the plain version's at the training shape, K2
+             forward and K2-bwd chained through autograd there against
+             the plain backward, and K2's forward timed with and without
+             ``lse``; (b) a float32 gradient gate: at full width cut to 2
              layers (one global, one windowed) and one 1100-token
              sequence, the loss and every parameter gradient on the card
              through the kernels against the same model on the CPU
@@ -95,8 +103,9 @@ from repro_torch.kernels import (flash_attention,  # noqa: E402
 from repro_torch.kernels.flash_attention import build as build_k2  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     _forward as k2_forward, build_bwd as build_k2_bwd,
+    build_bwd_sm90 as build_k2_bwd_sm90, bwd_sm90_smem_bytes,
     build_sm90 as build_k2_sm90, reset_counts as reset_k2_counts, route,
-    sm90_smem_bytes)
+    route_bwd, sm90_smem_bytes)
 from repro_torch.kernels.matmul import build  # noqa: E402
 from repro_torch.kernels.matmul import entry as k1_entry  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
@@ -105,7 +114,8 @@ from repro_torch.kernels.ref import (  # noqa: E402
 from repro_torch.kernels.ssd_chunk import build as build_k3  # noqa: E402
 from repro_torch.kernels.ssd_chunk import entry as k3_entry  # noqa: E402
 from repro_torch.kernels.ssd_chunk import (  # noqa: E402
-    build_bwd as build_k3_bwd, kernel_smem_bytes as k3_kernel_smem,
+    build_bwd as build_k3_bwd, bwd_heads_per_slice, bwd_kernel_figures,
+    bwd_scratch_floats, bwd_smem_bytes, kernel_smem_bytes as k3_kernel_smem,
     smem_bytes as k3_smem)
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
@@ -142,9 +152,16 @@ SERVE_A_PROMPT = 1300     # tokens of phase (a)'s float32 prompt
 # 2048 keys (K2) or 256 positions (K3) taken in another order (observed
 # ~1e-6 relative).  K2-bwd's bf16 gradients are f32 sums rounded to bf16 on
 # both sides, so they differ by at most one bf16 ulp (<= 2**-7 relative):
-# rtol 1e-2 and an atol of 1e-3 times each output's largest magnitude.
+# rtol 1e-2 and an atol of 1e-3 times each output's largest magnitude.  The
+# sm90 route rounds P and dS to bf16 as MMA operands, as the reference's
+# own gradient rounds P (src/repro/models/layers.py:143-146), so its "want"
+# is the plain backward rounding at the same places (round_to=bf16); beside
+# that band, each of its outputs is held at a relative norm of 1e-2 against
+# the float32 plain backward (jax.vjp of the reference in bf16 differs from
+# it by 2-4e-3, tests/test_torch_kernels_bwd_sm90.py).
 # K3-bwd's bf16 row as K3's forward band.
 K2B_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-3)}  # rtol, atol
+K2B_NORM = 1e-2
 K3B_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # K2's row log-sum-exp (m * scale + ln l, l a float32 sum of exponentials)
 # against the plain version's torch.logsumexp: rtol = atol.
@@ -688,26 +705,67 @@ def k2b_violations(got, want, name: str) -> tuple[float, int, str]:
     return err, bad, text
 
 
-def flash_bwd_row(label, gen, B, S, H, KH, Dk, Dv, window, dtype) -> dict:
+def rel_norms(got, want) -> list[float]:
+    """||got - want|| / ||want|| per output."""
+    return [float((g.float() - w.float()).norm()
+                  / w.float().norm().clamp(min=1e-30))
+            for g, w in zip(got, want)]
+
+
+def k2b_counts() -> tuple[int, int]:
+    return flash_attention_bwd.launches_sm90, flash_attention_bwd.launches_simt
+
+
+def flash_bwd_row(label, gen, B, S, H, KH, Dk, Dv, window, dtype,
+                  twice: bool = False) -> dict:
     """K2-bwd against its plain backward on the same card tensors (q, k, v,
     dO random; o and lse from the plain forward), then kernel, plain
-    version and sdpa's backward timed.  Bound: the five products over the
-    band's pairs, 2 * pairs * (3 Dk + 2 Dv) per head, and the bytes of
-    q, k, v, o, dO, lse read and dq, dk, dv written."""
+    version and sdpa's backward timed.  Fails if the launch did not take
+    ``route_bwd``'s route.  On ``sm90`` the band's "want" rounds P and dS
+    to bf16 where the kernel does, and each output is also held at
+    relative norm ``K2B_NORM`` against the float32 plain backward.
+    ``twice``: a second call must give bit-equal gradients.  Bound: the
+    five products over the band's pairs, 2 * pairs * (3 Dk + 2 Dv) per
+    head, and the bytes of q, k, v, o, dO, lse read and dq, dk, dv
+    written."""
     name = DTYPE_NAME[dtype]
     q, k, v, do = (torch.randn(shape, generator=gen, device=DEV).to(dtype)
                    for shape in ((B, S, H, Dk), (B, S, KH, Dk),
                                  (B, S, KH, Dv), (B, S, H, Dv)))
     o, lse = flash_attention_ref(q, k, v, window=window, return_lse=True)
-    before = flash_attention_bwd.launches
+    kind = route_bwd(dtype, Dk, Dv)
+    before = k2b_counts()
     got = flash_attention_bwd(q, k, v, o, do, lse, window=window)
     torch.cuda.synchronize()
-    check(flash_attention_bwd.launches == before + 1,
-          f"K2-bwd {label}: no kernel launch")
-    want = flash_attention_bwd_ref(q, k, v, o, do, lse, window=window)
+    ran = [r for r, a, b in zip(("sm90", "simt"), k2b_counts(), before)
+           if a > b]
+    check(ran == [kind], f"K2-bwd {label}: launched on {ran}, route_bwd "
+          f"says {kind}")
+    if dtype == torch.bfloat16 and Dk % 16 == 0 and Dv % 16 == 0 \
+            and max(Dk, Dv) <= 128:
+        check(kind == "sm90", f"K2-bwd {label}: bf16 at Dk {Dk}, Dv {Dv} "
+              f"did not take the tensor-core route")
+    rounded = kind == "sm90"
+    want = flash_attention_bwd_ref(
+        q, k, v, o, do, lse, window=window,
+        round_to=torch.bfloat16 if rounded else None)
     err, bad, tol = k2b_violations(got, want, name)
-    row = {"label": label, "dtype": name, "max_abs_err": err,
+    row = {"label": label, "dtype": name, "route": kind, "max_abs_err": err,
            "violations": bad, "tol": tol}
+    extra = ""
+    if rounded:
+        norms = rel_norms(got, flash_attention_bwd_ref(
+            q.float(), k.float(), v.float(), o.float(), do.float(), lse,
+            window=window))
+        row["norms"] = norms
+        extra = (f"; vs the float32 plain backward ||d||/||want|| dq, dk, "
+                 f"dv = {', '.join(f'{x:.3e}' for x in norms)} (<= "
+                 f"{K2B_NORM})")
+    if twice:
+        again = flash_attention_bwd(q, k, v, o, do, lse, window=window)
+        row["bit_equal"] = all(torch.equal(a, b) for a, b in zip(got, again))
+        extra += f"; second run bit-equal {row['bit_equal']}"
+        del again
     del got, want
     row["kernel_ms"] = cuda_ms(lambda: flash_attention_bwd(
         q, k, v, o, do, lse, window=window))
@@ -722,22 +780,33 @@ def flash_bwd_row(label, gen, B, S, H, KH, Dk, Dv, window, dtype) -> dict:
     row["bound_ms"], row["bound_by"] = roofline(ops, nbytes, name)
     row["fma_bound_ms"], _ = roofline(ops, nbytes, "float32")
     row["tc_bound_ms"], _ = roofline(ops, nbytes, "bfloat16")
+    smem = (f", {bwd_sm90_smem_bytes(Dk, Dv) / 1024:.0f} KiB dynamic shared "
+            f"memory (dK/dV)" if rounded else "")
     say("train", f"(a) K2-bwd {label} B{B} S{S} H{H}/{KH} Dk{Dk} Dv{Dv} "
-        f"window {window} {name}: vs plain max_abs_err={err:.3e} "
-        f"violations={bad} ({tol}); kernel_ms="
+        f"window {window} {name} route {kind}{smem}: vs plain"
+        f"{' (P, dS rounded to bf16)' if rounded else ''} max_abs_err="
+        f"{err:.3e} violations={bad} ({tol}){extra}; kernel_ms="
         f"{row['kernel_ms']:.4f} plain_ms={row['plain_ms']:.4f} "
         f"library_ms={row['library_ms']:.4f} (sdpa backward alone, "
         f"{'is_causal' if window == 0 else 'bool mask'}, enable_gqa) "
-        + bound_text(row) + f"; at the f32 FMA rate of this route "
+        + bound_text(row) + f"; at the f32 FMA rate "
         f"{row['fma_bound_ms']:.4f} ms, at bf16 tensor-core peak "
         f"{row['tc_bound_ms']:.4f} ms")
     check(bad == 0, f"K2-bwd disagrees with its plain backward: {row}")
+    if rounded:
+        check(max(row["norms"]) <= K2B_NORM, f"K2-bwd {label}: relative norm "
+              f"against the float32 plain backward above {K2B_NORM}: {row}")
+    if twice:
+        check(row["bit_equal"], f"K2-bwd {label}: two runs differ")
     return row
 
 
-def ssd_bwd_row(label, gen, b, nc, Q, nh, G, hp, ds, dtype) -> dict:
+def ssd_bwd_row(label, gen, b, nc, Q, nh, G, hp, ds, dtype,
+                twice: bool = False) -> dict:
     """K3-bwd against its plain backward on the same card tensors, then
     kernel and plain version timed (no single PyTorch call computes it).
+    The wrapper's shared-memory and scratch figures must be the kernel's;
+    ``twice``: a second call must give bit-equal gradients.
     Bound, per (batch, chunk) over the Q(Q+1)/2 kept pairs: the two
     products of hp a pair per head (dM = dy xdt^T, dxdt = M^T dy), the
     three of ds a pair per group (C B^T, dC = dCB B, dB = dCB^T C: dCB is
@@ -772,7 +841,20 @@ def ssd_bwd_row(label, gen, b, nc, Q, nh, G, hp, ds, dtype) -> dict:
     row = {"label": label, "dtype": name, "max_abs_err": err,
            "violations": bad, "tol": tol, "library_ms": None,
            "peak": "tf32x3"}
+    extra = ""
+    if twice:
+        again = ssd_chunk_bwd(xdt, B, C, cum, dy, dst)
+        row["bit_equal"] = all(torch.equal(a, b) for a, b in zip(got, again))
+        extra = f"; second run bit-equal {row['bit_equal']}"
+        del again
     del got, want
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    hs = bwd_heads_per_slice(b, nc, Q, nh, G, sms)
+    mine = (bwd_smem_bytes(Q, hp, ds),
+            bwd_scratch_floats(b, nc, Q, nh, G, ds, hs))
+    theirs = bwd_kernel_figures(Q, hp, ds, b, nc, nh, G, hs)
+    check(tuple(theirs) == mine, f"K3-bwd {label}: the wrapper reckons "
+          f"(shared memory, scratch floats) {mine}, the kernel {theirs}")
     row["kernel_ms"] = cuda_ms(lambda: ssd_chunk_bwd(xdt, B, C, cum, dy,
                                                      dst))
     row["plain_ms"] = cuda_ms(lambda: ssd_chunk_bwd_ref(xdt, B, C, cum, dy,
@@ -786,13 +868,16 @@ def ssd_bwd_row(label, gen, b, nc, Q, nh, G, hp, ds, dtype) -> dict:
     row["bound_ms"], row["bound_by"] = roofline(ops, nbytes, "tf32x3")
     row["fma_bound_ms"], _ = roofline(ops, nbytes, "float32")
     say("train", f"(a) K3-bwd {label} b{b} NC{nc} Q{Q} nh{nh} G{G} hp{hp} "
-        f"ds{ds} {name}: vs plain max_abs_err={err:.3e} violations={bad} "
-        f"(rtol=atol={tol}); "
+        f"ds{ds} {name} (3xTF32 wgmma; {hs} heads a slice, "
+        f"{mine[0] / 1024:.0f} KiB dynamic shared memory, {mine[1]} scratch "
+        f"floats): vs plain max_abs_err={err:.3e} violations={bad} "
+        f"(rtol=atol={tol}){extra}; "
         f"kernel_ms={row['kernel_ms']:.4f} plain_ms={row['plain_ms']:.4f} "
         f"library_ms=— (no single PyTorch call) " + bound_text(row)
-        + f"; at the f32 FMA rate of this route {row['fma_bound_ms']:.4f} "
-        f"ms")
+        + f"; at the f32 FMA rate {row['fma_bound_ms']:.4f} ms")
     check(bad == 0, f"K3-bwd disagrees with its plain backward: {row}")
+    if twice:
+        check(row["bit_equal"], f"K3-bwd {label}: two runs differ")
     return row
 
 
@@ -846,50 +931,61 @@ def k2_lse(gen, cfg) -> None:
 
 
 def flash_autograd_row(gen, cfg, window: int) -> None:
-    """K2's forward (sm90, writing ``lse``) and K2-bwd chained through
-    autograd at the training shape in bf16, as the training step runs
-    them: the forward's o against the plain forward at K2's band, and the
-    leaves' gradients against the plain backward given that o and the
-    plain forward's lse.  The backward's D = rowsum(dO o O) takes the
-    forward's own bf16 O (the sm90 kernel's P enters P V as bf16), so only
-    the kernel's o isolates what the chain adds: its lse, and K2-bwd."""
+    """K2's forward (sm90, writing ``lse``) and K2-bwd (sm90) chained
+    through autograd at the training shape in bf16, as the training step
+    runs them: the forward's o against the plain forward at K2's band, and
+    the leaves' gradients against the plain backward given that o and the
+    plain forward's lse, rounding P and dS to bf16 where the backward
+    kernel does, and at relative norm ``K2B_NORM`` against the float32
+    plain backward of the same o and lse.  The backward's D = rowsum(dO o
+    O) takes the forward's own bf16 O (the sm90 kernel's P enters P V as
+    bf16), so only the kernel's o isolates what the chain adds: its lse,
+    and K2-bwd."""
     q, k, v, do = train_qkv(gen, cfg, torch.bfloat16, dv=True)
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-    before = k2_counts() + (flash_attention_bwd.launches,)
+    before = k2_counts() + k2b_counts()
     out = flash_attention(*leaves, window=window)
     out.backward(do)
     torch.cuda.synchronize()
-    ran = [a - b for a, b in zip(k2_counts() + (flash_attention_bwd.launches,),
-                                 before)]
-    check(ran == [1, 0, 1], f"K2 autograd: launched sm90/simt/bwd {ran}, "
-          f"not 1/0/1")
+    ran = [a - b for a, b in zip(k2_counts() + k2b_counts(), before)]
+    check(ran == [1, 0, 1, 0], f"K2 autograd: launched forward sm90/simt, "
+          f"backward sm90/simt {ran}, not 1/0/1/0")
     o, lse = flash_attention_ref(q, k, v, window=window, return_lse=True)
     tol = K2_TOL["bfloat16"]
     diff = (out.detach().float() - o.float()).abs()
     o_bad = int((diff > tol + tol * o.float().abs()).sum())
+    grads = [x.grad for x in leaves]
     want = flash_attention_bwd_ref(q, k, v, out.detach(), do, lse,
-                                   window=window)
-    err, bad, gtol = k2b_violations([x.grad for x in leaves], want,
-                                    "bfloat16")
-    say("train", f"(a) K2 -> K2-bwd through autograd (sm90 lse) B{TRAIN_BATCH} "
-        f"S{TRAIN_SEQ} H{cfg.num_heads}/{cfg.num_kv_heads} D{cfg.head_dim} "
-        f"window {window} bfloat16: o vs the plain forward max_abs_err="
-        f"{float(diff.max()):.3e} violations={o_bad} (rtol=atol={tol}); dq, "
-        f"dk, dv vs the plain backward (the kernel's o, the plain lse) "
-        f"max_abs_err={err:.3e} violations={bad} ({gtol})")
-    check(o_bad == 0 and bad == 0, f"K2's autograd forward or gradients "
-          f"(window {window}) disagree with the plain versions")
+                                   window=window, round_to=torch.bfloat16)
+    err, bad, gtol = k2b_violations(grads, want, "bfloat16")
+    del want
+    norms = rel_norms(grads, flash_attention_bwd_ref(
+        q.float(), k.float(), v.float(), out.detach().float(), do.float(),
+        lse, window=window))
+    say("train", f"(a) K2 -> K2-bwd through autograd (sm90 lse, sm90 "
+        f"backward) B{TRAIN_BATCH} S{TRAIN_SEQ} H{cfg.num_heads}/"
+        f"{cfg.num_kv_heads} D{cfg.head_dim} window {window} bfloat16: o vs "
+        f"the plain forward max_abs_err={float(diff.max()):.3e} violations="
+        f"{o_bad} (rtol=atol={tol}); dq, dk, dv vs the plain backward (the "
+        f"kernel's o, the plain lse, P and dS rounded to bf16) max_abs_err="
+        f"{err:.3e} violations={bad} ({gtol}); vs the float32 plain "
+        f"backward ||d||/||want|| {', '.join(f'{x:.3e}' for x in norms)} "
+        f"(<= {K2B_NORM})")
+    check(o_bad == 0 and bad == 0 and max(norms) <= K2B_NORM,
+          f"K2's autograd forward or gradients (window {window}) disagree "
+          f"with the plain versions")
 
 
 def batch_on_card(batch: dict) -> dict:
     return {k: torch.as_tensor(v).to(DEV) for k, v in batch.items()}
 
 
-def gradient_gate(cfg) -> None:
+def gradient_gate(cfg) -> int:
     """(b) float32, full width cut to 2 layers (layer 0 global, layer 1
     windowed) and one sequence longer than the window: the loss and every
     parameter gradient through the kernels on the card against the same
-    weights through the plain versions on the CPU."""
+    weights through the plain versions on the CPU.  Returns the K2-bwd
+    (simt) launches of the card's step, counted from 0."""
     cut = dataclasses.replace(cfg, num_layers=2, global_layers=(0,),
                               dtype="float32", remat="none")
     t0 = time.perf_counter()
@@ -901,8 +997,11 @@ def gradient_gate(cfg) -> None:
                  generator=torch.Generator().manual_seed(0))
     card = Model(cut, device=DEV)
     card.load_state_dict(host.state_dict())
-    before = (flash_attention.launches_simt, flash_attention_bwd.launches,
-              ssd_chunk.launches, ssd_chunk_bwd.launches)
+    reset_k2_counts()
+    ssd_chunk.launches = ssd_chunk_bwd.launches = 0
+    before = (flash_attention.launches_simt,
+              flash_attention_bwd.launches_simt, ssd_chunk.launches,
+              ssd_chunk_bwd.launches)
     for where, model in (("host", host), ("card", card)):
         model.requires_grad_(True)
         loss = model.loss({k: torch.as_tensor(v).to(model.device)
@@ -911,11 +1010,16 @@ def gradient_gate(cfg) -> None:
         result[where] = (float(loss.detach()),
                          {n: p.grad.detach().double().cpu()
                           for n, p in model.named_parameters()})
-    after = (flash_attention.launches_simt, flash_attention_bwd.launches,
-             ssd_chunk.launches, ssd_chunk_bwd.launches)
-    check([a - b for a, b in zip(after, before)] == [2, 2, 2, 2],
-          f"(b) the card's step launched K2 (simt), K2-bwd, K3, K3-bwd "
-          f"{[a - b for a, b in zip(after, before)]} times, not 2 each")
+    after = (flash_attention.launches_simt,
+             flash_attention_bwd.launches_simt, ssd_chunk.launches,
+             ssd_chunk_bwd.launches)
+    check([a - b for a, b in zip(after, before)] == [2, 2, 2, 2]
+          and flash_attention.launches_sm90 == 0
+          and flash_attention_bwd.launches_sm90 == 0,
+          f"(b) the card's step launched K2 (simt), K2-bwd (simt), K3, "
+          f"K3-bwd {[a - b for a, b in zip(after, before)]} times, not 2 "
+          f"each, or a float32 K2/K2-bwd on sm90")
+    launches = flash_attention_bwd.launches_simt
     (loss_h, g_h), (loss_c, g_c) = result["host"], result["card"]
     rel = {n: float((g_c[n] - g_h[n]).norm() / g_h[n].norm().clamp(
         min=1e-30)) for n in g_h}
@@ -933,12 +1037,14 @@ def gradient_gate(cfg) -> None:
           f"disagrees: {rel[worst]}")
     del host, card, result
     torch.cuda.empty_cache()
+    return launches
 
 
 def launch_counts() -> dict:
     return {"flash_attention/sm90": flash_attention.launches_sm90,
             "flash_attention/simt": flash_attention.launches_simt,
-            "flash_attention_bwd": flash_attention_bwd.launches,
+            "flash_attention_bwd/sm90": flash_attention_bwd.launches_sm90,
+            "flash_attention_bwd/simt": flash_attention_bwd.launches_simt,
             "ssd_chunk": ssd_chunk.launches,
             "ssd_chunk_bwd": ssd_chunk_bwd.launches}
 
@@ -970,9 +1076,10 @@ def profile_step(job, state, batch) -> float:
         say("train", f"(c)   {t:.4f} s ({t / busy * 100:.1f} % of busy) "
             f"x{e.count} {e.key[:90]}")
     groups = (("hand-written K2 sm90", ("flash_sm90_kernel",)),
-              ("hand-written K2-bwd", ("flash_bwd_",)),
+              ("hand-written K2-bwd sm90", ("flash_bwd_sm90_",)),
+              ("hand-written K2-bwd simt", ("flash_bwd_",)),
               ("hand-written K3", ("ssd_chunk_tf32x3",)),
-              ("hand-written K3-bwd", ("ssd_bwd_kernel",)),
+              ("hand-written K3-bwd", ("ssd_bwd_",)),
               ("library GEMMs", ("gemm", "nvjet", "cutlass", "Kernel2")))
     seen = set()
     for label, keys in groups:
@@ -1031,8 +1138,8 @@ def train_path(cfg) -> dict:
     fwd = 2 if job.cfg.remat == "full" else 1     # forward, then recompute
     L = job.cfg.num_layers
     want = {"flash_attention/sm90": fwd * L, "flash_attention/simt": 0,
-            "flash_attention_bwd": L, "ssd_chunk": fwd * L,
-            "ssd_chunk_bwd": L}
+            "flash_attention_bwd/sm90": L, "flash_attention_bwd/simt": 0,
+            "ssd_chunk": fwd * L, "ssd_chunk_bwd": L}
     data = job.data.stream(0)
     state = job.state
     reset_k2_counts()
@@ -1158,22 +1265,25 @@ def train(gen) -> tuple[dict, dict, dict]:
         ssd_bwd_row(label, gen, *shape, dt)
     k2b = {(dt, window): flash_bwd_row(
         "train-path", gen, TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads,
-        cfg.num_kv_heads, cfg.head_dim, cfg.head_dim, window, dt)
+        cfg.num_kv_heads, cfg.head_dim, cfg.head_dim, window, dt,
+        twice=True)
         for dt in (bf16, f32) for window in (cfg.window, 0)}
     torch.cuda.empty_cache()
     k3b = ssd_bwd_row("train-path", gen, TRAIN_BATCH,
                       TRAIN_SEQ // cfg.ssm_chunk, cfg.ssm_chunk,
                       cfg.ssm_heads, cfg.ssm_groups, cfg.ssm_head_dim,
-                      cfg.ssm_state, f32)
+                      cfg.ssm_state, f32, twice=True)
     k2_lse(gen, cfg)
     for window in (cfg.window, 0):
         flash_autograd_row(gen, cfg, window)
     torch.cuda.empty_cache()
     say("train", f"(a) done in {time.perf_counter() - t0:.1f} s")
-    gradient_gate(cfg)
-    launches = train_path(cfg)
+    launches = {"flash_attention_bwd/simt": gradient_gate(cfg)}
+    launches.update((k, v) for k, v in train_path(cfg).items()
+                    if k != "flash_attention_bwd/simt")
     checkpoint_round_trip(cfg)
-    return k2b[(bf16, cfg.window)], k3b, launches
+    return {"sm90": k2b[(bf16, cfg.window)],
+            "simt": k2b[(f32, cfg.window)]}, k3b, launches
 
 
 def main() -> None:
@@ -1201,7 +1311,7 @@ def main() -> None:
     # ---- 2. build: one nvcc per source, all started together --------------
     t0 = time.perf_counter()
     builders = (build, build_k2, build_k2_sm90, build_k3, build_k2_bwd,
-                build_k3_bwd)
+                build_k2_bwd_sm90, build_k3_bwd)
     with ThreadPoolExecutor(len(builders)) as pool:
         infos = list(pool.map(lambda f: f(), builders))
     for info in infos:
@@ -1412,7 +1522,7 @@ def main() -> None:
     say("serve", f"total {time.perf_counter() - t_start:.1f} s")
 
     # ---- 7. train: hymba-1.5B -------------------------------------------
-    k2b_row, k3b_row, train_launches = train(gen)
+    k2b_rows, k3b_row, train_launches = train(gen)
     say("train", f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = [{"name": "matmul", "route": "cuda",
@@ -1443,7 +1553,10 @@ def main() -> None:
                         "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"]})
     for name, row, source, replaces in (
-            ("flash_attention_bwd", k2b_row,
+            ("flash_attention_bwd/sm90", k2b_rows["sm90"],
+             "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
+             "src/repro/models/layers.py:90"),
+            ("flash_attention_bwd/simt", k2b_rows["simt"],
              "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
              "src/repro/models/layers.py:90"),
             ("ssd_chunk_bwd", k3b_row,

@@ -10,23 +10,27 @@
 * ``ssd_chunk``       — K3, the Mamba-2 SSD intra-chunk part
                         (``csrc/ssd_chunk.cu``): its products and the
                         chunk state through 3xTF32 on wgmma
-* ``flash_attention_bwd``, ``ssd_chunk_bwd`` — the gradients of K2 and K3
-                        (``csrc/flash_attention_bwd.cu``,
-                        ``csrc/ssd_chunk_bwd.cu``, f32 on the CUDA cores),
-                        the backward of the ``torch.autograd.Function`` that
-                        K2 and K3 run as when autograd records them
+* ``flash_attention_bwd`` — K2's gradient: bf16 on the tensor cores
+                        (``csrc/flash_attention_bwd_sm90.cu``), f32 on the
+                        CUDA cores (``csrc/flash_attention_bwd.cu``), chosen
+                        by ``flash_attention.route_bwd``
+* ``ssd_chunk_bwd``   — K3's gradient (``csrc/ssd_chunk_bwd.cu``): 3xTF32
+                        on wgmma, C·Bᵀ, dC and dB once per group
+  Both are the backward of the ``torch.autograd.Function`` that K2 and K3
+  run as when autograd records them.
 
-K1 and K3 share ``csrc/sm90_tf32x3.cuh``: the cp.async ring, the 128-byte
-swizzle, wgmma descriptors and issue, and the hi/lo TF32 split that keeps
-float32 accuracy on the tensor cores.
+K1, K3 and the two tensor-core backward sources share
+``csrc/sm90_tf32x3.cuh``: the cp.async ring, the 128-byte swizzle, wgmma
+descriptors and issue, and the hi/lo TF32 split that keeps float32
+accuracy on the tensor cores.
 
 Each kernel has a plain PyTorch version in ``ref.py``.  A wrapper runs the
 plain version on CPU tensors and the kernel on CUDA tensors, and keeps a
 count of kernel launches (``matmul.launches``, ``flash_attention.launches``
 with ``.launches_sm90`` and ``.launches_simt`` per route,
-``ssd_chunk.launches``, ``flash_attention_bwd.launches``,
-``ssd_chunk_bwd.launches``).  ``_nvcc`` builds every source at its first
-launch.
+``ssd_chunk.launches``, ``flash_attention_bwd.launches`` with
+``.launches_sm90`` and ``.launches_simt``, ``ssd_chunk_bwd.launches``).
+``_nvcc`` builds every source at its first launch.
 """
 from .flash_attention import flash_attention, flash_attention_bwd
 from .matmul import matmul

@@ -4,8 +4,9 @@
 //
 // The ring, swizzle and descriptor helpers are the ones K2's
 // flash_attention_sm90.cu defines for itself (that source stays
-// self-contained); csrc/matmul.cu (K1) and csrc/ssd_chunk.cu (K3) include
-// this header.
+// self-contained); csrc/matmul.cu (K1), csrc/ssd_chunk.cu (K3) and the two
+// backward sources, csrc/flash_attention_bwd_sm90.cu (bf16 m64n64k16) and
+// csrc/ssd_chunk_bwd.cu (3xTF32), include this header.
 //
 // 3xTF32.  A tf32 operand keeps 10 of f32's 23 mantissa bits, so one TF32
 // product is ~1e-3 off in relative terms: too far for the f32 gates (rtol
@@ -193,6 +194,29 @@ __device__ __forceinline__ void bf16_wgmma_n128(float (&d)[64], uint64_t da,
                "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
                "{" POAS_R64 "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
                : POAS_D64(0) : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, f32) {=, +=} A (64 x 16 bf16) * B (16 x 64 bf16), for the
+// K2 backward.  ss: A and B both K-major in shared memory.  rs: A from
+// registers (the accumulator layout of an m64nN f32 product, rounded to
+// bf16 pairs, is the A layout of m64k16), B MN-major in shared memory.
+__device__ __forceinline__ void bf16_wgmma_n64_ss(float (&d)[32], uint64_t da,
+                                                  uint64_t db,
+                                                  int accumulate) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+               "{" POAS_R32 "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+               : POAS_D32(0) : "l"(da), "l"(db), "r"(accumulate));
+}
+__device__ __forceinline__ void bf16_wgmma_n64_rs(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+               "{" POAS_R32 "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+               : POAS_D32(0)
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+                 "r"(1));
 }
 
 // 3xTF32 of one k8 step on shared-memory operands, small terms first.

@@ -18,12 +18,20 @@ their route or raise — there is no fallback from one kernel to the other.
 Gradients: when autograd records the call, ``flash_attention`` runs as a
 ``torch.autograd.Function`` whose forward also writes each row's
 log-sum-exp (an optional output of both forward kernels, null on the
-serving path) and whose backward is ``flash_attention_bwd``: the kernel of
-``csrc/flash_attention_bwd.cu`` (f32 arithmetic on the CUDA cores, reading
-float32 or bf16) on CUDA tensors, ``ref.flash_attention_bwd_ref`` on CPU
-tensors.  It is the gradient of the reference model's ``flash_attention``
-(``src/repro/models/layers.py:90``), which the reference differentiates
-with ``jax.value_and_grad``; the Pallas kernel has no backward.
+serving path) and whose backward is ``flash_attention_bwd``.  It has two
+kernels too, and ``route_bwd(dtype, dk, dv)`` is their rule:
+
+* ``csrc/flash_attention_bwd_sm90.cu`` — bf16 on the tensor cores (every
+  product on wgmma; P and dS rounded to bf16 only as MMA operands); route
+  ``"sm90"``.
+* ``csrc/flash_attention_bwd.cu`` — f32 arithmetic on the CUDA cores, for
+  float32 (whose 1e-4 gate bf16 operands cannot meet) and bf16 at other
+  head dims; route ``"simt"``.
+
+CPU tensors take ``ref.flash_attention_bwd_ref``.  It is the gradient of
+the reference model's ``flash_attention`` (``src/repro/models/layers.py:90``),
+which the reference differentiates with ``jax.value_and_grad``; the Pallas
+kernel has no backward.
 """
 from __future__ import annotations
 
@@ -39,7 +47,11 @@ from .ref import flash_attention_bwd_ref, flash_attention_ref
 SOURCE = _nvcc.CSRC / "flash_attention.cu"
 SOURCE_SM90 = _nvcc.CSRC / "flash_attention_sm90.cu"
 SOURCE_BWD = _nvcc.CSRC / "flash_attention_bwd.cu"
+SOURCE_BWD_SM90 = _nvcc.CSRC / "flash_attention_bwd_sm90.cu"
 MAX_HEAD_DIM = 256       # both kernels' shared-memory budget at BQ = BK = 64
+# The sm90 backward holds dK and dV (or dQ) of a 64-row tile in registers
+# beside S and dP: two 64-column blocks of each at most.
+MAX_HEAD_DIM_BWD_SM90 = 128
 _ENTRY = {torch.float32: "poas_flash_f32",
           torch.bfloat16: "poas_flash_bf16"}
 _ENTRY_SM90 = "poas_flash_sm90_bf16"
@@ -58,6 +70,10 @@ _ARGTYPES_BWD = ([ctypes.c_void_p] * 10 + [ctypes.c_int64] * 7
                  + [ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int64] * 2
                  + [ctypes.c_float, ctypes.c_void_p])
 _ENTRIES_BWD = {n: _ARGTYPES_BWD for n in _ENTRY_BWD.values()}
+# The same arguments; dq, dk, dv in bf16.
+_ENTRY_BWD_SM90 = "poas_flash_bwd_sm90_bf16"
+_ENTRIES_BWD_SM90 = {_ENTRY_BWD_SM90: _ARGTYPES_BWD,
+                     "poas_flash_bwd_sm90_smem": [ctypes.c_int64] * 2}
 
 _count_lock = threading.Lock()
 
@@ -77,6 +93,18 @@ def build_bwd() -> _nvcc.BuildInfo:
     return _nvcc.build(SOURCE_BWD)
 
 
+def build_bwd_sm90() -> _nvcc.BuildInfo:
+    """Compile ``csrc/flash_attention_bwd_sm90.cu`` into ``_build/``."""
+    return _nvcc.build(SOURCE_BWD_SM90)
+
+
+def bwd_sm90_smem_bytes(dk: int, dv: int) -> int:
+    """Dynamic shared memory the sm90 backward's dK/dV kernel requests at
+    head dims ``dk``, ``dv``, as its source computes it (builds it)."""
+    return _nvcc.load(SOURCE_BWD_SM90,
+                      _ENTRIES_BWD_SM90).poas_flash_bwd_sm90_smem(dk, dv)
+
+
 def sm90_smem_bytes(dk: int, dv: int) -> int:
     """Dynamic shared memory an sm90 launch at head dims ``dk``, ``dv``
     requests, as the kernel's source computes it (builds it if needed)."""
@@ -89,6 +117,17 @@ def route(dtype: torch.dtype, dk: int, dv: int) -> str:
     (IEEE f32 on the CUDA cores): float32, and bf16 at other head dims."""
     if dtype == torch.bfloat16 and all(
             0 < d <= MAX_HEAD_DIM and d % 16 == 0 for d in (dk, dv)):
+        return "sm90"
+    return "simt"
+
+
+def route_bwd(dtype: torch.dtype, dk: int, dv: int) -> str:
+    """Which backward kernel a CUDA call runs: ``"sm90"`` (bf16 on the
+    tensor cores) for bfloat16 with Dk and Dv multiples of 16 up to 128,
+    else ``"simt"`` (f32 on the CUDA cores): float32, and bf16 at other
+    head dims."""
+    if dtype == torch.bfloat16 and all(
+            0 < d <= MAX_HEAD_DIM_BWD_SM90 and d % 16 == 0 for d in (dk, dv)):
         return "sm90"
     return "simt"
 
@@ -231,9 +270,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Gradients (dq, dk, dv) of ``flash_attention`` in q's, k's and v's
     dtypes, from its inputs, its output ``o``, the output's gradient ``do``
     and the rows' log-sum-exp ``lse`` (B, H, Sq) float32.  CPU tensors run
-    ``ref.flash_attention_bwd_ref``; CUDA tensors launch the kernel of
-    ``csrc/flash_attention_bwd.cu`` (f32 arithmetic; float32 or bf16
-    inputs) on the current stream, or raise."""
+    ``ref.flash_attention_bwd_ref``; CUDA tensors launch the kernel that
+    ``route_bwd`` names on the current stream, or raise: ``sm90`` writes
+    bf16 gradients straight from its accumulators, ``simt`` writes float32
+    ones that are rounded to the inputs' dtypes here."""
     _check(q, k, v)
     window = int(window)
     B, Sq, H, Dk = q.shape
@@ -259,16 +299,24 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"grid")
     if scale is None:
         scale = 1.0 / math.sqrt(Dk)
-    entry = getattr(_nvcc.load(SOURCE_BWD, _ENTRIES_BWD),
-                    _ENTRY_BWD[q.dtype])   # built, or raises
-    f32 = dict(dtype=torch.float32, device=q.device)
-    dq = torch.empty((B, Sq, H, Dk), **f32)   # the kernel writes every
-    dk = torch.empty((B, Skv, KH, Dk), **f32)  # element of dq, dk, dv
-    dv = torch.empty((B, Skv, KH, Dv), **f32)
+    kind = route_bwd(q.dtype, Dk, Dv)
+    if kind == "sm90":   # built, or raises, before anything is allocated
+        entry = getattr(_nvcc.load(SOURCE_BWD_SM90, _ENTRIES_BWD_SM90),
+                        _ENTRY_BWD_SM90)
+        out = dict(dtype=q.dtype, device=q.device)
+        q, k, v, o, do = (_aligned16(x) for x in (q, k, v, o, do))
+    else:
+        entry = getattr(_nvcc.load(SOURCE_BWD, _ENTRIES_BWD),
+                        _ENTRY_BWD[q.dtype])
+        out = dict(dtype=torch.float32, device=q.device)
+    dq = torch.empty((B, Sq, H, Dk), **out)   # the kernels write every
+    dk = torch.empty((B, Skv, KH, Dk), **out)  # element of dq, dk, dv
+    dv = torch.empty((B, Skv, KH, Dv), **out)
     if dq.numel() == 0 or dk.numel() == 0:
         return (dq.zero_().to(q.dtype), dk.zero_().to(k.dtype),
                 dv.zero_().to(v.dtype))
-    scratch = torch.empty((B, H, Sq), **f32)   # D = rowsum(dO o O)
+    scratch = torch.empty((B, H, Sq), dtype=torch.float32,
+                          device=q.device)   # D = rowsum(dO o O)
     lse = lse.contiguous()
     strides = (ctypes.c_int64 * 15)(*(s for x in (q, k, v, o, do)
                                       for s in x.stride()[:3]))
@@ -278,25 +326,29 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             strides, int(causal), window, scale)
     with torch.cuda.device(q.device):
         err = entry(*args, torch.cuda.current_stream(q.device).cuda_stream)
-    _nvcc.check(err, "flash_attention_bwd")
+    _nvcc.check(err, f"flash_attention_bwd ({kind})")
     with _count_lock:
         flash_attention_bwd.launches += 1
+        if kind == "sm90":
+            flash_attention_bwd.launches_sm90 += 1
+        else:
+            flash_attention_bwd.launches_simt += 1
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-# Kernel launches: per route, and ``launches`` = their sum; the backward's
-# own count (reset all four together).
+# Kernel launches, forward and backward: per route, and ``launches`` =
+# their sum (reset all six together).
 flash_attention.launches = 0
 flash_attention.launches_sm90 = 0
 flash_attention.launches_simt = 0
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_sm90 = 0
+flash_attention_bwd.launches_simt = 0
 
 
 def reset_counts() -> None:
-    """Set ``flash_attention``'s three launch counts and
-    ``flash_attention_bwd.launches`` to 0."""
+    """Set the three launch counts of ``flash_attention`` and of
+    ``flash_attention_bwd`` to 0."""
     with _count_lock:
-        flash_attention.launches = 0
-        flash_attention.launches_sm90 = 0
-        flash_attention.launches_simt = 0
-        flash_attention_bwd.launches = 0
+        for fn in (flash_attention, flash_attention_bwd):
+            fn.launches = fn.launches_sm90 = fn.launches_simt = 0

@@ -81,13 +81,19 @@ def _group_sum(x: torch.Tensor, groups: int, dim: int) -> torch.Tensor:
 
 
 def flash_attention_bwd_ref(q, k, v, o, do, lse, *, causal: bool = True,
-                            window: int = 0, scale: float | None = None):
+                            window: int = 0, scale: float | None = None,
+                            round_to: torch.dtype | None = None):
     """Gradients (dq, dk, dv) of ``flash_attention_ref`` given its output
     ``o``, the output's gradient ``do`` and the rows' log-sum-exp ``lse``
     (B, H, Sq), in float32, returned in q's, k's and v's dtypes:
     P = exp(S*scale - lse) on kept pairs, dV = P^T dO, dP = dO V^T,
     D = rowsum(dO o O), dS = P o (dP - D), dQ = scale dS K,
-    dK = scale dS^T Q; dK and dV summed over each KV head's query heads."""
+    dK = scale dS^T Q; dK and dV summed over each KV head's query heads.
+
+    ``round_to`` (e.g. ``torch.bfloat16``) rounds P to that dtype before
+    dV = P^T dO and dS before dQ and dK, where a tensor-core backward
+    rounds its MMA operands (the sm90 kernel does); dS itself is taken from
+    the unrounded P, and every sum stays in float32.  None: no rounding."""
     B, Sq, H, Dk = q.shape
     Skv, KH = k.shape[1], k.shape[2]
     G = H // KH
@@ -101,10 +107,13 @@ def flash_attention_bwd_ref(q, k, v, o, do, lse, *, causal: bool = True,
     kept = _band(Sq, Skv, causal, window, q.device)
     p = torch.exp(torch.where(kept, s - lse.to(wide)[..., None],
                               -torch.inf))
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, dow)
+    def operand(x):
+        return x if round_to is None else x.to(round_to).to(wide)
+
+    dv = torch.einsum("bhqk,bqhd->bkhd", operand(p), dow)
     dp = torch.einsum("bqhd,bkhd->bhqk", dow, vx)
     D = (dow * o.to(wide)).sum(-1).transpose(1, 2)          # (B, H, Sq)
-    ds = p * (dp - D[..., None])
+    ds = operand(p * (dp - D[..., None]))
     dq = scale * torch.einsum("bhqk,bkhd->bqhd", ds, kx)
     dk = scale * torch.einsum("bhqk,bqhd->bkhd", ds, qw)
     return (dq.to(q.dtype), _group_sum(dk, KH, 2).to(k.dtype),

@@ -14,9 +14,9 @@ computes in float32: bfloat16 inputs are widened to float32 on the card
 before the launch and y is rounded back to bfloat16 after it.
 
 Gradients: when autograd records the call, ``ssd_chunk`` runs as a
-``torch.autograd.Function`` whose backward is ``ssd_chunk_bwd``: the kernel
-of ``csrc/ssd_chunk_bwd.cu`` (f32 on the CUDA cores) on CUDA tensors,
-``ref.ssd_chunk_bwd_ref`` on CPU tensors.  It is the gradient of the
+``torch.autograd.Function`` whose backward is ``ssd_chunk_bwd``: the kernels
+of ``csrc/ssd_chunk_bwd.cu`` (3xTF32 on wgmma; C·Bᵀ, dC and dB once per
+group) on CUDA tensors, ``ref.ssd_chunk_bwd_ref`` on CPU tensors.  It is the gradient of the
 intra-chunk part of the reference model's ``ssd_scan``
 (``src/repro/models/ssm.py:67``), which the reference differentiates with
 ``jax.value_and_grad``; the Pallas kernel has no backward.  Both forms take
@@ -47,10 +47,14 @@ _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] * 7
              + [ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p])
 _ENTRIES = {_ENTRY: _ARGTYPES, "poas_ssd_chunk_smem": [ctypes.c_int64] * 2}
 _ENTRY_BWD = "poas_ssd_chunk_bwd_f32"
-# xdt, B, C, cum, dy, dstates, dxdt, dB, dC (per head), dcum (two parts),
-# F, then b, NC, Q, nh, G, hp, ds.
-_ENTRIES_BWD = {_ENTRY_BWD: [ctypes.c_void_p] * 11 + [ctypes.c_int64] * 7
-                + [ctypes.c_void_p]}
+# xdt, B, C, cum, dy, dstates, dxdt, dB, dC, dcum, scratch, then b, NC, Q,
+# nh, G, hp, ds, heads per slice, 24 strides, the stream.
+_ENTRIES_BWD = {
+    _ENTRY_BWD: ([ctypes.c_void_p] * 11 + [ctypes.c_int64] * 8
+                 + [ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p]),
+    "poas_ssd_chunk_bwd_smem": [ctypes.c_int64] * 3,
+    "poas_ssd_chunk_bwd_scratch": [ctypes.c_int64] * 8}
+_THREADS = 128           # one warpgroup a block (every K3-bwd kernel)
 
 _count_lock = threading.Lock()
 
@@ -107,6 +111,62 @@ def entry(dtype: torch.dtype) -> str:
 def kernel_smem_bytes(hp: int, ds: int) -> int:
     """The kernel's own figure for ``smem_bytes`` (builds it if needed)."""
     return _nvcc.load(SOURCE, _ENTRIES).poas_ssd_chunk_smem(hp, ds)
+
+
+def _tiles(Q: int) -> int:
+    return -(-Q // _TILE)
+
+
+def bwd_smem_bytes(Q: int, hp: int, ds: int) -> int:
+    """Dynamic shared memory of K3-bwd's main kernel (the largest of its
+    three), as ``main_layout`` in csrc/ssd_chunk_bwd.cu lays it out: xdt's
+    t tile and the dy tile K-major (hi, lo), dy transposed (hi, lo, hp
+    padded to 16/32/64/128 rows), two raw dy tiles, the slice's dCB^T
+    (16 KiB a q tile), two stages of cum and of the column sums, 32 raw
+    rows of dstates and 32 columns of B, and 1024 bytes of alignment.  ds
+    does not enter."""
+    xk = _ATOM * -(-hp // 32)
+    hpp = _padded_hp(hp)
+    xp = 16 * -(-hp // 4)
+    end = 4 * xk + 2 * hpp * 256 + 2 * _TILE * xp
+    dcb = _tiles(Q) * 32 * _THREADS * 4
+    state = 32 * xp + _TILE * 128      # 32 rows of dstates, 32 of B
+    return 1024 + end + dcb + 2 * _TILE * 4 + 2 * 8 * 32 * 4 + state
+
+
+def bwd_heads_per_slice(b: int, nc: int, Q: int, nh: int, G: int,
+                        sms: int) -> int:
+    """Heads of a group that one K3-bwd main block walks: the group is cut
+    into as few slices as give the grid (64-row t tiles x slices x groups x
+    batch-chunks) two blocks per SM of a card with ``sms`` SMs.  Each slice
+    adds its own dCB partial, which the post kernel sums in slice order."""
+    hg = nh // G
+    base = _tiles(Q) * G * b * nc
+    slices = min(hg, max(1, -(-2 * sms // base)))
+    return -(-hg // slices)
+
+
+def bwd_scratch_floats(b: int, nc: int, Q: int, nh: int, G: int, ds: int,
+                       hs: int) -> int:
+    """Floats of scratch K3-bwd takes (``scratch`` in
+    csrc/ssd_chunk_bwd.cu): C·Bᵀ per (t tile <= q tile) pair and group, the
+    slices' dCB partials, the slices' state-term dB, dcum's q parts per t
+    tile, its t part, and F."""
+    nt = _tiles(Q)
+    slices = -(-(nh // G) // hs)
+    rows = b * nc * Q
+    pair_tiles = b * nc * G * nt * (nt + 1) // 2 * _TILE * _TILE
+    return ((1 + slices) * pair_tiles + slices * rows * G * ds
+            + (nt + 2) * rows * nh)
+
+
+def bwd_kernel_figures(Q: int, hp: int, ds: int, b: int, nc: int, nh: int,
+                       G: int, hs: int) -> tuple[int, int]:
+    """The kernel's own (shared memory, scratch floats) for these dims
+    (builds it if needed)."""
+    lib = _nvcc.load(SOURCE_BWD, _ENTRIES_BWD)
+    return (lib.poas_ssd_chunk_bwd_smem(Q, hp, ds),
+            lib.poas_ssd_chunk_bwd_scratch(b, nc, Q, nh, G, hp, ds, hs))
 
 
 def _check(xdt, B, C, cum) -> None:
@@ -219,11 +279,11 @@ def ssd_chunk_bwd(xdt: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     """Gradients (dxdt, dB, dC, dcum) of ``ssd_chunk`` in the inputs'
     dtypes, given the gradients ``dy`` (b, NC, Q, nh, hp) of y and
     ``dstates`` (b, NC, nh, ds, hp) of the states.  CPU tensors run
-    ``ref.ssd_chunk_bwd_ref``; CUDA tensors launch the kernel of
-    ``csrc/ssd_chunk_bwd.cu`` on the current stream, or raise.  The kernel
-    writes dB and dC per head; heads are summed over their group here, and
-    the two halves of dcum (and the chunk end's share of the state term)
-    are added here, so no sum depends on the order blocks run in."""
+    ``ref.ssd_chunk_bwd_ref``; CUDA tensors launch the kernels of
+    ``csrc/ssd_chunk_bwd.cu`` on the current stream, or raise.  The kernels
+    compute in float32 (bf16 inputs are widened here) and write every
+    output whole: dB and dC per group, dcum with all its parts, in an order
+    that does not depend on the order blocks run in."""
     _check(xdt, B, C, cum)
     b, nc, Q, nh, hp = xdt.shape
     G, ds = B.shape[3], B.shape[4]
@@ -238,33 +298,45 @@ def ssd_chunk_bwd(xdt: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     if not (1 <= hp <= MAX_DIM and 1 <= ds <= MAX_DIM):
         raise ValueError(f"ssd_chunk_bwd: hp={hp}, ds={ds}; the kernel "
                          f"takes 1..{MAX_DIM}")
-    if b * nc > 65535 or nh > 65535:
-        raise ValueError(f"ssd_chunk_bwd: b={b}, NC={nc}, nh={nh} exceed "
-                         f"the grid")
+    if bwd_smem_bytes(Q, hp, ds) > SMEM_LIMIT:
+        raise ValueError(f"ssd_chunk_bwd: Q={Q}, hp={hp}, ds={ds} need more "
+                         f"shared memory than a block has")
+    if b * nc > 65535 or G > 65535:
+        raise ValueError(f"ssd_chunk_bwd: b={b}, NC={nc}, G={G} exceed the "
+                         f"grid")
     fn = getattr(_nvcc.load(SOURCE_BWD, _ENTRIES_BWD), _ENTRY_BWD)
+    sms = torch.cuda.get_device_properties(xdt.device).multi_processor_count
+    hs = bwd_heads_per_slice(b, nc, Q, nh, G, sms)
     f32 = dict(dtype=torch.float32, device=xdt.device)
     dxdt = torch.empty((b, nc, Q, nh, hp), **f32)
-    dB_h = torch.empty((b, nc, Q, nh, ds), **f32)
-    dC_h = torch.empty((b, nc, Q, nh, ds), **f32)
-    dcum2 = torch.empty((2, b, nc, Q, nh), **f32)
-    F = torch.empty((b, nc, Q, nh), **f32)
+    dB = torch.empty((b, nc, Q, G, ds), **f32)
+    dC = torch.empty((b, nc, Q, G, ds), **f32)
+    dcum = torch.empty((b, nc, Q, nh), **f32)
     if dxdt.numel() == 0:
         return (dxdt.zero_().to(xdt.dtype), B.new_zeros(B.shape),
                 C.new_zeros(C.shape), torch.zeros_like(cum))
-    ins = [x.float().contiguous() for x in (xdt, B, C, cum, dy, dstates)]
+    scratch = torch.empty(bwd_scratch_floats(b, nc, Q, nh, G, ds, hs), **f32)
+    ins = []
+    for x in (xdt, B, C, cum, dy, dstates):
+        x = x.float()
+        if x.stride(-1) != 1:
+            x = x.contiguous()
+        ins.append(x if x.dim() == 4 else _nvcc.aligned_rows(x))
+    # (b, NC, Q-or-ds, head-or-group) per input; dstates is (b, NC, nh, ds,
+    # hp), so its ds stride comes third.  Size-1 dims get stride 0.
+    order = ((0, 1, 2, 3),) * 5 + ((0, 1, 3, 2),)
+    strides = (ctypes.c_int64 * 24)(*(
+        x.stride(d) if x.shape[d] > 1 else 0
+        for x, dims in zip(ins, order) for d in dims))
     with torch.cuda.device(xdt.device):
         stream = torch.cuda.current_stream(xdt.device).cuda_stream
         err = fn(*(x.data_ptr() for x in ins), dxdt.data_ptr(),
-                 dB_h.data_ptr(), dC_h.data_ptr(), dcum2.data_ptr(),
-                 F.data_ptr(), b, nc, Q, nh, G, hp, ds, stream)
+                 dB.data_ptr(), dC.data_ptr(), dcum.data_ptr(),
+                 scratch.data_ptr(), b, nc, Q, nh, G, hp, ds, hs, strides,
+                 stream)
     _nvcc.check(err, "ssd_chunk_bwd")
     with _count_lock:
         ssd_chunk_bwd.launches += 1
-    hg = nh // G
-    dB = dB_h.view(b, nc, Q, G, hg, ds).sum(4)
-    dC = dC_h.view(b, nc, Q, G, hg, ds).sum(4)
-    dcum = dcum2[0] + dcum2[1]
-    dcum[:, :, -1] += F.sum(2)
     return dxdt.to(xdt.dtype), dB.to(B.dtype), dC.to(C.dtype), dcum
 
 
