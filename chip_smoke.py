@@ -65,6 +65,25 @@ failed check exits non-zero):
              ``torch.profiler`` and the loss head timed alone; (d) a checkpoint round trip through
              ``FaultTolerantRunner`` at the 2-layer cut, bit-equal, with
              the next step's loss equal to the uninterrupted run's.
+8. moe     — dbrx-132B (16 experts, top-4) at full width, weights from a
+             seed: (a) in float32 cut to 1 layer, a 512-token prefill on
+             the card (K2 ``simt``) against the same weights moved to the
+             CPU (plain versions): last-token logits at rtol/atol 3e-3 and
+             every (token, choice)'s kept (expert, slot) identical; (b) in
+             bfloat16 cut to 8 of 40 layers (~54.6 GB of weights), phase 6
+             (b)'s traffic through ``PoasDispatcher`` and
+             ``ServingEngine``: 16 in-vocabulary tokens per completion, 8
+             K2 launches per prefill, all ``sm90``, kept and dropped
+             choices per prefill, peak memory; (c) the larger bucket traced
+             with ``torch.profiler``, device time by kind (K2, the MoE's
+             router, dispatch, expert products and combine); (d) K2 at
+             that bucket's shape (48/8 heads of 128, window 0) against its
+             plain version, its bound and sdpa's ``is_causal``; (e) the MoE
+             layer twice at that shape, bit-equal; (f) ``moe_stack`` of the
+             same cut planned by ``TaskGraphDomain`` over phase 4's fitted
+             profiles, and phase 7 (d)'s runner re-homed through
+             ``remesh(..., scheduler=, lost=)`` with a two-pod
+             ``HeteroBatchScheduler``.
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or run outside the
@@ -74,6 +93,7 @@ prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -90,13 +110,17 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import (CopyModel, DeviceProfile, HGemms,  # noqa: E402
-                              LinearTimeModel, NO_COPY, Profiler,
-                              cuda_kernel_runner, host_cpu_runner)
+from repro_torch.core import (POAS, CopyModel, DeviceProfile,  # noqa: E402
+                              HGemms, LinearTimeModel, NO_COPY, Profiler,
+                              TaskGraphDomain, cuda_kernel_runner,
+                              host_cpu_runner, moe_stack,
+                              verify_graph_dependencies)
 from repro_torch.checkpoint import store  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.distributed.elastic import (  # noqa: E402
     FaultTolerantRunner, RunnerConfig)
+from repro_torch.distributed.hetero import (  # noqa: E402
+    HeteroBatchScheduler, PodProfile)
 from repro_torch.kernels import (flash_attention,  # noqa: E402
                                  flash_attention_bwd, matmul, ssd_chunk,
                                  ssd_chunk_bwd)
@@ -118,7 +142,7 @@ from repro_torch.kernels.ssd_chunk import (  # noqa: E402
     bwd_scratch_floats, bwd_smem_bytes, kernel_smem_bytes as k3_kernel_smem,
     smem_bytes as k3_smem)
 from repro_torch.launch import train as train_cli  # noqa: E402
-from repro_torch.models import Model  # noqa: E402
+from repro_torch.models import Model, moe  # noqa: E402
 from repro_torch.models.transformer import chunked_xent  # noqa: E402
 from repro_torch.serving.engine import (PoasDispatcher,  # noqa: E402
                                         Request, ServingEngine)
@@ -169,6 +193,13 @@ LSE_TOL = 1e-5
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 4   # step 1 warms up
 GATE_TOKENS = 1100        # phase 7 (b): one sequence, > the 1024 window
 GATE_LOSS_RTOL, GATE_LEAF_RTOL = 1e-4, 1e-3
+MOE_ARCH = "dbrx-132b"
+# 8 of dbrx's 40 layers: a layer holds 3.171 G expert and 0.088 G attention
+# parameters (6.52 GB in bf16), embedding and head 2.47 GB, so 8 layers
+# are ~54.6 GB of the card's 80 GB and all 40 would need ~263 GB.
+MOE_LAYERS = 8
+MOE_GATE_TOKENS = 512     # phase 8 (a): one float32 prompt, also run on the host
+MOE_RANGES = ("moe.router", "moe.dispatch", "moe.experts", "moe.combine")
 
 
 def fail(msg: str) -> None:
@@ -503,50 +534,69 @@ def prefill_matches_decode(cfg, gen) -> None:
     torch.cuda.empty_cache()
 
 
-def profile_serve(model, bucket) -> None:
-    """Where a bucket's time goes on the card: one prefill and three decode
-    steps under ``torch.profiler``; device-busy share of the host wall time
-    and the kernels that take the most device time.  Measurement only."""
+def traced(phase: str, label: str, fn, steps: int):
+    """``fn`` under ``torch.profiler``: prints the device-busy share of the
+    host wall, launches per step and the kernels that take the most device
+    time; returns (profile, device kernels, busy seconds), or None when
+    the trace holds no device time.  Device rows of ``record_function``
+    ranges (``MOE_RANGES``) are spans, not kernels, and are left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.key not in MOE_RANGES]
+    if not kern:
+        say(phase, f"(c) {label}: the trace holds no device time")
+        return None
+    busy = sum(e.self_device_time_total for e in kern) / 1e6
+    launches = sum(e.count for e in kern)
+    say(phase, f"(c) {label} under torch.profiler: wall {wall:.4f} s, "
+        f"device busy {busy:.4f} s ({busy / wall * 100:.1f} %, idle "
+        f"{(1 - busy / wall) * 100:.1f} %), {launches / steps:.0f} "
+        f"kernel launches per step")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
+        t = e.self_device_time_total / 1e6
+        say(phase, f"(c)   {t:.4f} s ({t / busy * 100:.1f} % of busy)"
+            f" x{e.count} {e.key[:90]}")
+    return prof, kern, busy
+
+
+def bucket_tokens(bucket) -> torch.Tensor:
+    """A bucket's prompts left-padded with token 0, as the engine pads."""
     plen = max(len(r.tokens) for r in bucket)
     prompts = np.zeros((len(bucket), plen), np.int64)
     for i, r in enumerate(bucket):
         prompts[i, plen - len(r.tokens):] = r.tokens
-    tokens = torch.from_numpy(prompts).to(DEV)
+    return torch.from_numpy(prompts).to(DEV)
 
-    def traced(label, fn, steps):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        kern = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in kern) / 1e6
-        launches = sum(e.count for e in kern)
-        if not kern:
-            say("serve", f"(c) {label}: the trace holds no device time")
-            return
-        say("serve", f"(c) {label} under torch.profiler: wall {wall:.4f} s, "
-            f"device busy {busy:.4f} s ({busy / wall * 100:.1f} %, idle "
-            f"{(1 - busy / wall) * 100:.1f} %), {launches / steps:.0f} "
-            f"kernel launches per step")
-        for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
-            t = e.self_device_time_total / 1e6
-            say("serve", f"(c)   {t:.4f} s ({t / busy * 100:.1f} % of busy)"
-                f" x{e.count} {e.key[:90]}")
 
+def profile_serve(phase: str, model, bucket, breakdown=None) -> None:
+    """Where a bucket's time goes on the card: one prefill and three decode
+    steps under ``torch.profiler``; device-busy share of the host wall time
+    and the kernels that take the most device time, then
+    ``breakdown(phase, label, traced's result)`` of each trace.  The
+    prefill's and the decode steps' logits must be finite.  Measurement
+    only."""
+    tokens = bucket_tokens(bucket)
     with torch.inference_mode():
         out = {}
 
         def prefill():
             out["logits"], out["cache"] = model.prefill({"tokens": tokens})
 
-        traced(f"prefill of {len(bucket)} x {plen}", prefill, 1)
+        label = f"prefill of {tokens.shape[0]} x {tokens.shape[1]}"
+        result = traced(phase, label, prefill, 1)
+        if breakdown and result:
+            breakdown(phase, label, result)
+        check(bool(torch.isfinite(out["logits"]).all()),
+              f"({phase}) prefill logits are not finite")
         cache = model.extend_cache(out["cache"], 4)
         tok = out["logits"].argmax(-1)[:, None]
         _, cache = model.decode_step(cache, {"tokens": tok})   # warm
@@ -554,9 +604,39 @@ def profile_serve(model, bucket) -> None:
         def decode():
             c = cache
             for _ in range(3):
-                _, c = model.decode_step(c, {"tokens": tok})
+                out["logits"], c = model.decode_step(c, {"tokens": tok})
 
-        traced("3 decode steps", decode, 3)
+        result = traced(phase, "3 decode steps", decode, 3)
+        if breakdown and result:
+            breakdown(phase, "3 decode steps", result)
+        check(bool(torch.isfinite(out["logits"]).all()),
+              f"({phase}) decode logits are not finite")
+
+
+def serve_traffic(phase: str, cfg):
+    """Phase 6 (b)'s traffic at ``cfg``'s vocabulary: eight requests of
+    ``default_rng(0).integers(1500, 3001)`` prompt tokens, 16 new tokens
+    each, split by ``PoasDispatcher`` over two modelled groups (as
+    ``launch/serve.py``); returns the buckets and a 300-token warm-up
+    request."""
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(1500, 3001, size=SERVE_REQUESTS)
+    reqs = [Request(uid=i, tokens=rng.integers(1, cfg.vocab_size, int(n)),
+                    max_new_tokens=SERVE_MAX_NEW)
+            for i, n in enumerate(lengths)]
+    groups = [DeviceProfile(f"group{i}", "gpu-group",
+                            LinearTimeModel(a=(1 + i) * 1e-6, b=1e-3),
+                            NO_COPY) for i in range(2)]
+    disp = PoasDispatcher(groups)
+    buckets = disp.split(reqs)
+    say(phase, f"(b) prompt lengths {lengths.tolist()}; dispatch "
+        f"{[[r.uid for r in b] for b in buckets]} shares "
+        f"{[round(x, 4) for x in disp.last_plan.optimize.shares()]} "
+        f"predicted makespan {disp.predicted_makespan(buckets):.6f} s "
+        f"(modelled groups, as launch/serve.py)")
+    warm = [Request(uid=-1, tokens=rng.integers(1, cfg.vocab_size, 300),
+                    max_new_tokens=2)]
+    return buckets, warm
 
 
 def serve(gen) -> tuple[dict, dict, dict]:
@@ -584,23 +664,8 @@ def serve(gen) -> tuple[dict, dict, dict]:
     model = Model(cfg, device=DEV,
                   generator=torch.Generator(DEV).manual_seed(0))
     engine = ServingEngine(model)
-    rng = np.random.default_rng(0)
-    lengths = rng.integers(1500, 3001, size=SERVE_REQUESTS)
-    reqs = [Request(uid=i, tokens=rng.integers(1, cfg.vocab_size, int(n)),
-                    max_new_tokens=SERVE_MAX_NEW)
-            for i, n in enumerate(lengths)]
-    groups = [DeviceProfile(f"group{i}", "gpu-group",
-                            LinearTimeModel(a=(1 + i) * 1e-6, b=1e-3),
-                            NO_COPY) for i in range(2)]
-    disp = PoasDispatcher(groups)
-    buckets = disp.split(reqs)
-    say("serve", f"(b) prompt lengths {lengths.tolist()}; dispatch "
-        f"{[[r.uid for r in b] for b in buckets]} shares "
-        f"{[round(x, 4) for x in disp.last_plan.optimize.shares()]} "
-        f"predicted makespan {disp.predicted_makespan(buckets):.6f} s "
-        f"(modelled groups, as launch/serve.py)")
-    engine.generate([Request(uid=-1, tokens=rng.integers(
-        1, cfg.vocab_size, 300), max_new_tokens=2)])   # warm-up, not counted
+    buckets, warm = serve_traffic("serve", cfg)
+    engine.generate(warm)                              # warm-up, not counted
 
     reset_k2_counts()
     ssd_chunk.launches = 0
@@ -646,7 +711,7 @@ def serve(gen) -> tuple[dict, dict, dict]:
           "the serve path launched no K2 or K3")
     check(flash_attention.launches_simt == 0,
           "the bf16 serve path launched the simt K2")
-    profile_serve(model, max(buckets, key=len))
+    profile_serve("serve", model, max(buckets, key=len))
     del model, engine
     torch.cuda.empty_cache()
 
@@ -1189,32 +1254,39 @@ def train_path(cfg) -> dict:
     return launches
 
 
+def runner_cut(cfg):
+    """Phase 7 (d)'s configuration: full width, 2 layers (one global), and
+    its batches (2 x ``TRAIN_SEQ`` tokens of ``SyntheticLM``, seed 0)."""
+    cut = dataclasses.replace(cfg, num_layers=2, global_layers=(0,))
+    return cut, SyntheticLM(DataConfig(vocab_size=cut.vocab_size,
+                                       seq_len=TRAIN_SEQ, global_batch=2,
+                                       seed=0))
+
+
+def runner_job(cut, seed):
+    """A model of ``cut`` from ``seed`` with bf16 AdamW: the runner's
+    state and step function."""
+    model = Model(cut, device=DEV,
+                  generator=torch.Generator(DEV).manual_seed(seed))
+    opt = AdamW(learning_rate=cosine_schedule(1e-3, warmup=20, total=100),
+                state_dtype=torch.bfloat16)
+    step = make_train_step(model, opt)
+    return init_state(model, opt), (
+        lambda state, batch: step(state, batch_on_card(batch)))
+
+
 def checkpoint_round_trip(cfg) -> None:
     """(d) bf16 at the 2-layer full-width cut through
     ``FaultTolerantRunner``: run A takes 2 steps and checkpoints; a fresh
     model and optimizer (other weights) restore it and must hold every
     parameter and optimizer state bit for bit; then both take step 3 on the
     same batch, whose losses must be equal."""
-    cut = dataclasses.replace(cfg, num_layers=2, global_layers=(0,))
-    data = SyntheticLM(DataConfig(vocab_size=cut.vocab_size,
-                                  seq_len=TRAIN_SEQ, global_batch=2,
-                                  seed=0))
-
-    def job(seed):
-        model = Model(cut, device=DEV,
-                      generator=torch.Generator(DEV).manual_seed(seed))
-        opt = AdamW(learning_rate=cosine_schedule(1e-3, warmup=20,
-                                                  total=100),
-                    state_dtype=torch.bfloat16)
-        step = make_train_step(model, opt)
-        return init_state(model, opt), (
-            lambda state, batch: step(state, batch_on_card(batch)))
-
+    cut, data = runner_cut(cfg)
     losses = {}
     with tempfile.TemporaryDirectory() as tmp:
         runners = {}
         for name, seed in (("A", 0), ("B", 1)):
-            state, step_fn = job(seed)
+            state, step_fn = runner_job(cut, seed)
             runners[name] = FaultTolerantRunner(
                 RunnerConfig(checkpoint_dir=tmp, checkpoint_every=2),
                 step_fn=step_fn, state=state)
@@ -1284,6 +1356,323 @@ def train(gen) -> tuple[dict, dict, dict]:
     checkpoint_round_trip(cfg)
     return {"sm90": k2b[(bf16, cfg.window)],
             "simt": k2b[(f32, cfg.window)]}, k3b, launches
+
+# ---------------------------------------------------------------------------
+# Phase 8: dbrx-132B (MoE) served at full width, depth cut
+# ---------------------------------------------------------------------------
+
+
+def moe_layers(model) -> list:
+    return [blk.moe for blk in model.layers if hasattr(blk, "moe")]
+
+
+def record_moe(layers, records: list, routed: dict) -> None:
+    """Shadow each MoE layer's ``moe_local`` with an instance attribute that
+    appends (tokens, per-expert counts) of every call to ``records``; the
+    first layer also routes a prefill's input again (router and dispatch
+    only) and keeps (expert ids, keep) in ``routed[tokens]``.  ``del
+    layer.moe_local`` restores the method."""
+    def recording(m, first):
+        inner = m.moe_local
+
+        def moe_local(x, **kw):
+            out, counts = inner(x, **kw)
+            records.append((x.shape[0], counts))
+            if first and x.shape[0] > SERVE_REQUESTS:      # a prefill
+                _, top_i = moe.route(x, m.router, m.cfg.experts_per_token)
+                routed[x.shape[0]] = top_i, moe.dispatch(
+                    top_i, e_off=kw["e_off"], num_local=kw["num_local"],
+                    capacity=kw["capacity"])[1]
+            return out, counts
+        return moe_local
+
+    for i, m in enumerate(layers):
+        m.moe_local = recording(m, i == 0)
+
+
+def pad_drops(cut, bucket, top_i, keep) -> str:
+    """Who fills and who loses a prefill's expert slots: per expert, the
+    (token, choice) pairs routed from left-padding and from real tokens,
+    and the dropped pairs of each kind."""
+    pad = (bucket_tokens(bucket).reshape(-1) == 0)[:, None].expand_as(top_i)
+    E = cut.num_experts
+    per = [torch.bincount(top_i[sel], minlength=E).tolist()
+           for sel in (pad, ~pad)]
+    lost = [int((~keep & sel).sum()) for sel in (pad, ~pad)]
+    return (f"routed per expert from pads {per[0]}, from real tokens "
+            f"{per[1]}; dropped {lost[0]} pad and {lost[1]} real choices "
+            f"of {int(pad.sum())} and {int((~pad).sum())}")
+
+
+def kept_dropped(cfg, records) -> tuple[int, int]:
+    """(kept, dropped) (token, choice) pairs over MoE calls recorded as
+    (tokens, per-expert counts): an expert keeps at most its capacity."""
+    kept = sum(int(torch.clamp(counts, max=moe.capacity_for(T, cfg)).sum())
+               for T, counts in records)
+    total = sum(T * cfg.experts_per_token for T, _ in records)
+    return kept, total - kept
+
+
+def moe_gate(cfg, card: str) -> int:
+    """(a) float32, full width cut to 1 layer, one seeded prompt: the
+    prefill on the card (K2 simt, the MoE on cuBLAS) against the same
+    weights moved to the CPU (the plain versions); the last-token logits
+    at ``PREFILL_DECODE_TOL`` and the (expert, slot) of every (token,
+    choice) identical.  Returns K2's simt launches."""
+    cut = dataclasses.replace(cfg, num_layers=1, dtype="float32")
+    prompt = torch.as_tensor(np.random.default_rng(1).integers(
+        1, cfg.vocab_size, MOE_GATE_TOKENS)[None])
+    model = Model(cut, device=DEV,
+                  generator=torch.Generator(DEV).manual_seed(0))
+    layer = model.layers[0].moe
+    seen = {}
+    hook = layer.register_forward_pre_hook(      # the layer's last input
+        lambda m, args: seen.__setitem__("x", args[0].reshape(-1,
+                                                              cut.d_model)))
+    T, k = MOE_GATE_TOKENS, cut.experts_per_token
+    C = moe.capacity_for(T, cut)
+    reset_k2_counts()
+    logits, times, slots = {}, {}, {}
+    for where in ("cuda", "cpu"):
+        model.to(where)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            logits[where] = model.prefill(
+                {"tokens": prompt.to(where)})[0][0].cpu()
+            _, top_i = moe.route(seen["x"], layer.router, k)
+            slots[where] = [t.cpu() for t in (top_i, *moe.dispatch(
+                top_i, e_off=0, num_local=cut.num_experts, capacity=C))]
+        times[where] = time.perf_counter() - t0
+    hook.remove()
+    sm90, simt = k2_counts()
+    check(sm90 == 0 and simt == 1, f"(a) the card's float32 prefill "
+          f"launched K2 sm90 {sm90}, simt {simt} times, not 0 and 1")
+    err = float((logits["cuda"] - logits["cpu"]).abs().max())
+    ok = torch.allclose(logits["cuda"], logits["cpu"],
+                        rtol=PREFILL_DECODE_TOL, atol=PREFILL_DECODE_TOL)
+    differ = int((slots["cuda"][0] != slots["cpu"][0]).any(-1).sum())
+    same_slots = all(torch.equal(a, b)
+                     for a, b in zip(slots["cuda"], slots["cpu"]))
+    kept = int(slots["cpu"][2].sum())
+    say("moe", f"(a) float32 gate, {cut.name} cut to 1 layer, 1 x {T} "
+        f"tokens (seed 1), capacity {C} per expert: last-token logits card "
+        f"vs cpu max_abs_err={err:.3e}, logits std "
+        f"{float(logits['cpu'].std()):.3e}, allclose(rtol=atol="
+        f"{PREFILL_DECODE_TOL})={ok}; MoE (token, choice) -> (expert, slot) "
+        f"identical={same_slots} ({differ} tokens route differently), kept "
+        f"{kept}, dropped {T * k - kept} of {T * k} choices; card "
+        f"{times['cuda']:.2f} s, cpu {times['cpu']:.2f} s (prefill and "
+        f"dispatch); {card}")
+    check(bool(torch.isfinite(logits["cuda"]).all()),
+          "(a) the card's logits are not finite")
+    check(ok, "(a) the card's float32 prefill disagrees with the CPU's")
+    check(same_slots, "(a) the card's MoE keeps other (expert, slot) pairs "
+          "than the CPU's")
+    del model, layer, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return simt
+
+
+def moe_breakdown(phase: str, label: str, result) -> None:
+    """Device time of a trace by kind: K2, each MoE stage (its
+    ``record_function`` range: the router; dispatch = sort, positions and
+    the scatter/gather into the expert buffer; the expert products; the
+    combine's gathers and sum) and the rest."""
+    from torch.autograd import DeviceType
+
+    prof, kern, busy = result
+    parts = {name: 0.0 for name in MOE_RANGES}
+    for e in prof.events():
+        if e.name in parts and e.device_type == DeviceType.CPU:
+            parts[e.name] += e.device_time_total / 1e6
+    k2 = sum(e.self_device_time_total for e in kern
+             if "flash_sm90_kernel" in e.key) / 1e6
+    rest = busy - k2 - sum(parts.values())
+    say(phase, f"(c)   {label} by kind: K2 sm90 {k2:.4f} s "
+        f"({k2 / busy * 100:.1f} %), " + ", ".join(
+            f"{n} {t:.4f} s ({t / busy * 100:.1f} %)"
+            for n, t in parts.items())
+        + f", everything else {rest:.4f} s ({rest / busy * 100:.1f} %)")
+
+
+def moe_serve(cfg, card: str) -> tuple[int, int, int]:
+    """(b) bf16 at full width cut to ``MOE_LAYERS`` layers: phase 6 (b)'s
+    traffic through ``PoasDispatcher`` and ``ServingEngine``, K2 launched
+    once per layer per prefill, all on sm90, and who the first MoE layer
+    drops at prefill, pads or real tokens; (c) the larger bucket traced,
+    its prefill and decode logits finite; (e) the MoE layer twice at that
+    bucket's shape, bit-equal.  Returns
+    (K2 sm90 launches of (b), the larger bucket's batch and padded
+    length)."""
+    cut = dataclasses.replace(cfg, num_layers=MOE_LAYERS)
+    free0, total = torch.cuda.mem_get_info()
+    t0 = time.perf_counter()
+    model = Model(cut, device=DEV,
+                  generator=torch.Generator(DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    free1, _ = torch.cuda.mem_get_info()
+    n_params = sum(p.numel() for p in model.parameters())
+    wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    say("moe", f"(b) {cut.name} bf16 cut to {MOE_LAYERS} of "
+        f"{cfg.num_layers} layers: {n_params / 1e9:.4f} B params, "
+        f"{wbytes / 1e9:.3f} GB of weights (seed 0), built in "
+        f"{time.perf_counter() - t0:.1f} s; memory_allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB; mem_get_info free "
+        f"{free0 / 1e9:.3f} -> {free1 / 1e9:.3f} GB of {total / 1e9:.3f} GB "
+        f"(the allocator also keeps the init's float32 draws cached)")
+    engine = ServingEngine(model)
+    buckets, warm = serve_traffic("moe", cut)
+    records: list = []
+    routed: dict = {}
+    record_moe(moe_layers(model), records, routed)
+    engine.generate(warm)                              # warm-up, not counted
+    L = cut.num_layers
+    reset_k2_counts()
+    for gi, bucket in enumerate(buckets):
+        B = len(bucket)
+        plen = max(len(r.tokens) for r in bucket)
+        records.clear()
+        sm0, f0 = flash_attention.launches_sm90, flash_attention.launches
+        torch.cuda.reset_peak_memory_stats()
+        done = engine.generate(bucket)
+        peak = torch.cuda.max_memory_allocated()
+        df = flash_attention.launches - f0
+        dsm = flash_attention.launches_sm90 - sm0
+        check(df == L and dsm == df, f"(b) bucket {gi}: one prefill "
+              f"launched K2 {df} times ({dsm} sm90), not {L}, all sm90")
+        pre, dec = records[:L], records[L:]
+        check([T for T, _ in pre] == [B * plen] * L
+              and all(T == B for T, _ in dec),
+              f"(b) bucket {gi}: MoE calls of {[T for T, _ in records]} "
+              f"tokens")
+        (pk, pd), (dk, dd) = kept_dropped(cut, pre), kept_dropped(cut, dec)
+        for c in done:
+            check(len(c.tokens) == SERVE_MAX_NEW and bool(
+                ((c.tokens >= 0) & (c.tokens < cut.vocab_size)).all()),
+                f"(b) completion {c.uid}: {c.tokens}")
+        real = sum(len(r.tokens) for r in bucket)
+        pre_s, dec_s = done[0].prefill_s, done[0].decode_s
+        say("moe", f"(b) bucket {gi}: {B} requests, prompts padded to "
+            f"{plen} ({real} real tokens); prefill {pre_s:.4f} s = "
+            f"{B * plen / pre_s:.1f} tok/s ({real / pre_s:.1f} real tok/s);"
+            f" decode {SERVE_MAX_NEW - 1} steps {dec_s:.4f} s = "
+            f"{B * (SERVE_MAX_NEW - 1) / dec_s:.1f} tok/s "
+            f"({dec_s / (SERVE_MAX_NEW - 1) * 1e3:.2f} ms/step); MoE "
+            f"capacity {moe.capacity_for(B * plen, cut)} per expert at "
+            f"prefill: kept {pk}, dropped {pd} choices over {L} layers "
+            f"(decode: kept {dk}, dropped {dd}); peak max_memory_allocated "
+            f"{peak / 2**30:.3f} GiB; K2 +{df} (sm90); first completion "
+            f"{done[0].tokens.tolist()}; {card}")
+        say("moe", f"(b) bucket {gi}, first MoE layer's prefill: "
+            + pad_drops(cut, bucket, *routed[B * plen]) + f"; {card}")
+    for m in moe_layers(model):
+        del m.moe_local
+    launches = flash_attention.launches_sm90
+    big = max(buckets, key=len)
+    profile_serve("moe", model, big, moe_breakdown)
+
+    # (e) the MoE layer twice at the larger bucket's prefill shape
+    B, S = len(big), max(len(r.tokens) for r in big)
+    layer = moe_layers(model)[0]
+    x = torch.randn((B, S, cut.d_model), generator=torch.Generator(
+        DEV).manual_seed(5), device=DEV).to(layer.w_in.dtype)
+    with torch.inference_mode():
+        (a, ca), (b, cb) = (layer.moe_local(
+            x.view(B * S, cut.d_model), e_off=0, num_local=cut.num_experts,
+            capacity=moe.capacity_for(B * S, cut)) for _ in range(2))
+        same_out = torch.equal(a, b) and torch.equal(ca, cb)
+    say("moe", f"(e) the MoE layer twice at {B} x {S} x {cut.d_model} "
+        f"{x.dtype} on the card: outputs and counts bit-equal={same_out}")
+    check(same_out, "(e) two runs of the MoE layer differ")
+    del model, engine, layer, a, b, x, records, routed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, B, S
+
+
+def moe_graph(fitted, card: str) -> None:
+    """(f) the same model as a task graph: ``TaskGraphDomain`` plans
+    ``moe_stack`` at the depth cut over phase 4's fitted host and card."""
+    t0 = time.perf_counter()
+    g = moe_stack(MOE_ARCH, layers=MOE_LAYERS)
+    plan = POAS(TaskGraphDomain(fitted, bus="serialized")).plan(g)
+    viol = verify_graph_dependencies(g, plan.schedule.timeline)
+    shares = plan.optimize.shares()
+    say("moe", f"(f) moe_stack({MOE_ARCH!r}, layers={MOE_LAYERS}): "
+        f"{len(g)} tasks, {len(g.edges)} edges, {g.total_ops():.4e} ops, "
+        f"planned by TaskGraphDomain over phase 4's fitted profiles in "
+        f"{time.perf_counter() - t0:.2f} s: predicted makespan "
+        f"{plan.optimize.makespan:.6f} s; shares " + ", ".join(
+            f"{d.name} {x * 100:.2f} % ({len(plan.adapted.tasks_of(d.name))}"
+            f" tasks)" for d, x in zip(fitted, shares))
+        + f"; dependency violations {len(viol)}; {card}")
+    check(viol == [], f"(f) the planned timeline breaks dependencies: "
+          f"{viol[:3]}")
+
+
+def moe_remesh(cfg) -> None:
+    """(f) phase 7 (d)'s runner re-homed through ``remesh`` with a two-pod
+    ``HeteroBatchScheduler``: the lost pod leaves the split, the state is
+    restored bit for bit at the same step."""
+    cut, data = runner_cut(cfg)
+    pods = [PodProfile(f"pod{i}", chips=1, peak_flops=PEAK["bfloat16"][0])
+            for i in range(2)]
+    sched = HeteroBatchScheduler(pods, flops_per_token=6 * cut.param_count(),
+                                 seq_len=TRAIN_SEQ)
+    with tempfile.TemporaryDirectory() as tmp:
+        state, step_fn = runner_job(cut, 0)
+        runner = FaultTolerantRunner(
+            RunnerConfig(checkpoint_dir=tmp, checkpoint_every=2),
+            step_fn=step_fn, state=state)
+        runner.run(data.stream(0), 2)
+        before = [(k, x.clone()) for k, x in store.flatten(runner.state)]
+        split = sched.plan(8)
+        runner.remesh(DEV, scheduler=sched, lost=("pod1",))
+        after = store.flatten(runner.state)
+        alone = sched.plan(8)
+        same = len(before) == len(after) and all(
+            ka == kb and torch.equal(x, y)
+            and y.device.type == torch.device(DEV).type
+            for (ka, x), (kb, y) in zip(before, after))
+    say("moe", f"(f) FaultTolerantRunner.remesh({DEV!r}, scheduler=, "
+        f"lost=('pod1',)) at step {runner.step}: batch of 8 split "
+        f"{split.sizes} before, {alone.sizes} after over "
+        f"{[p.name for p in sched.pods]}; {len(after)} leaves restored "
+        f"bit-equal={same}")
+    check(alone.sizes == (8,) and [p.name for p in sched.pods] == ["pod0"],
+          f"(f) the split after pod1 left is {alone.sizes}")
+    check(same and runner.step == 2, "(f) remesh lost the state")
+    del runner, state, before, after
+    torch.cuda.empty_cache()
+
+
+def moe_phase(gen, fitted, card: str) -> tuple[dict, dict]:
+    """Phase 8: dbrx-132B, MoE on every layer, at full width."""
+    cfg = get_config(MOE_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("moe", f"{cfg.name}: d_model {cfg.d_model}, {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} heads of {cfg.head_dim}, full causal "
+        f"attention, {cfg.num_experts} experts top-{cfg.experts_per_token} "
+        f"of d_ff {cfg.d_ff}, capacity factor {cfg.moe_capacity_factor}, "
+        f"vocab {cfg.vocab_size}; {cfg.param_count() / 1e9:.3f} B params "
+        f"over {cfg.num_layers} layers (ArchConfig.param_count); "
+        f"mem_get_info free {torch.cuda.mem_get_info()[0] / 1e9:.3f} GB; "
+        f"{card}")
+    t0 = time.perf_counter()
+    simt = moe_gate(cfg, card)
+    sm90, B, S = moe_serve(cfg, card)
+    # (d) K2 at the serving path's dbrx shape (the larger bucket)
+    row = flash_row("dbrx-serve-path", gen, B, S, cfg.num_heads,
+                    cfg.num_kv_heads, cfg.head_dim, cfg.head_dim, 0,
+                    torch.bfloat16)
+    torch.cuda.empty_cache()
+    moe_graph(fitted, card)
+    moe_remesh(get_config(SERVE_ARCH))
+    say("moe", f"done in {time.perf_counter() - t0:.1f} s")
+    return row, {"flash_attention/sm90": sm90, "flash_attention/simt": simt}
+
 
 
 def main() -> None:
@@ -1524,6 +1913,12 @@ def main() -> None:
     # ---- 7. train: hymba-1.5B -------------------------------------------
     k2b_rows, k3b_row, train_launches = train(gen)
     say("train", f"total {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 8. moe: dbrx-132B at full width, depth cut ------------------------
+    _, moe_launches = moe_phase(gen, fitted, card)
+    say("moe", f"total {time.perf_counter() - t_start:.1f} s")
+    for name, n in moe_launches.items():     # K2's launches on both paths
+        serve_launches[name] += n
 
     kernels = [{"name": "matmul", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/matmul.cu",

@@ -1,6 +1,5 @@
 """POAS core — the paper's contribution (Predict, Optimize, Adapt, Schedule).
 
-The port of ``repro.core`` minus the task-graph builders (``graph.py``).
 Public API:
     DeviceProfile, LinearTimeModel, RooflineTimeModel, CopyModel
     fit_linear, Profiler, host_cpu_runner, cuda_kernel_runner
@@ -11,7 +10,9 @@ Public API:
     Domain, PlanCache, register_domain, get_domain, list_domains
     OverlappedExecutor, DeviceTask
     POAS, GemmWorkload, GemmDomain, make_gemm_poas, HGemms
-    CoExecutionRuntime, ObservationPump, Tenant, StreamJob
+    TaskGraph, TaskNode, TaskGraphDomain, solve_list_schedule,
+    build_graph_timeline, transformer_block, CoExecutionRuntime,
+    ObservationPump, Tenant, StreamJob
 """
 from .bus import (BusEvent, BusTopology, ClockState, GraphSimContext,
                   GraphSimState, GraphTimelineSpec,
@@ -33,6 +34,10 @@ from .adapt import (DeviceAssignment, GemmPlan, SubProduct, decompose_square,
                     ops_to_mnk, squareness)
 from .schedule import (DynamicScheduler, Schedule, StaticScheduler,
                        simulate_graph_timeline, simulate_timeline)
+from .graph import (GraphPlan, TaskGraph, TaskGraphDomain, TaskNode,
+                    TemplatePartition, detect_templates, diamond, moe_block,
+                    moe_stack, ssm_block, ssm_stack, transformer_block,
+                    transformer_stack, verify_graph_dependencies)
 from .domain import (Domain, FunctionDomain, PlanCache, QoS, TIER_BATCH,
                      TIER_LATENCY, Workload, device_signature, get_domain,
                      list_domains, register_domain)
@@ -77,6 +82,11 @@ __all__ = [
     "GraphTimelineSpec", "TaskSpec", "build_graph_timeline",
     "graph_finish_times", "GraphScheduleResult", "solve_list_schedule",
     "simulate_graph_timeline",
-    "SHARED_TEMPLATE_CACHE", "TemplatePlanCache", "solve_hierarchical",
+    "GraphPlan", "TaskGraph", "TaskGraphDomain", "TaskNode", "diamond",
+    "moe_block", "moe_stack", "ssm_block", "ssm_stack",
+    "transformer_block", "transformer_stack",
+    "verify_graph_dependencies",
+    "SHARED_TEMPLATE_CACHE", "TemplatePlanCache", "TemplatePartition",
+    "detect_templates", "solve_hierarchical",
     "MAKESPAN_OBJECTIVE", "Objective", "divisible_energy", "graph_energy",
 ]

@@ -6,11 +6,15 @@ produces a DS-POAS (domain-specific POAS).  This module defines that binding
 point as a protocol, a process-wide registry of domain factories, and the
 ``PlanCache`` that memoizes solved plans across repeated ``plan()`` calls.
 
-Two domains ship with this package so far:
+Four domains ship with this package:
 
 * ``gemm``             — heterogeneous GEMM (``core.framework.GemmDomain``)
 * ``serving-dispatch`` — request-batch dispatch across model replicas
                          (``serving.engine.ServingDispatchDomain``)
+* ``train-step``       — heterogeneous data-parallel batch split
+                         (``distributed.hetero.TrainStepDomain``)
+* ``task-graph``       — precedence-constrained DAGs, list-scheduled
+                         (``core.graph.TaskGraphDomain``)
 """
 from __future__ import annotations
 
@@ -172,12 +176,11 @@ def list_domains() -> list[str]:
 
 
 def _ensure_builtin_domains() -> None:
-    """Import the modules that register the shipped domains (idempotent).
-
-    ``task-graph`` and ``train-step`` register once their modules exist in
-    this package."""
+    """Import the modules that register the shipped domains (idempotent)."""
     from . import framework  # noqa: F401  (registers "gemm")
+    from . import graph      # noqa: F401  (registers "task-graph")
     from ..serving import engine  # noqa: F401  ("serving-dispatch")
+    from ..distributed import hetero  # noqa: F401  ("train-step")
 
 
 # ---------------------------------------------------------------------------

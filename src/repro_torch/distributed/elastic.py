@@ -4,13 +4,15 @@
 * periodic checkpointing (atomic, keep-k — see ``checkpoint.store``);
 * retry-with-restore on step failure (simulating preempted/failed workers);
 * re-homing: ``remesh(device)`` checkpoints, moves the state's tensors to
-  ``device`` and restores the checkpoint into them.
+  ``device`` and restores the checkpoint into them; given a
+  ``HeteroBatchScheduler`` it also routes the pods lost or joined through
+  the scheduler's change-point path (``pod_leave`` / ``pod_join``).
 
 The state is a tree of tensors (nested dicts) that ``checkpoint.store``
 restores in place, so a model whose parameters are leaves of it follows
-every restore.  The reference's ``remesh`` onto a new mesh's shardings, and
-its hook into ``HeteroBatchScheduler``, wait for the port of the sharded
-layer (``distributed/hetero.py`` and friends).
+every restore.  The reference's ``remesh`` onto a new mesh's shardings
+waits for the port of the sharded layer (``distributed/sharding.py`` and
+friends): here the first argument is a device.
 """
 from __future__ import annotations
 
@@ -110,12 +112,26 @@ class FaultTolerantRunner:
     # -- re-homing ------------------------------------------------------------
 
     @torch.no_grad()
-    def remesh(self, device) -> None:
+    def remesh(self, device, *, scheduler: Any = None,
+               lost: tuple = (), joined: tuple = ()) -> None:
         """Move the state to ``device`` (e.g. after losing a card):
         checkpoint now, re-home every tensor of the state on ``device``
         (same objects: a model's parameters stay its parameters), then
-        restore the checkpoint into them."""
+        restore the checkpoint into them.
+
+        When the training loop splits batches with a
+        ``HeteroBatchScheduler``, pass it (plus the departed pod names /
+        joined ``PodProfile``s) and the same call routes the membership
+        change through the POAS change-point path (``pod_leave`` /
+        ``pod_join`` — re-fitted models carried for survivors, plan cache
+        invalidated), so the very next step's batch split is solved on
+        the new cluster instead of the stale one."""
         self.maybe_checkpoint(force=True)
+        if scheduler is not None:
+            for name in lost:
+                scheduler.pod_leave(name)
+            for pod in joined:
+                scheduler.pod_join(pod)
         for _, leaf in store.flatten(self.state):
             leaf.data = torch.empty_like(leaf.data, device=device)
         self.state, self.step = store.restore(self.cfg.checkpoint_dir,

@@ -3,8 +3,11 @@
 The reference keeps parameters as a nested dict whose layer leaves are
 stacked along a leading ``num_layers`` axis; the port keeps one module per
 layer with the same leaf names, so leaf ``layers/attn/wq`` row ``i`` is the
-port's ``layers.{i}.attn.wq``.  This is the one way the tests share weights
-between the two packages.
+port's ``layers.{i}.attn.wq``.  A config whose layers come in groups of g
+sub-layers (llama4: ``moe_every`` = 2, dense then MoE) stacks each
+sub-layer ``s{i}`` over the num_layers / g groups: row j of
+``layers/s{i}/...`` is the port's layer ``j * g + i``.  This is the one way
+the tests share weights between the two packages.
 """
 from __future__ import annotations
 
@@ -12,7 +15,7 @@ import numpy as np
 import torch
 
 from .config import ArchConfig
-from .transformer import Model
+from .transformer import Model, _sub_cfgs
 
 
 def _tensor(x) -> torch.Tensor:
@@ -38,16 +41,25 @@ def params_from_reference(cfg: ArchConfig, tree: dict, *,
     values (numpy arrays, or anything ``np.asarray`` takes).  Raises if a
     leaf is missing or left over, or if a shape disagrees."""
     model = Model(cfg, device=device)
+    g = len(_sub_cfgs(cfg))
+    groups = cfg.num_layers // g
     state = {}
     for name, val in _flatten(tree).items():
         if name.startswith("layers."):
             stacked = _tensor(val)
-            if stacked.shape[0] != cfg.num_layers:
-                raise ValueError(f"{name}: leading axis {stacked.shape[0]} "
-                                 f"is not num_layers={cfg.num_layers}")
             rest = name[len("layers."):]
-            for i in range(cfg.num_layers):
-                state[f"layers.{i}.{rest}"] = stacked[i]
+            sub = 0
+            if g > 1:
+                head, _, rest = rest.partition(".")
+                if head not in {f"s{i}" for i in range(g)}:
+                    raise ValueError(f"{name}: not under one of the {g} "
+                                     f"sub-layers s0..s{g - 1}")
+                sub = int(head[1:])
+            if stacked.shape[0] != groups:
+                raise ValueError(f"{name}: leading axis {stacked.shape[0]} "
+                                 f"is not num_layers / {g} = {groups}")
+            for j in range(groups):
+                state[f"layers.{j * g + sub}.{rest}"] = stacked[j]
         else:
             state[name] = _tensor(val)
     model.load_state_dict(state, strict=True)

@@ -278,10 +278,10 @@ class MLA(nn.Module):
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg: ArchConfig, init: Init):
+    def __init__(self, cfg: ArchConfig, init: Init, d_ff: int | None = None):
         super().__init__()
         dt = _dtype(cfg)
-        d, ff = cfg.d_model, cfg.d_ff
+        d, ff = cfg.d_model, d_ff or cfg.d_ff
         out_sc = 0.02 / math.sqrt(2 * cfg.num_layers)
         self.wi = init.normal((d, ff), 0.02, dt)
         self.wg = init.normal((d, ff), 0.02, dt)

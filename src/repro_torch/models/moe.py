@@ -1,0 +1,164 @@
+"""Mixture-of-Experts layer — sort-based local dispatch into a static
+per-expert capacity, then the grouped SwiGLU expert FFN.
+
+The reference's design (its ``models/moe.py``): each token's router picks
+its top-k experts; the (token, choice) pairs are stably sorted by expert,
+and each expert keeps the first ``capacity`` of its pairs in that order —
+later ones are dropped — so dispatch costs O(tokens·k·d) gathers instead of
+a dense one-hot einsum.  ``moe_local`` runs the experts
+``[e_off, e_off + num_local)``; pairs routed elsewhere go to a dustbin id
+``num_local``, which is how the reference's expert-parallel path (one
+expert range per shard, outputs summed over shards) is built on it.  That
+sharded path waits for this package's distributed layer; on one card
+``MoE`` calls ``moe_local`` with the full expert range.
+
+Everything here is PyTorch's own ops (matmul, sort, gathers, ``bmm``), as
+the reference computes it with ``jnp`` ops outside any Pallas kernel.  The
+four stages run under ``torch.profiler.record_function`` ranges
+(``moe.router``, ``moe.dispatch``, ``moe.experts``, ``moe.combine``), so a
+trace attributes the device time of each.  Three choices keep the two
+packages equal:
+
+* top-k comes from a *stable* descending sort, so equal probabilities
+  pick the lower expert id first, as ``jax.lax.top_k`` does
+  (``torch.topk`` gives no such guarantee);
+* the dispatch sort is stable, so each expert keeps the reference's
+  tokens when its capacity binds;
+* the combine puts each kept contribution back at its (token, choice)
+  place through the inverse of the sort and sums the k choices in choice
+  order in float32 — no ``index_add_``, whose CUDA form sums a token's
+  contributions in a different order on every run.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+from torch.profiler import record_function
+
+from .config import ArchConfig
+from .layers import MLP, Init, _dtype
+
+F32 = torch.float32
+
+
+def capacity_for(tokens: int, cfg: ArchConfig) -> int:
+    c = int(math.ceil(tokens * cfg.experts_per_token
+                      * cfg.moe_capacity_factor / cfg.num_experts))
+    return max(8, -(-c // 8) * 8)  # round up to 8 (sublane grain)
+
+
+def route(x: torch.Tensor, router: torch.Tensor, k: int
+          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Router of tokens ``x`` (T, d): f32 logits, softmax, the top ``k``
+    probabilities renormalised to sum 1.  Returns (weights (T, k) f32,
+    expert ids (T, k)); ties pick the lower id first."""
+    probs = torch.softmax(x.to(F32) @ router, dim=-1)
+    top_w, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_w, top_i = top_w[:, :k], top_i[:, :k]
+    return top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9), top_i
+
+
+def dispatch(top_i: torch.Tensor, *, e_off: int, num_local: int,
+             capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Where each (token, choice) pair of ``top_i`` (T, k) lands among the
+    local experts' ``capacity`` slots.  Returns (slot (T, k), keep (T, k)):
+    a kept pair sits at row ``slot`` of the (num_local * capacity) expert
+    buffer; a pair that is dropped (its expert is full) or not local has
+    ``keep`` False and ``slot`` 0."""
+    eid = top_i.reshape(-1)
+    local = (eid >= e_off) & (eid < e_off + num_local)
+    # dustbin id = num_local for non-local pairs
+    eid_l = torch.where(local, eid - e_off, num_local)
+    eid_s, order = torch.sort(eid_l, stable=True)
+    counts = torch.bincount(eid_s, minlength=num_local + 1)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(eid_s.numel(), device=eid.device) - starts[eid_s]
+    keep_s = (pos < capacity) & (eid_s < num_local)
+    slot_s = torch.where(keep_s, eid_s * capacity + pos, 0)
+    # back to (token, choice) order through the inverse of the sort: each
+    # sorted position is written once, so these scatters have no duplicates
+    slot = torch.empty_like(slot_s)
+    slot[order] = slot_s
+    keep = torch.empty_like(keep_s)
+    keep[order] = keep_s
+    return slot.view_as(top_i), keep.view_as(top_i)
+
+
+class MoE(nn.Module):
+    """The MoE FFN of one layer: ``router`` (d, E) in float32, ``w_in`` and
+    ``w_gate`` (E, d, ff) and ``w_out`` (E, ff, d) in the config's dtype,
+    and, where the config has one, an always-on ``shared`` expert
+    (a SwiGLU ``MLP`` of width ``shared_expert_ff``)."""
+
+    def __init__(self, cfg: ArchConfig, init: Init):
+        super().__init__()
+        dt = _dtype(cfg)
+        d, ff, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+        out_sc = 0.02 / math.sqrt(2 * cfg.num_layers)
+        self.cfg = cfg
+        self.router = init.normal((d, E), 0.02, F32)  # router kept in f32
+        self.w_in = init.normal((E, d, ff), 0.02, dt)
+        self.w_gate = init.normal((E, d, ff), 0.02, dt)
+        self.w_out = init.normal((E, ff, d), out_sc, dt)
+        if cfg.shared_expert_ff:
+            self.shared = MLP(cfg, init, d_ff=cfg.shared_expert_ff)
+
+    def moe_local(self, x: torch.Tensor, *, e_off: int, num_local: int,
+                  capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """The FFN of experts ``[e_off, e_off + num_local)`` (a slice of
+        this layer's E; the reference's shard holds only its own) over
+        tokens ``x`` (T, d).  Returns (partial output (T, d) in x's dtype, the
+        number of (token, choice) pairs routed to each of the E experts,
+        f32 — the reference's load-balancing statistics)."""
+        T, d = x.shape
+        k, C = self.cfg.experts_per_token, capacity
+        with record_function("moe.router"):
+            top_w, top_i = route(x, self.router, k)
+        with record_function("moe.dispatch"):
+            slot, keep = dispatch(top_i, e_off=e_off, num_local=num_local,
+                                  capacity=C)
+            # Scatter into the (num_local + 1, C) slot table the id of the
+            # token each slot holds (T: an empty slot, which gathers a zero
+            # row).  Kept slots are unique; every dropped or non-local pair
+            # writes the dustbin row's slot 0 (index num_local * C), where
+            # duplicates are harmless because that row is thrown away.
+            table = torch.full(((num_local + 1) * C,), T, dtype=torch.long,
+                               device=x.device)
+            tok = torch.arange(T, device=x.device).repeat_interleave(k)
+            table[torch.where(keep.reshape(-1), slot.reshape(-1),
+                              num_local * C)] = tok
+            xpad = torch.cat([x, x.new_zeros((1, d))])
+            xe = xpad[table[:num_local * C]].view(num_local, C, d)
+        with record_function("moe.experts"):
+            w_in = self.w_in[e_off:e_off + num_local]
+            w_gate = self.w_gate[e_off:e_off + num_local]
+            w_out = self.w_out[e_off:e_off + num_local]
+            h = F.silu(torch.bmm(xe, w_gate)) * torch.bmm(xe, w_in)
+            y = torch.bmm(h, w_out).view(num_local * C, d)      # (n*C, d)
+        with record_function("moe.combine"):
+            # A dropped or non-local pair gets weight 0: its slot 0 holds a
+            # kept token's row of y or an empty slot's zero row, both
+            # finite, so it adds exactly 0 (the reference masks the
+            # product instead).  One (T, d) gather, cast and fused
+            # multiply-add per choice, in choice order, in float32.
+            w = torch.where(keep, top_w, 0.0)
+            out = torch.zeros((T, d), dtype=F32, device=x.device)
+            for j in range(k):
+                out.addcmul_(y[slot[:, j]].to(F32), w[:, j, None])
+            counts = torch.bincount(top_i.reshape(-1),
+                                    minlength=self.cfg.num_experts).to(F32)
+            return out.to(x.dtype), counts
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, S, d) -> (B, S, d) over all experts, capacity from B·S."""
+        B, S, d = x.shape
+        E = self.cfg.num_experts
+        out, _ = self.moe_local(x.reshape(B * S, d), e_off=0, num_local=E,
+                                capacity=capacity_for(B * S, self.cfg))
+        out = out.view(B, S, d)
+        if self.cfg.shared_expert_ff:
+            out = out + self.shared(x)
+        return out

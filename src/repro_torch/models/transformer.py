@@ -1,11 +1,13 @@
 """Model assembly: embedding → per-layer blocks → norm → logits, plus the
-KV-cache decode path and the training loss.  One ``Model`` covers the
-dense, SSM, hybrid, VLM and audio families and MLA — family differences
-are config-driven.  MoE configs wait for ``models/moe.py``.
+KV-cache decode path and the training loss.  One ``Model`` covers all ten
+configured families (dense, MoE, SSM, hybrid, VLM, audio) and MLA —
+family differences are config-driven.
 
 Blocks live in an ``nn.ModuleList``, one module per layer, and run in a
-Python loop with each layer's own attention window.  Caches keep the
-reference's layout and keys: ``k``/``v`` (L, B, S, KH, hd), ``ckv``
+Python loop with each layer's own attention window and sub-config: a MoE
+config with ``moe_every`` = g > 1 (llama4) alternates g - 1 dense layers
+and one MoE layer, as the reference's groups of g sub-layers do.  Caches
+keep the reference's layout and keys: ``k``/``v`` (L, B, S, KH, hd), ``ckv``
 (L, B, S, kvr), ``krope`` (L, B, S, rope), ``state`` (L, B, nh, hp, ds) in
 f32, ``conv`` (L, B, K-1, conv_dim), and ``pos``, a Python int.
 
@@ -21,6 +23,7 @@ and raises.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import numpy as np
@@ -31,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 from .config import ArchConfig
 from .layers import (MLA, MLP, Attention, Init, RMSNorm, _dtype, _linear,
                      rmsnorm)
+from .moe import MoE
 from .ssm import SSM, init_ssm_cache
 
 _SEQ_KEYS = ("k", "v", "ckv", "krope")
@@ -52,7 +56,10 @@ class Block(nn.Module):
             if cfg.family == "hybrid":
                 self.ln_attn_out = RMSNorm(cfg.d_model, dt, init)
                 self.ln_ssm_out = RMSNorm(cfg.d_model, dt, init)
-        if cfg.d_ff:
+        if cfg.uses_moe:
+            self.ln2 = RMSNorm(cfg.d_model, dt, init)
+            self.moe = MoE(cfg, init)
+        elif cfg.d_ff:
             self.ln2 = RMSNorm(cfg.d_model, dt, init)
             self.mlp = MLP(cfg, init)
 
@@ -66,7 +73,9 @@ class Block(nn.Module):
         return ssm if self.cfg.uses_ssm else attn
 
     def _ffn(self, x: torch.Tensor) -> torch.Tensor:
-        if self.cfg.d_ff:
+        if self.cfg.uses_moe:
+            x = x + self.moe(self.ln2(x, self.cfg.norm_eps))
+        elif self.cfg.d_ff:
             x = x + self.mlp(self.ln2(x, self.cfg.norm_eps))
         return x
 
@@ -133,6 +142,15 @@ def chunked_xent(h: torch.Tensor, labels: torch.Tensor, w_head: torch.Tensor,
     return loss_sum / torch.clamp(count, min=1.0)
 
 
+def _sub_cfgs(cfg: ArchConfig) -> list[ArchConfig]:
+    """The sub-layer configs of one group of layers (llama4: [dense, moe]);
+    layer j of the model has config ``_sub_cfgs(cfg)[j % g]``."""
+    if cfg.uses_moe and cfg.moe_every > 1:
+        dense = dataclasses.replace(cfg, num_experts=0, shared_expert_ff=0)
+        return [dense] * (cfg.moe_every - 1) + [cfg]
+    return [cfg]
+
+
 def _layer_windows(cfg: ArchConfig) -> list[int]:
     """Per-layer window sizes: 0 = full attention."""
     if cfg.attention != "swa" or not cfg.window:
@@ -153,10 +171,6 @@ class Model(nn.Module):
     def __init__(self, cfg: ArchConfig, *, device="cuda",
                  generator: torch.Generator | None = None):
         super().__init__()
-        if cfg.uses_moe:
-            raise NotImplementedError(
-                f"{cfg.name}: MoE layers are not ported yet (ROADMAP A5b, "
-                f"models/moe.py)")
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"Model({cfg.name}): device {device} asked "
@@ -169,8 +183,12 @@ class Model(nn.Module):
         self.windows = _layer_windows(cfg)
         self.embed = init.normal((cfg.vocab_size, cfg.d_model), 0.02, dt)
         self.final_norm = RMSNorm(cfg.d_model, dt, init)
-        self.layers = nn.ModuleList(Block(cfg, init)
-                                    for _ in range(cfg.num_layers))
+        subs = _sub_cfgs(cfg)
+        if cfg.num_layers % len(subs):
+            raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are not "
+                             f"whole groups of {len(subs)}")
+        self.layers = nn.ModuleList(Block(subs[j % len(subs)], init)
+                                    for j in range(cfg.num_layers))
         if not cfg.tie_embeddings:
             self.lm_head = init.normal((cfg.d_model, cfg.vocab_size), 0.02, dt)
         if cfg.frontend != "none":

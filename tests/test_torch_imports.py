@@ -18,7 +18,9 @@ PORT = SRC / "repro_torch"
     "repro_torch.models", "repro_torch.configs", "repro_torch.serving",
     "repro_torch.serving.engine", "repro_torch.launch.serve",
     "repro_torch.training", "repro_torch.data", "repro_torch.checkpoint",
-    "repro_torch.distributed", "repro_torch.launch.train"])
+    "repro_torch.distributed", "repro_torch.launch.train",
+    "repro_torch.core.graph", "repro_torch.distributed.hetero",
+    "repro_torch.models.moe"])
 def test_import_pulls_in_no_jax_and_no_reference(module):
     code = (f"import json, sys; import {module}; "
             "print(json.dumps(sorted(sys.modules)))")

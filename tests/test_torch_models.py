@@ -1,6 +1,7 @@
 """The port's model stack (``repro_torch.models``) against the reference
-model (``repro.models.Model``) on the CPU, for every non-MoE architecture at
-its tiny config (float32).
+model (``repro.models.Model``) on the CPU, for every architecture at its
+tiny config (float32), the MoE ones (dbrx-132b, llama4-maverick-400b-a17b)
+included.
 
 Weights are the reference's ``Model.init(PRNGKey(0))`` loaded into the port
 through ``params_from_reference``; tokens (or stub-frontend embeddings) are
@@ -9,7 +10,9 @@ and five SSD chunks (8).  Tolerance 1e-4 (rtol and atol) on float32 logits
 and caches: the two stacks sum in different orders (the port's K2 plain
 version takes a full softmax where the reference scans KV chunks, and the
 port's chunk recurrence is a loop where the reference's is an associative
-scan).
+scan).  The tiny MoE configs' capacity factor of 8 keeps every token's
+experts (no drops), as in the reference's own tests, so prefill and decode
+agree.
 """
 import dataclasses
 
@@ -28,8 +31,7 @@ from repro_torch.models.convert import params_from_reference
 
 B, S, DECODE_STEPS = 2, 40, 4
 TOL = 1e-4
-MOE = [a for a in ARCH_IDS if get_config(a).uses_moe]
-DENSE = [a for a in ARCH_IDS if a not in MOE]
+TEXT = [a for a in ARCH_IDS if get_config(a).frontend == "none"]
 
 
 def _pair(arch):
@@ -70,7 +72,7 @@ def test_configs_are_the_reference_configs():
                 == dataclasses.asdict(ref_tiny_config(arch)))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_logits_match_reference(arch):
     cfg, ref, params, port = _pair(arch)
     key, prompt, _ = _inputs(cfg, 1, 0)
@@ -80,7 +82,7 @@ def test_logits_match_reference(arch):
     _close(got, want, f"{arch}: logits")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_prefill_and_decode_match_reference(arch):
     cfg, ref, params, port = _pair(arch)
     key, prompt, steps = _inputs(cfg, 2, DECODE_STEPS)
@@ -102,7 +104,7 @@ def test_prefill_and_decode_match_reference(arch):
                    f"{arch}: decode step {t} cache {name!r}")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_init_cache_matches_reference(arch):
     cfg = get_tiny_config(arch)
     want = RefModel(ref_tiny_config(arch)).init_cache(3, 11)
@@ -114,10 +116,62 @@ def test_init_cache_matches_reference(arch):
         assert not got[name].any()
 
 
-@pytest.mark.parametrize("arch", MOE)
-def test_moe_configs_wait_for_their_module(arch):
-    with pytest.raises(NotImplementedError, match="A5b"):
-        Model(get_tiny_config(arch), device="cpu")
+@pytest.mark.parametrize("arch", TEXT)
+def test_greedy_tokens_match_reference(arch):
+    """Greedy continuations of a prompt: prefill, then each argmax fed
+    back through ``decode_step``; the same token ids on both sides."""
+    cfg, ref, params, port = _pair(arch)
+    key, prompt, _ = _inputs(cfg, 3, 0)
+    want_logits, want_cache = jax.jit(ref.prefill)(params, {key: prompt})
+    got_logits, got_cache = port.prefill({key: prompt})
+    want_cache = ref.extend_cache(want_cache, DECODE_STEPS)
+    got_cache = port.extend_cache(got_cache, DECODE_STEPS)
+    step = jax.jit(ref.decode_step)
+    want_toks, got_toks = [], []
+    for _ in range(DECODE_STEPS):
+        want_toks.append(np.asarray(want_logits).argmax(-1))
+        got_toks.append(got_logits.argmax(-1).numpy())
+        want_logits, want_cache = step(params, want_cache,
+                                       {key: want_toks[-1][:, None]})
+        got_logits, got_cache = port.decode_step(
+            got_cache, {key: torch.from_numpy(got_toks[-1][:, None])})
+    np.testing.assert_array_equal(np.stack(got_toks), np.stack(want_toks))
+
+
+def test_llama4_groups_convert_row_for_row():
+    """llama4's layers come in groups of ``moe_every`` = 2 (dense, then
+    MoE); the reference stacks sub-layer ``s{i}`` over the groups, and row
+    j of ``s{i}`` is the port's layer ``j * 2 + i``.  A missing, left-over
+    or misshapen leaf raises."""
+    arch = "llama4-maverick-400b-a17b"
+    cfg = dataclasses.replace(ref_tiny_config(arch), num_layers=4)
+    tree = jax.tree_util.tree_map(
+        np.asarray, RefModel(cfg).init(jax.random.PRNGKey(0)))
+    port_cfg = dataclasses.replace(get_tiny_config(arch), num_layers=4)
+    port = params_from_reference(port_cfg, tree)
+    for j in range(2):
+        for i in range(2):
+            layer = port.layers[j * 2 + i]
+            assert hasattr(layer, "moe") == (i == 1)
+            assert hasattr(layer, "mlp") == (i == 0)
+            np.testing.assert_array_equal(
+                layer.attn.wq.numpy(), tree["layers"][f"s{i}"]["attn"]["wq"][j])
+        np.testing.assert_array_equal(
+            port.layers[j * 2 + 1].moe.w_in.numpy(),
+            tree["layers"]["s1"]["moe"]["w_in"][j])
+    assert port.layers[0].cfg.num_experts == 0
+    assert port.layers[0].cfg.shared_expert_ff == 0
+    missing = {**tree, "layers": {"s0": tree["layers"]["s0"]}}
+    with pytest.raises(RuntimeError, match="Missing"):
+        params_from_reference(port_cfg, missing)
+    extra = {**tree, "layers": {**tree["layers"],
+                                "s2": tree["layers"]["s0"]}}
+    with pytest.raises(ValueError, match="s0..s1"):
+        params_from_reference(port_cfg, extra)
+    short = {**tree, "layers": jax.tree_util.tree_map(
+        lambda a: a[:1], tree["layers"])}
+    with pytest.raises(ValueError, match="leading axis"):
+        params_from_reference(port_cfg, short)
 
 
 def test_cuda_model_without_a_card_raises():
