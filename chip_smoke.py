@@ -84,6 +84,27 @@ failed check exits non-zero):
              profiles, and phase 7 (d)'s runner re-homed through
              ``remesh(..., scheduler=, lost=)`` with a two-pod
              ``HeteroBatchScheduler``.
+9. shard   — the sharded layer (``distributed.context``/``sharding``/
+             ``collectives``, ``launch.mesh``) with dbrx-132B's
+             expert-parallel MoE: (a) one process, NCCL at world size 1,
+             ``make_debug_mesh((1, 1))``: dbrx-132B in bfloat16 at full
+             width cut to 4 of 40 layers, phase 6 (b)'s traffic through
+             ``PoasDispatcher`` and ``ServingEngine`` first with no mesh,
+             then with the same parameters placed by ``shard_params`` under
+             ``use_mesh``: each bucket's prefill logits bit-equal, the same
+             greedy tokens and kept/dropped pairs, 4 K2 ``sm90`` launches a
+             prefill, peak memory; ``compressed_psum_mean`` on a CUDA
+             tensor over NCCL in its three modes; (b) two processes on the
+             one card over gloo (NCCL puts no two ranks of a communicator
+             on one card; gloo all-reduces CUDA tensors through the host),
+             mesh ("data", "model") = (1, 2): dbrx-132B in float32 at full
+             width cut to 1 layer, each rank holding 8 of the 16 experts,
+             phase 8 (a)'s 512-token prefill against an unsharded run of
+             the same weights on the card at rtol/atol 1e-5, every kept
+             (token, choice)'s (expert, slot) identical and each rank
+             keeping only its own experts' pairs, K2 ``simt`` launches per
+             rank, each rank's peak memory (no time: the two share the
+             card and gloo stages the sum through the host).
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or run outside the
@@ -96,6 +117,7 @@ import dataclasses
 import gc
 import json
 import math
+import socket
 import subprocess
 import sys
 import tempfile
@@ -105,6 +127,9 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+from torch.distributed.tensor import DTensor
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -117,8 +142,12 @@ from repro_torch.core import (POAS, CopyModel, DeviceProfile,  # noqa: E402
                               verify_graph_dependencies)
 from repro_torch.checkpoint import store  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
+from repro_torch.distributed.collectives import (  # noqa: E402
+    compressed_psum_mean)
+from repro_torch.distributed.context import use_mesh  # noqa: E402
 from repro_torch.distributed.elastic import (  # noqa: E402
     FaultTolerantRunner, RunnerConfig)
+from repro_torch.distributed.sharding import shard_params  # noqa: E402
 from repro_torch.distributed.hetero import (  # noqa: E402
     HeteroBatchScheduler, PodProfile)
 from repro_torch.kernels import (flash_attention,  # noqa: E402
@@ -142,6 +171,7 @@ from repro_torch.kernels.ssd_chunk import (  # noqa: E402
     bwd_scratch_floats, bwd_smem_bytes, kernel_smem_bytes as k3_kernel_smem,
     smem_bytes as k3_smem)
 from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
 from repro_torch.models import Model, moe  # noqa: E402
 from repro_torch.models.transformer import chunked_xent  # noqa: E402
 from repro_torch.serving.engine import (PoasDispatcher,  # noqa: E402
@@ -200,6 +230,13 @@ MOE_ARCH = "dbrx-132b"
 MOE_LAYERS = 8
 MOE_GATE_TOKENS = 512     # phase 8 (a): one float32 prompt, also run on the host
 MOE_RANGES = ("moe.router", "moe.dispatch", "moe.experts", "moe.combine")
+# Phase 9 (a): 4 of dbrx's 40 layers in bf16 (4 x 6.52 GB + 2.47 GB of
+# embedding and head, ~28.6 GB), served twice: no mesh, then the mesh.
+SHARD_LAYERS = 4
+# Phase 9 (b): the two ranks' float32 logits against the unsharded run:
+# only the order of the two partial outputs' f32 sum differs.
+SHARD_TOL = 1e-5
+SHARD_RANKS, SHARD_TIMEOUT = 2, 900   # (b): ranks on the one card; seconds
 
 
 def fail(msg: str) -> None:
@@ -534,7 +571,7 @@ def prefill_matches_decode(cfg, gen) -> None:
     torch.cuda.empty_cache()
 
 
-def traced(phase: str, label: str, fn, steps: int):
+def traced(phase: str, label: str, fn, steps: int, part: str = "(c)"):
     """``fn`` under ``torch.profiler``: prints the device-busy share of the
     host wall, launches per step and the kernels that take the most device
     time; returns (profile, device kernels, busy seconds), or None when
@@ -553,17 +590,17 @@ def traced(phase: str, label: str, fn, steps: int):
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.key not in MOE_RANGES]
     if not kern:
-        say(phase, f"(c) {label}: the trace holds no device time")
+        say(phase, f"{part} {label}: the trace holds no device time")
         return None
     busy = sum(e.self_device_time_total for e in kern) / 1e6
     launches = sum(e.count for e in kern)
-    say(phase, f"(c) {label} under torch.profiler: wall {wall:.4f} s, "
+    say(phase, f"{part} {label} under torch.profiler: wall {wall:.4f} s, "
         f"device busy {busy:.4f} s ({busy / wall * 100:.1f} %, idle "
         f"{(1 - busy / wall) * 100:.1f} %), {launches / steps:.0f} "
         f"kernel launches per step")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
         t = e.self_device_time_total / 1e6
-        say(phase, f"(c)   {t:.4f} s ({t / busy * 100:.1f} % of busy)"
+        say(phase, f"{part}   {t:.4f} s ({t / busy * 100:.1f} % of busy)"
             f" x{e.count} {e.key[:90]}")
     return prof, kern, busy
 
@@ -629,7 +666,7 @@ def serve_traffic(phase: str, cfg):
                             NO_COPY) for i in range(2)]
     disp = PoasDispatcher(groups)
     buckets = disp.split(reqs)
-    say(phase, f"(b) prompt lengths {lengths.tolist()}; dispatch "
+    say(phase, f"prompt lengths {lengths.tolist()}; dispatch "
         f"{[[r.uid for r in b] for b in buckets]} shares "
         f"{[round(x, 4) for x in disp.last_plan.optimize.shares()]} "
         f"predicted makespan {disp.predicted_makespan(buckets):.6f} s "
@@ -1675,6 +1712,289 @@ def moe_phase(gen, fitted, card: str) -> tuple[dict, dict]:
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the sharded layer, dbrx-132B's expert-parallel MoE under a mesh
+# ---------------------------------------------------------------------------
+
+
+class MoeCalls:
+    """Shadows ``models.moe.moe_local`` (which ``MoE.forward`` and the
+    expert-parallel ``moe_block`` both call): per call, the (token,
+    choice) pairs its own experts keep and drop, and, with ``slots``, the
+    kept (token, choice, expert, slot) rows, global expert ids."""
+
+    def __init__(self, slots: bool = False):
+        self.calls: list[dict] = []
+        self.slots = slots
+
+    def __enter__(self):
+        self.inner = moe.moe_local
+
+        def recording(p, x, cfg, *, e_off, num_local, capacity):
+            out, counts = self.inner(p, x, cfg, e_off=e_off,
+                                     num_local=num_local, capacity=capacity)
+            mine = counts[e_off:e_off + num_local]
+            kept = int(torch.clamp(mine, max=capacity).sum())
+            rec = {"tokens": x.shape[0], "kept": kept,
+                   "dropped": int(mine.sum()) - kept}
+            if self.slots:
+                _, top_i = moe.route(x, p["router"], cfg.experts_per_token)
+                slot, keep = moe.dispatch(top_i, e_off=e_off,
+                                          num_local=num_local,
+                                          capacity=capacity)
+                tok, ch = torch.nonzero(keep, as_tuple=True)
+                sl = slot[tok, ch]
+                rec["slots"] = {tuple(r) for r in torch.stack(
+                    [tok, ch, sl // capacity + e_off, sl % capacity],
+                    1).tolist()}
+            self.calls.append(rec)
+            return out, counts
+
+        moe.moe_local = recording
+        return self
+
+    def __exit__(self, *exc):
+        moe.moe_local = self.inner
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def serve_run(label: str, model, engine, buckets, warm, card: str) -> dict:
+    """Phase 6 (b)'s buckets through ``engine``: each prefill's logits (the
+    engine's ``model.prefill``, shadowed), the completions, MoE kept and
+    dropped pairs per call, K2 launches from 0 and peak memory."""
+    engine.generate(warm)                              # warm-up, not counted
+    logits: list = []
+    prefill = model.prefill
+
+    def recording(batch):
+        out = prefill(batch)
+        logits.append(out[0].clone())
+        return out
+
+    model.prefill = recording
+    reset_k2_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with MoeCalls() as calls:
+        done = [engine.generate(b) for b in buckets]
+    peak = torch.cuda.max_memory_allocated()
+    sm90, simt = k2_counts()
+    del model.prefill
+    big = max(buckets, key=len)
+    tokens = bucket_tokens(big)
+    with torch.inference_mode():
+        result = traced("shard", f"{label}: prefill of {len(big)} x "
+                        f"{tokens.shape[1]}",
+                        lambda: model.prefill({"tokens": tokens}), 1, "(a)")
+    check(result is not None, f"(a) {label}: the trace holds no device time")
+    for gi, (bucket, d) in enumerate(zip(buckets, done)):
+        B, plen = len(bucket), max(len(r.tokens) for r in bucket)
+        say("shard", f"(a) {label}, bucket {gi}: {B} x {plen}, prefill "
+            f"{d[0].prefill_s:.4f} s, decode {SERVE_MAX_NEW - 1} steps "
+            f"{d[0].decode_s:.4f} s; first completion "
+            f"{d[0].tokens.tolist()}")
+    say("shard", f"(a) {label}: K2 launches sm90 {sm90}, simt {simt} over "
+        f"{len(buckets)} prefills; MoE calls {len(calls.calls)}, kept "
+        f"{sum(c['kept'] for c in calls.calls)}, dropped "
+        f"{sum(c['dropped'] for c in calls.calls)}; peak "
+        f"max_memory_allocated {peak / 2**30:.3f} GiB; {card}")
+    return {"logits": logits, "tokens": [[c.tokens for c in d] for d in done],
+            "calls": [(c["tokens"], c["kept"], c["dropped"])
+                      for c in calls.calls], "sm90": sm90, "simt": simt,
+            "busy": result[2]}
+
+
+def shard_world1(card: str) -> int:
+    """(a) One process, NCCL at world size 1, mesh (1, 1): dbrx-132B bf16
+    at full width cut to ``SHARD_LAYERS`` layers, phase 6 (b)'s traffic with
+    no mesh and then placed by ``shard_params`` under ``use_mesh``; then
+    ``compressed_psum_mean`` over NCCL.  Returns the sharded run's K2
+    sm90 launches."""
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=SHARD_LAYERS)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        torch.cuda.set_device(0)
+        mesh = make_debug_mesh((1, 1))
+        say("shard", f"(a) NCCL world 1, mesh {tuple(mesh.shape)} "
+            f"{mesh.mesh_dim_names} on {mesh.device_type}")
+        model = Model(cfg, device=DEV,
+                      generator=torch.Generator(DEV).manual_seed(0))
+        wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+        say("shard", f"(a) {cfg.name} bf16 cut to {SHARD_LAYERS} of 40 "
+            f"layers: {wbytes / 1e9:.3f} GB of weights (seed 0)")
+        engine = ServingEngine(model)
+        buckets, warm = serve_traffic("shard", cfg)
+        plain = serve_run("no mesh", model, engine, buckets, warm, card)
+        shard_params(model, mesh)
+        check(all(isinstance(p, DTensor) for p in model.parameters()),
+              "(a) shard_params left a parameter that is not a DTensor")
+        with use_mesh(mesh):
+            ep = serve_run("mesh (1, 1)", model, engine, buckets, warm, card)
+        same_logits = all(torch.equal(a, b) for a, b in
+                          zip(plain["logits"], ep["logits"]))
+        same_tokens = all(np.array_equal(a, b) for x, y in
+                          zip(plain["tokens"], ep["tokens"])
+                          for a, b in zip(x, y))
+        say("shard", f"(a) prefill logits bit-equal={same_logits}, greedy "
+            f"tokens identical={same_tokens}, kept/dropped pairs equal="
+            f"{plain['calls'] == ep['calls']}; traced prefill device busy "
+            f"{plain['busy']:.4f} s with no mesh, {ep['busy']:.4f} s on the "
+            f"mesh; {card}")
+        check(len(ep["logits"]) == len(buckets) and same_logits,
+              "(a) the mesh's prefill logits differ from the unsharded ones")
+        check(same_tokens, "(a) the mesh's greedy tokens differ")
+        check(plain["calls"] == ep["calls"],
+              "(a) the mesh keeps or drops other MoE pairs")
+        for run in (plain, ep):
+            check(run["sm90"] == SHARD_LAYERS * len(buckets)
+                  and run["simt"] == 0, f"(a) K2 launched sm90 "
+                  f"{run['sm90']}, simt {run['simt']} times, not "
+                  f"{SHARD_LAYERS} sm90 a prefill")
+        del model, engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        x = torch.randn(1 << 22, generator=torch.Generator(DEV).manual_seed(3),
+                        device=DEV)
+        step = float(x.abs().max()) / 127.0
+        with use_mesh(mesh):
+            outs = {mode: compressed_psum_mean(
+                x, "model", torch.Generator(DEV).manual_seed(4), mode=mode)
+                for mode in ("none", "bf16", "int8")}
+        err = float((outs["int8"] - x).abs().max())
+        say("shard", f"(a) compressed_psum_mean over NCCL ({x.numel()} f32 "
+            f"on the card): none equal={torch.equal(outs['none'], x)}, "
+            f"bf16 equal to x in bf16="
+            f"{torch.equal(outs['bf16'], x.bfloat16().float())}, int8 "
+            f"max_abs_err {err:.3e} (one step {step:.3e})")
+        check(torch.equal(outs["none"], x), "(a) psum 'none' changed x")
+        check(torch.equal(outs["bf16"], x.bfloat16().float()),
+              "(a) psum 'bf16' is not x rounded to bf16")
+        # tests/test_distributed.py's bound: one step (x 1.01 for the f32
+        # rounding of q * scale)
+        check(err <= step * 1.01,
+              "(a) psum 'int8' is off by more than one step")
+    finally:
+        dist.destroy_process_group()
+    return ep["sm90"]
+
+
+def shard_rank(rank: int, world: int, store: str, out: str) -> None:
+    """(b) One rank on the one card over gloo: dbrx-132B float32 at full
+    width cut to 1 layer; phase 8 (a)'s prompt prefilled unsharded, then
+    with the parameters placed on mesh (1, 2) under ``use_mesh``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=1,
+                                  dtype="float32")
+        prompt = torch.as_tensor(np.random.default_rng(1).integers(
+            1, cfg.vocab_size, MOE_GATE_TOKENS)[None]).to(DEV)
+        model = Model(cfg, device=DEV,
+                      generator=torch.Generator(DEV).manual_seed(0))
+        with MoeCalls(slots=True) as plain, torch.inference_mode():
+            want = model.prefill({"tokens": prompt})[0]
+        mesh = make_debug_mesh((1, SHARD_RANKS))
+        shard_params(model, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = sum(p.to_local().numel() * 4 for p in model.parameters())
+        reset_k2_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with MoeCalls(slots=True) as ep, use_mesh(mesh), \
+                torch.inference_mode():
+            got = model.prefill({"tokens": prompt})[0]
+        torch.cuda.synchronize()
+        torch.save({"coord": tuple(mesh.get_coordinate()),
+                    "want": want.cpu(), "got": got.cpu(),
+                    "plain": plain.calls, "ep": ep.calls, "k2": k2_counts(),
+                    "held": held, "peak": torch.cuda.max_memory_allocated()},
+                   Path(out) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def shard_two_ranks(card: str) -> int:
+    """(b) ``SHARD_RANKS`` spawned ranks on the one card over gloo; the
+    gates on what each wrote.  Returns their K2 simt launches."""
+    cfg = get_config(MOE_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=shard_rank, args=(
+            r, SHARD_RANKS, f"{tmp}/store", tmp)) for r in range(SHARD_RANKS)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + SHARD_TIMEOUT
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join()
+        check(not hung, f"(b) {len(hung)} ranks still ran after "
+              f"{SHARD_TIMEOUT} s")
+        codes = [p.exitcode for p in procs]
+        check(codes == [0] * SHARD_RANKS, f"(b) rank exit codes {codes}")
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt")
+                 for r in range(SHARD_RANKS)]
+    num_local = cfg.num_experts // SHARD_RANKS
+    plain_slots = ranks[0]["plain"][0]["slots"]
+    union = set()
+    simt = 0
+    for r, res in enumerate(ranks):
+        _, j = res["coord"]
+        err = float((res["got"] - res["want"]).abs().max())
+        ok = torch.allclose(res["got"], res["want"], rtol=SHARD_TOL,
+                            atol=SHARD_TOL)
+        mine = {s for s in res["plain"][0]["slots"]
+                if j * num_local <= s[2] < (j + 1) * num_local}
+        got = res["ep"][0]["slots"]
+        union |= got
+        own = all(j * num_local <= s[2] < (j + 1) * num_local for s in got)
+        sm90, n = res["k2"]
+        simt += n
+        say("shard", f"(b) rank {r} at {res['coord']}: experts "
+            f"[{j * num_local}, {(j + 1) * num_local}) of {cfg.num_experts}; "
+            f"holds {res['held'] / 1e9:.3f} GB of parameters; last-token "
+            f"logits vs the unsharded float32 run max_abs_err={err:.3e} "
+            f"(std {float(res['want'].std()):.3e}), allclose(rtol=atol="
+            f"{SHARD_TOL})={ok}; kept {len(got)} pairs, all its own={own}, "
+            f"identical to the unsharded run's={got == mine}; K2 launches "
+            f"sm90 {sm90}, simt {n}; peak max_memory_allocated "
+            f"{res['peak'] / 2**30:.3f} GiB; {card}")
+        check(bool(torch.isfinite(res["got"]).all()),
+              f"(b) rank {r}: logits are not finite")
+        check(ok, f"(b) rank {r}: the sharded prefill disagrees")
+        check(own, f"(b) rank {r} kept pairs of another rank's experts")
+        check(got == mine, f"(b) rank {r}: kept (expert, slot) pairs differ")
+        check(sm90 == 0 and n == 1, f"(b) rank {r}: K2 launched sm90 {sm90},"
+              f" simt {n} times, not 0 and 1")
+    check(union == plain_slots, "(b) the ranks' kept pairs are not the "
+          "unsharded run's")
+    say("shard", f"(b) the {SHARD_RANKS} ranks keep {len(union)} pairs, the "
+        f"unsharded run's {len(plain_slots)}")
+    return simt
+
+
+def shard_phase(card: str) -> dict:
+    """Phase 9: the sharded layer on the card."""
+    t0 = time.perf_counter()
+    sm90 = shard_world1(card)
+    simt = shard_two_ranks(card)
+    say("shard", f"done in {time.perf_counter() - t0:.1f} s")
+    return {"flash_attention/sm90": sm90, "flash_attention/simt": simt}
+
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1918,6 +2238,12 @@ def main() -> None:
     _, moe_launches = moe_phase(gen, fitted, card)
     say("moe", f"total {time.perf_counter() - t_start:.1f} s")
     for name, n in moe_launches.items():     # K2's launches on both paths
+        serve_launches[name] += n
+
+    # ---- 9. shard: dbrx-132B's expert-parallel MoE under a mesh -----------
+    shard_launches = shard_phase(card)
+    say("shard", f"total {time.perf_counter() - t_start:.1f} s")
+    for name, n in shard_launches.items():
         serve_launches[name] += n
 
     kernels = [{"name": "matmul", "route": "cuda",

@@ -15,7 +15,14 @@ its 16-bit pattern (``uint16``) with ``"bfloat16"`` in the manifest.
 ``restore`` copies into the tensors of the tree it is given, in place, on
 their own devices and in their own dtypes (as ``nn.Module.load_state_dict``
 does): a model whose parameters are leaves of the tree sees the restored
-values without being rebuilt.
+values without being rebuilt.  A ``DTensor`` leaf takes its own slice.
+``restore(..., shardings=)`` instead re-places each leaf as a ``DTensor`` by
+its ``distributed.sharding.NamedSharding`` (any mesh: the files hold full
+values) and returns a new tree.
+
+A tree holding ``DTensor`` leaves is saved by every rank of the program
+together: each such leaf's full value is gathered, rank 0 alone writes,
+and all ranks wait for the write to finish.
 """
 from __future__ import annotations
 
@@ -27,6 +34,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 _BF16 = "bfloat16"
 
@@ -43,6 +52,9 @@ def flatten(tree, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
 
 
 def _to_numpy(t: torch.Tensor) -> tuple[np.ndarray, str]:
+    if isinstance(t, DTensor):
+        from ..distributed.sharding import gather
+        t = gather(t.detach())
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), _BF16
@@ -58,6 +70,19 @@ def _from_numpy(arr: np.ndarray, dtype: str) -> torch.Tensor:
 
 def save(directory: str | os.PathLike, step: int, tree, *,
          keep: int = 3) -> Path:
+    leaves = flatten(tree)
+    if any(isinstance(leaf, DTensor) for _, leaf in leaves):
+        arrays = [_to_numpy(leaf) for _, leaf in leaves]   # every rank
+        final = Path(directory) / f"step_{step:08d}"
+        if dist.get_rank() == 0:
+            _write(directory, step, leaves, arrays, keep)
+        dist.barrier()
+        return final
+    return _write(directory, step, leaves,
+                  [_to_numpy(leaf) for _, leaf in leaves], keep)
+
+
+def _write(directory, step: int, leaves, arrays, keep: int) -> Path:
     base = Path(directory)
     base.mkdir(parents=True, exist_ok=True)
     final = base / f"step_{step:08d}"
@@ -67,8 +92,7 @@ def save(directory: str | os.PathLike, step: int, tree, *,
     (tmp / "arrays").mkdir(parents=True)
 
     manifest = {"step": step, "leaves": []}
-    for i, (key, leaf) in enumerate(flatten(tree)):
-        arr, dtype = _to_numpy(leaf)
+    for i, ((key, leaf), (arr, dtype)) in enumerate(zip(leaves, arrays)):
         np.save(tmp / "arrays" / f"{i}.npy", arr)
         manifest["leaves"].append(
             {"key": key, "index": i, "shape": list(leaf.shape),
@@ -114,13 +138,16 @@ def latest_step(directory: str | os.PathLike) -> int | None:
 
 @torch.no_grad()
 def restore(directory: str | os.PathLike, tree, *,
-            step: int | None = None):
+            step: int | None = None, shardings=None):
     """Copy checkpoint ``step`` (the latest when None) into the tensors of
-    ``tree``, in place, each on its own device and in its own dtype.
-    Returns ``(tree, step)``.  Raises ``FileNotFoundError`` when there is no
-    checkpoint, ``KeyError`` for a leaf the checkpoint lacks and
-    ``ValueError`` for a shape that disagrees; nothing is written unless
-    every leaf checks out."""
+    ``tree``, in place, each on its own device and in its own dtype (a
+    ``DTensor`` leaf: its local slice).  With ``shardings`` (a tree of the
+    same keys whose leaves are ``NamedSharding``s) each leaf is instead
+    re-placed as a new ``DTensor`` in its own dtype on the sharding's mesh,
+    and a new tree is returned.  Returns ``(tree, step)``.  Raises
+    ``FileNotFoundError`` when there is no checkpoint, ``KeyError`` for a
+    leaf the checkpoint lacks and ``ValueError`` for a shape that
+    disagrees; nothing is written unless every leaf checks out."""
     base = Path(directory)
     if step is None:
         step = latest_step(base)
@@ -138,8 +165,29 @@ def restore(directory: str | os.PathLike, tree, *,
         if shape != tuple(leaf.shape):
             raise ValueError(
                 f"{key}: checkpoint shape {shape} != {tuple(leaf.shape)}")
+    if shardings is not None:
+        return _place(tree, shardings, ckpt, by_key), step
     for key, leaf in leaves:
-        m = by_key[key]
-        arr = np.load(ckpt / "arrays" / f"{m['index']}.npy")
-        leaf.copy_(_from_numpy(arr, m["dtype"]))
+        full = _load(ckpt, by_key[key])
+        if isinstance(leaf, DTensor):
+            from ..distributed.sharding import local_slice
+            leaf.to_local().copy_(local_slice(full, leaf.device_mesh,
+                                              tuple(leaf.placements)))
+        else:
+            leaf.copy_(full)
     return tree, step
+
+
+def _load(ckpt: Path, m: dict) -> torch.Tensor:
+    arr = np.load(ckpt / "arrays" / f"{m['index']}.npy")
+    return _from_numpy(arr, m["dtype"])
+
+
+def _place(tree, shardings, ckpt: Path, by_key: dict, prefix: str = ""):
+    """``tree``'s structure with each leaf loaded and placed by the
+    sharding at the same keys, in the leaf's dtype."""
+    if isinstance(tree, dict):
+        return {k: _place(tree[k], shardings[k], ckpt, by_key,
+                          f"{prefix}{k}/") for k in tree}
+    full = _load(ckpt, by_key[prefix[:-1]])
+    return shardings.place(full.to(shardings.mesh.device_type, tree.dtype))

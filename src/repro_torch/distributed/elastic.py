@@ -1,18 +1,21 @@
-"""Fault tolerance for a training loop on one card.
+"""Fault tolerance for a training loop, on one card or under a mesh.
 
 ``FaultTolerantRunner`` wraps a step function with:
 * periodic checkpointing (atomic, keep-k — see ``checkpoint.store``);
 * retry-with-restore on step failure (simulating preempted/failed workers);
 * re-homing: ``remesh(device)`` checkpoints, moves the state's tensors to
-  ``device`` and restores the checkpoint into them; given a
-  ``HeteroBatchScheduler`` it also routes the pods lost or joined through
-  the scheduler's change-point path (``pod_leave`` / ``pod_join``).
+  ``device`` and restores the checkpoint into them; ``remesh(shardings)``
+  (a tree of ``distributed.sharding.NamedSharding`` matching the state, on
+  a new mesh) checkpoints and restores with them, as the reference's
+  ``remesh(new_shardings)``: checkpoints hold full values, so any mesh
+  shape works.  Given a ``HeteroBatchScheduler`` it also routes the pods
+  lost or joined through the scheduler's change-point path (``pod_leave``
+  / ``pod_join``).
 
 The state is a tree of tensors (nested dicts) that ``checkpoint.store``
 restores in place, so a model whose parameters are leaves of it follows
-every restore.  The reference's ``remesh`` onto a new mesh's shardings
-waits for the port of the sharded layer (``distributed/sharding.py`` and
-friends): here the first argument is a device.
+every restore on a device.  A restore with shardings builds new
+``DTensor`` leaves: the step function reads them from the state.
 """
 from __future__ import annotations
 
@@ -48,6 +51,7 @@ class FaultTolerantRunner:
         self.cfg = cfg
         self.step_fn = step_fn
         self.state = state
+        self.restore_shardings = None       # set by remesh(shardings)
         self.step = 0
         self.restarts = 0
         self.step_times: list[float] = []
@@ -62,8 +66,9 @@ class FaultTolerantRunner:
 
     def restore_latest(self) -> bool:
         try:
-            self.state, self.step = store.restore(self.cfg.checkpoint_dir,
-                                                  self.state)
+            self.state, self.step = store.restore(
+                self.cfg.checkpoint_dir, self.state,
+                shardings=self.restore_shardings)
             return True
         except FileNotFoundError:
             return False
@@ -112,12 +117,14 @@ class FaultTolerantRunner:
     # -- re-homing ------------------------------------------------------------
 
     @torch.no_grad()
-    def remesh(self, device, *, scheduler: Any = None,
+    def remesh(self, target, *, scheduler: Any = None,
                lost: tuple = (), joined: tuple = ()) -> None:
-        """Move the state to ``device`` (e.g. after losing a card):
-        checkpoint now, re-home every tensor of the state on ``device``
-        (same objects: a model's parameters stay its parameters), then
-        restore the checkpoint into them.
+        """Rebuild the state elsewhere (e.g. after losing a card or a
+        pod): checkpoint now, then, for a device ``target``, re-home every
+        tensor of the state on it (same objects: a model's parameters stay
+        its parameters) and restore the checkpoint into them; for a tree of
+        shardings, restore the checkpoint with them (new ``DTensor``
+        leaves; later restores use them too).
 
         When the training loop splits batches with a
         ``HeteroBatchScheduler``, pass it (plus the departed pod names /
@@ -132,7 +139,12 @@ class FaultTolerantRunner:
                 scheduler.pod_leave(name)
             for pod in joined:
                 scheduler.pod_join(pod)
-        for _, leaf in store.flatten(self.state):
-            leaf.data = torch.empty_like(leaf.data, device=device)
-        self.state, self.step = store.restore(self.cfg.checkpoint_dir,
-                                              self.state)
+        if isinstance(target, (str, torch.device)):
+            for _, leaf in store.flatten(self.state):
+                leaf.data = torch.empty_like(leaf.data, device=target)
+            self.restore_shardings = None
+        else:
+            self.restore_shardings = target
+        self.state, self.step = store.restore(
+            self.cfg.checkpoint_dir, self.state,
+            shardings=self.restore_shardings)

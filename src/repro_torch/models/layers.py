@@ -12,8 +12,10 @@ Attention comes in three executable forms:
 * MLA variants (latent-compressed KV, absorbed-matmul decode), whose
   prefill also goes through K2.
 
-The reference's mesh ``constrain`` calls are left out: this package runs
-on one card.
+Under a mesh (``distributed.context.use_mesh``) the layers compute on
+this rank's batch shard with full (gathered) weights, replicated over
+"model"; the reference's ``constrain`` calls on the decode queries stand
+where its do, and leave a plain tensor as it is.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..distributed.context import constrain, current_mesh, model_axis_size
 from ..kernels import flash_attention
 from .config import ArchConfig
 
@@ -43,6 +46,10 @@ class Init:
         self.generator = generator
 
     def normal(self, shape, scale: float, dtype: torch.dtype) -> nn.Parameter:
+        if self.device.type == "meta":           # shapes only, no draws
+            return nn.Parameter(torch.empty(shape, dtype=dtype,
+                                            device=self.device),
+                                requires_grad=False)
         x = torch.randn(shape, generator=self.generator, device=self.device,
                         dtype=F32)
         return nn.Parameter((scale * x).to(dtype), requires_grad=False)
@@ -121,6 +128,15 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if scale is None:
         scale = 1.0 / math.sqrt(Dk)
     qg = q.reshape(B, KH, G, Dk)
+    # Match q's sharding to the cache (KH or head_dim over "model"), as the
+    # reference does (a layout hint; a plain tensor stays as it is).
+    mesh = current_mesh()
+    if mesh is not None and "model" in (mesh.mesh_dim_names or ()):
+        n = model_axis_size(mesh)
+        if KH % n == 0 and KH >= n:
+            qg = constrain(qg, None, "model", None, None)
+        elif Dk % n == 0:
+            qg = constrain(qg, None, None, None, "model")
     s = torch.einsum("bhgd,bshd->bhgs", qg.float(), k_cache.float()) * scale
     pos = torch.arange(S, device=q.device)
     mask = pos < length
@@ -261,6 +277,10 @@ class MLA(nn.Module):
         ckv[:, slot] = ckv_t[:, 0]
         kr[:, slot] = k_rope_t[:, 0]
         q_lat = torch.einsum("bqhe,rhe->bqhr", q_nope, self.wk_b)
+        mesh = current_mesh()
+        if (mesh is not None and "model" in (mesh.mesh_dim_names or ())
+                and cfg.kv_lora_rank % model_axis_size(mesh) == 0):
+            q_lat = constrain(q_lat, None, None, None, "model")
         s = (torch.einsum("bqhr,bsr->bhqs", q_lat.float(), ckv.float())
              + torch.einsum("bqhe,bse->bhqs", q_rope.float(), kr.float()))
         s = s * (1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim))

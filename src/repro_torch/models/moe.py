@@ -7,10 +7,13 @@ and each expert keeps the first ``capacity`` of its pairs in that order —
 later ones are dropped — so dispatch costs O(tokens·k·d) gathers instead of
 a dense one-hot einsum.  ``moe_local`` runs the experts
 ``[e_off, e_off + num_local)``; pairs routed elsewhere go to a dustbin id
-``num_local``, which is how the reference's expert-parallel path (one
-expert range per shard, outputs summed over shards) is built on it.  That
-sharded path waits for this package's distributed layer; on one card
-``MoE`` calls ``moe_local`` with the full expert range.
+``num_local``, which is how the expert-parallel path (one expert range
+per shard, outputs summed over shards) is built on it.  ``moe_local`` takes
+the shard's experts only, as the reference's ``shard_map`` body hands them
+over; ``MoE.moe_local`` slices them from the layer's full set.
+``moe_block`` under a mesh with a "model" axis is that body, one process
+per rank on ``torch.distributed`` (``distributed.collectives.psum`` for
+the sum); without one it is ``MoE.forward``, all experts.
 
 Everything here is PyTorch's own ops (matmul, sort, gathers, ``bmm``), as
 the reference computes it with ``jnp`` ops outside any Pallas kernel.  The
@@ -87,11 +90,60 @@ def dispatch(top_i: torch.Tensor, *, e_off: int, num_local: int,
     return slot.view_as(top_i), keep.view_as(top_i)
 
 
+def moe_local(p: dict, x: torch.Tensor, cfg: ArchConfig, *, e_off: int,
+              num_local: int, capacity: int
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-shard MoE FFN.  x: (T, d) local tokens; ``p`` holds the
+    ``router`` (d, E) and the experts ``[e_off, e_off + num_local)`` only
+    (``w_in``, ``w_gate`` (n, d, ff), ``w_out`` (n, ff, d)), as the body of
+    the reference's expert-parallel path hands them over.  Returns (partial
+    output (T, d) in x's dtype, the number of (token, choice) pairs routed
+    to each of the E experts, f32 — the reference's load-balancing
+    statistics)."""
+    T, d = x.shape
+    k, C = cfg.experts_per_token, capacity
+    with record_function("moe.router"):
+        top_w, top_i = route(x, p["router"], k)
+    with record_function("moe.dispatch"):
+        slot, keep = dispatch(top_i, e_off=e_off, num_local=num_local,
+                              capacity=C)
+        # Scatter into the (num_local + 1, C) slot table the id of the
+        # token each slot holds (T: an empty slot, which gathers a zero
+        # row).  Kept slots are unique; every dropped or non-local pair
+        # writes the dustbin row's slot 0 (index num_local * C), where
+        # duplicates are harmless because that row is thrown away.
+        table = torch.full(((num_local + 1) * C,), T, dtype=torch.long,
+                           device=x.device)
+        tok = torch.arange(T, device=x.device).repeat_interleave(k)
+        table[torch.where(keep.reshape(-1), slot.reshape(-1),
+                          num_local * C)] = tok
+        xpad = torch.cat([x, x.new_zeros((1, d))])
+        xe = xpad[table[:num_local * C]].view(num_local, C, d)
+    with record_function("moe.experts"):
+        h = F.silu(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_in"])
+        y = torch.bmm(h, p["w_out"]).view(num_local * C, d)    # (n*C, d)
+    with record_function("moe.combine"):
+        # A dropped or non-local pair gets weight 0: its slot 0 holds a
+        # kept token's row of y or an empty slot's zero row, both finite,
+        # so it adds exactly 0 (the reference masks the product instead).
+        # One (T, d) gather, cast and fused multiply-add per choice, in
+        # choice order, in float32.
+        w = torch.where(keep, top_w, 0.0)
+        out = torch.zeros((T, d), dtype=F32, device=x.device)
+        for j in range(k):
+            out.addcmul_(y[slot[:, j]].to(F32), w[:, j, None])
+        counts = torch.bincount(top_i.reshape(-1),
+                                minlength=cfg.num_experts).to(F32)
+        return out.to(x.dtype), counts
+
+
 class MoE(nn.Module):
     """The MoE FFN of one layer: ``router`` (d, E) in float32, ``w_in`` and
     ``w_gate`` (E, d, ff) and ``w_out`` (E, ff, d) in the config's dtype,
     and, where the config has one, an always-on ``shared`` expert
     (a SwiGLU ``MLP`` of width ``shared_expert_ff``)."""
+
+    expert_leaves = ("w_in", "w_gate", "w_out")
 
     def __init__(self, cfg: ArchConfig, init: Init):
         super().__init__()
@@ -108,49 +160,21 @@ class MoE(nn.Module):
 
     def moe_local(self, x: torch.Tensor, *, e_off: int, num_local: int,
                   capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
-        """The FFN of experts ``[e_off, e_off + num_local)`` (a slice of
-        this layer's E; the reference's shard holds only its own) over
-        tokens ``x`` (T, d).  Returns (partial output (T, d) in x's dtype, the
-        number of (token, choice) pairs routed to each of the E experts,
-        f32 — the reference's load-balancing statistics)."""
-        T, d = x.shape
-        k, C = self.cfg.experts_per_token, capacity
-        with record_function("moe.router"):
-            top_w, top_i = route(x, self.router, k)
-        with record_function("moe.dispatch"):
-            slot, keep = dispatch(top_i, e_off=e_off, num_local=num_local,
-                                  capacity=C)
-            # Scatter into the (num_local + 1, C) slot table the id of the
-            # token each slot holds (T: an empty slot, which gathers a zero
-            # row).  Kept slots are unique; every dropped or non-local pair
-            # writes the dustbin row's slot 0 (index num_local * C), where
-            # duplicates are harmless because that row is thrown away.
-            table = torch.full(((num_local + 1) * C,), T, dtype=torch.long,
-                               device=x.device)
-            tok = torch.arange(T, device=x.device).repeat_interleave(k)
-            table[torch.where(keep.reshape(-1), slot.reshape(-1),
-                              num_local * C)] = tok
-            xpad = torch.cat([x, x.new_zeros((1, d))])
-            xe = xpad[table[:num_local * C]].view(num_local, C, d)
-        with record_function("moe.experts"):
-            w_in = self.w_in[e_off:e_off + num_local]
-            w_gate = self.w_gate[e_off:e_off + num_local]
-            w_out = self.w_out[e_off:e_off + num_local]
-            h = F.silu(torch.bmm(xe, w_gate)) * torch.bmm(xe, w_in)
-            y = torch.bmm(h, w_out).view(num_local * C, d)      # (n*C, d)
-        with record_function("moe.combine"):
-            # A dropped or non-local pair gets weight 0: its slot 0 holds a
-            # kept token's row of y or an empty slot's zero row, both
-            # finite, so it adds exactly 0 (the reference masks the
-            # product instead).  One (T, d) gather, cast and fused
-            # multiply-add per choice, in choice order, in float32.
-            w = torch.where(keep, top_w, 0.0)
-            out = torch.zeros((T, d), dtype=F32, device=x.device)
-            for j in range(k):
-                out.addcmul_(y[slot[:, j]].to(F32), w[:, j, None])
-            counts = torch.bincount(top_i.reshape(-1),
-                                    minlength=self.cfg.num_experts).to(F32)
-            return out.to(x.dtype), counts
+        """``moe_local`` of this layer's experts ``[e_off, e_off +
+        num_local)``, sliced from its full set, over tokens ``x`` (T, d)."""
+        return moe_local(self.weights(e_off, num_local), x, self.cfg,
+                         e_off=e_off, num_local=num_local, capacity=capacity)
+
+    def weights(self, e_off: int, num_local: int) -> dict:
+        """The router and experts ``[e_off, e_off + num_local)`` of the
+        weights this layer holds (its full set, or, under the expert-
+        parallel path, its shard's own ``num_local``)."""
+        ws = {"router": self.router}
+        for name in self.expert_leaves:
+            w = getattr(self, name)
+            ws[name] = (w[e_off:e_off + num_local]
+                        if w.shape[0] == self.cfg.num_experts else w)
+        return ws
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, S, d) -> (B, S, d) over all experts, capacity from B·S."""
@@ -162,3 +186,45 @@ class MoE(nn.Module):
         if self.cfg.shared_expert_ff:
             out = out + self.shared(x)
         return out
+
+
+def moe_block(moe: MoE, x: torch.Tensor, cfg: ArchConfig, mesh=None,
+              batch_axes: tuple = ("data",), model_axis: str = "model"
+              ) -> torch.Tensor:
+    """(B, S, d) -> (B, S, d).  With no mesh, or a mesh without
+    ``model_axis``, ``moe(x)``.  Under a mesh, the body of the reference's
+    ``shard_map``: ``x`` is this rank's batch shard (B = the global batch
+    / the batch axes' size), this rank runs experts ``[e_off, e_off +
+    num_local)`` of its ``model_axis`` coordinate with a capacity from its
+    own tokens, and the partial outputs (in x's dtype) are summed over
+    ``model_axis``; the shared expert is added after.  ``moe``'s expert
+    leaves are the shard's own (``shard_params`` places them so, and a
+    ``Block`` gathers them over "data" only) or the full set, which is
+    sliced here.  E not divisible by the axis size drops the experts
+    beyond ``n_model * num_local``, as the reference does.
+    ``batch_axes`` names the axes the batch is sharded over, as in the
+    reference, whose capacity reads the global batch over their size;
+    here ``x`` already is that shard, so the capacity reads its rows."""
+    from ..distributed.collectives import psum, sum_grads
+    from ..distributed.context import axis_names, axis_size
+
+    if mesh is None or model_axis not in axis_names(mesh):
+        return moe(x)
+    B, S, d = x.shape
+    E = cfg.num_experts
+    n_model = axis_size(mesh, model_axis)
+    num_local = max(E // n_model, 1)
+    # the reference's t_local = ceil(B_global / n_data) * S: this shard's
+    cap = capacity_for(max(B * S, 1), cfg)
+    e_off = mesh.get_local_rank(model_axis) * num_local
+    group = mesh.get_group(model_axis)
+    p = moe.weights(e_off, num_local)
+    # x and the router are the same on every rank of the model axis, and
+    # each rank's experts use them differently: their gradients sum over it
+    p["router"] = sum_grads(p["router"], group)
+    out, _ = moe_local(p, sum_grads(x, group).reshape(B * S, d), cfg,
+                       e_off=e_off, num_local=num_local, capacity=cap)
+    out = psum(out, group).view(B, S, d)
+    if cfg.shared_expert_ff:
+        out = out + moe.shared(x)
+    return out

@@ -24,6 +24,7 @@ and raises.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import numpy as np
@@ -31,10 +32,13 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.context import (batch_axes, constrain_batch,
+                                   constrain_tokens, current_mesh)
+from ..distributed.sharding import gathered
 from .config import ArchConfig
 from .layers import (MLA, MLP, Attention, Init, RMSNorm, _dtype, _linear,
                      rmsnorm)
-from .moe import MoE
+from .moe import MoE, moe_block
 from .ssm import SSM, init_ssm_cache
 
 _SEQ_KEYS = ("k", "v", "ckv", "krope")
@@ -74,40 +78,57 @@ class Block(nn.Module):
 
     def _ffn(self, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.uses_moe:
-            x = x + self.moe(self.ln2(x, self.cfg.norm_eps))
+            x = x + moe_block(self.moe, self.ln2(x, self.cfg.norm_eps),
+                              self.cfg, mesh=current_mesh(),
+                              batch_axes=batch_axes() or ("data",))
         elif self.cfg.d_ff:
             x = x + self.mlp(self.ln2(x, self.cfg.norm_eps))
         return x
 
-    def forward(self, x: torch.Tensor, *, window: int = 0):
-        """Full-sequence forward; returns (x, this layer's cache entry)."""
+    def _gathered(self):
+        """This layer's ``DTensor`` parameters at their full values for a
+        call; the experts keep their "model" shards when the
+        expert-parallel MoE runs (a mesh with a "model" axis)."""
+        mesh = current_mesh()
+        ep = mesh is not None and "model" in (mesh.mesh_dim_names or ())
+        return gathered(self, keep_experts=("model",) if ep else ())
+
+    def forward(self, x: torch.Tensor, *, window: int = 0,
+                seq_shard: bool = False):
+        """Full-sequence forward; returns (x, this layer's cache entry).
+        ``seq_shard`` asks for the reference's training-path layout of the
+        residual stream (``constrain_tokens``); prefill's is the batch's."""
         cfg = self.cfg
-        h = self.ln1(x, cfg.norm_eps)
-        entry: dict = {}
-        a = s = None
-        if not cfg.is_attention_free:
-            a, kv = self.attn(h, window=window)
-            entry.update(kv)
-        if cfg.uses_ssm:
-            s, st = self.ssm(h)
-            entry.update(st)
-        return self._ffn(x + self._mix(a, s)), entry
+        with self._gathered():
+            h = self.ln1(x, cfg.norm_eps)
+            entry: dict = {}
+            a = s = None
+            if not cfg.is_attention_free:
+                a, kv = self.attn(h, window=window)
+                entry.update(kv)
+            if cfg.uses_ssm:
+                s, st = self.ssm(h)
+                entry.update(st)
+            x = constrain_tokens(x + self._mix(a, s), seq_shard=seq_shard)
+            return constrain_tokens(self._ffn(x), seq_shard=seq_shard), entry
 
     def decode(self, x: torch.Tensor, cache: dict, pos: int, *,
                window: int = 0) -> torch.Tensor:
         """One token; updates this layer's cache views in place."""
         cfg = self.cfg
-        h = self.ln1(x, cfg.norm_eps)
-        a = s = None
-        if not cfg.is_attention_free:
-            a = self.attn.decode(h, cache, pos, window=window)
-        if cfg.uses_ssm:
-            s = self.ssm.decode(h, cache)
-        return self._ffn(x + self._mix(a, s))
+        with self._gathered():
+            h = self.ln1(x, cfg.norm_eps)
+            a = s = None
+            if not cfg.is_attention_free:
+                a = self.attn.decode(h, cache, pos, window=window)
+            if cfg.uses_ssm:
+                s = self.ssm.decode(h, cache)
+            return self._ffn(x + self._mix(a, s))
 
 
 def _block_out(blk: Block, x: torch.Tensor, window: int) -> torch.Tensor:
-    return blk(x, window=window)[0]
+    return blk(x, window=window,
+               seq_shard=blk.cfg.seq_shard_activations)[0]
 
 
 def _chunk_xent(hx: torch.Tensor, lx: torch.Tensor, w32: torch.Tensor):
@@ -159,13 +180,29 @@ def _layer_windows(cfg: ArchConfig) -> list[int]:
             for i in range(cfg.num_layers)]
 
 
+def _gathering(method):
+    """Run ``method`` with the model's ``DTensor`` parameters outside its
+    layers (embedding, head, final norm, adapter) at their full values
+    (``distributed.sharding.gathered``); each layer gathers its own."""
+    @functools.wraps(method)
+    def wrapper(self, *args, **kwargs):
+        with gathered(self, skip="layers."):
+            return method(self, *args, **kwargs)
+    return wrapper
+
+
 class Model(nn.Module):
     """The model of one ``ArchConfig`` with weights drawn from ``generator``
-    (a ``torch.Generator`` on ``device``; seed 0 when omitted).
+    (a ``torch.Generator`` on ``device``; seed 0 when omitted).  On the
+    ``meta`` device nothing is drawn or allocated: the parameters are
+    shapes only (``launch.specs.param_specs``).
 
     ``logits``, ``prefill``, ``extend_cache``, ``init_cache`` and
     ``decode_step`` follow the reference's methods; the parameters live in
-    the module, so they take no ``params`` argument.
+    the module, so they take no ``params`` argument.  After
+    ``distributed.sharding.shard_params`` the parameters are ``DTensor``s
+    and each call works on this rank's batch shard: the top-level leaves
+    are gathered for the call, each layer's for the layer.
     """
 
     def __init__(self, cfg: ArchConfig, *, device="cuda",
@@ -175,7 +212,7 @@ class Model(nn.Module):
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"Model({cfg.name}): device {device} asked "
                                f"for, but torch.cuda.is_available() is False")
-        if generator is None:
+        if generator is None and device.type != "meta":
             generator = torch.Generator(device=device).manual_seed(0)
         init = Init(device, generator)
         dt = _dtype(cfg)
@@ -208,8 +245,10 @@ class Model(nn.Module):
         if not isinstance(x, torch.Tensor):
             x = torch.as_tensor(np.asarray(x))
         if key == "embeds":
-            return _linear(x.to(self.device, _dtype(self.cfg)), self.adapter)
-        return self.embed[x.to(self.device, torch.long)]
+            x = _linear(x.to(self.device, _dtype(self.cfg)), self.adapter)
+        else:
+            x = self.embed[x.to(self.device, torch.long)]
+        return constrain_batch(x)
 
     def unembed(self) -> torch.Tensor:
         return self.embed.T if self.cfg.tie_embeddings else self.lm_head
@@ -218,6 +257,7 @@ class Model(nn.Module):
         h = rmsnorm(self.final_norm.scale, x, self.cfg.norm_eps)
         return h.float() @ self.unembed().float()
 
+    @_gathering
     def hidden_states(self, batch: dict) -> torch.Tensor:
         """The final-normed hidden states (B, S, d) with autograd, each
         layer kept for the backward as ``cfg.remat`` says."""
@@ -234,6 +274,7 @@ class Model(nn.Module):
                 x = _block_out(blk, x, w)
         return rmsnorm(self.final_norm.scale, x, self.cfg.norm_eps)
 
+    @_gathering
     def loss(self, batch: dict) -> torch.Tensor:
         """Chunked softmax cross-entropy over ``batch["labels"]`` (B, S),
         labels < 0 ignored: ``cfg.loss_chunk`` tokens at a time, each
@@ -249,6 +290,7 @@ class Model(nn.Module):
                             self.unembed(), min(self.cfg.loss_chunk, B * S))
 
     @torch.no_grad()
+    @_gathering
     def logits(self, batch: dict) -> torch.Tensor:
         """Full (B, S, V) logits in f32 — small inputs only (tests)."""
         x = self.embed_inputs(batch)
@@ -257,6 +299,7 @@ class Model(nn.Module):
         return self._head(x)
 
     @torch.no_grad()
+    @_gathering
     def prefill(self, batch: dict) -> tuple[torch.Tensor, dict]:
         """Process a prompt, returning (last-token logits (B, V), cache).
 
@@ -310,6 +353,7 @@ class Model(nn.Module):
         return cache
 
     @torch.no_grad()
+    @_gathering
     def decode_step(self, cache: dict, batch: dict
                     ) -> tuple[torch.Tensor, dict]:
         """One token for every sequence.  batch: {"tokens": (B, 1)} or

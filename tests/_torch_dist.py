@@ -1,0 +1,373 @@
+"""Ranks of the port's mesh tests: spawned processes on gloo (CPU).
+
+``spawn(fn, world, tmp_path, *args)`` starts ``world`` processes with the
+``spawn`` method, each joining a gloo group through a file store under
+``tmp_path`` (no fixed port, so xdist workers never collide), runs
+``fn(rank, world, *args)`` in each and waits at most ``timeout`` seconds:
+a rank that hangs is killed and the test fails instead of running the suite
+into its time limit.  Each ``fn`` below writes what its rank computed to
+``out/<name>-rank<r>.pt``; the tests read those files.  This module imports
+torch and the port only, never JAX.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+import uuid
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from _mesh_cases import DECODE_STEPS, MOE_ARCHS, MOE_CAPACITY, MOE_DTYPES
+
+
+def _entry(fn, rank: int, world: int, store: str, args: tuple) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        fn(rank, world, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(fn, world: int, tmp_path: Path, *args, timeout: float = 150.0
+          ) -> None:
+    ctx = mp.get_context("spawn")
+    store = str(tmp_path / f"store-{uuid.uuid4().hex}")
+    procs = [ctx.Process(target=_entry, args=(fn, r, world, store, args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [i for i, p in enumerate(procs) if p.is_alive()]
+    for i in hung:
+        procs[i].kill()
+        procs[i].join()
+    if hung:
+        raise TimeoutError(f"{fn.__name__}: ranks {hung} of {world} still "
+                           f"ran after {timeout} s")
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        raise RuntimeError(f"{fn.__name__}: rank exit codes {codes}")
+
+
+def load(out: Path, name: str, world: int) -> list[dict]:
+    return [torch.load(out / f"{name}-rank{r}.pt") for r in range(world)]
+
+
+def _save(out: str, name: str, rank: int, result: dict) -> None:
+    torch.save(result, Path(out) / f"{name}-rank{rank}.pt")
+
+
+def nested(flat: dict, prefix: str) -> dict:
+    """The ``prefix``-ed entries of an ``.npz`` as a nested dict."""
+    tree: dict = {}
+    for key, val in flat.items():
+        if not key.startswith(prefix):
+            continue
+        node = tree
+        *parents, leaf = key[len(prefix):].split("/")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = val
+    return tree
+
+
+def _mesh(shape, axes=("data", "model")):
+    from repro_torch.launch.mesh import make_debug_mesh
+    return make_debug_mesh(shape, axes, device_type="cpu")
+
+
+# ---------------------------------------------------------------------------
+# MoE
+# ---------------------------------------------------------------------------
+
+
+def moe_cfg(arch, dtype, capacity):
+    from repro_torch.configs import get_tiny_config
+    cfg = dataclasses.replace(get_tiny_config(arch), dtype=dtype)
+    if capacity == "tight":
+        cfg = dataclasses.replace(cfg, moe_capacity_factor=0.5)
+    return cfg
+
+
+def moe_layer(ref: dict, case: str, cfg, grad: bool = False):
+    """The port's ``MoE`` of ``cfg`` holding the reference's parameters."""
+    from repro_torch.models import moe
+    from repro_torch.models.layers import Init
+    layer = moe.MoE(cfg, Init(torch.device("cpu"), torch.Generator()))
+    prefix = f"params/{case}/"
+    state = {k[len(prefix):].replace("/", "."): torch.from_numpy(v)
+             for k, v in ref.items() if k.startswith(prefix)}
+    layer.load_state_dict(state, strict=True)
+    layer.requires_grad_(grad)
+    return layer
+
+
+@dataclasses.dataclass
+class SlotRecorder:
+    """Shadows ``models.moe.moe_local`` and keeps, per call, the kept
+    (token, choice, local expert, slot) rows its dispatch gives."""
+    rows: list = dataclasses.field(default_factory=list)
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.inner = moe.moe_local
+
+        def recording(p, x, cfg, *, e_off, num_local, capacity):
+            _, top_i = moe.route(x, p["router"], cfg.experts_per_token)
+            slot, keep = moe.dispatch(top_i, e_off=e_off,
+                                      num_local=num_local, capacity=capacity)
+            tok, choice = torch.nonzero(keep, as_tuple=True)
+            s = slot[tok, choice]
+            rows = torch.stack([tok, choice, s // capacity, s % capacity], 1)
+            self.rows.append(sorted(map(tuple, rows.tolist())))
+            return self.inner(p, x, cfg, e_off=e_off, num_local=num_local,
+                              capacity=capacity)
+
+        moe.moe_local = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.moe_local = self.inner
+
+
+def moe_ranks(rank: int, world: int, ref_path: str, out: str,
+              meshes: list) -> None:
+    """Every MoE case through ``moe_block`` on each mesh of ``world``
+    ranks: this rank's output rows and kept slots."""
+    from _mesh_cases import MOE_SHAPE
+    from repro_torch.distributed.context import use_mesh
+    from repro_torch.models import moe
+    ref = dict(np.load(ref_path))
+    result = {}
+    for shape in meshes:
+        mesh = _mesh(shape)
+        i, j = mesh.get_coordinate()
+        for arch in MOE_ARCHS:
+            for dtype in MOE_DTYPES:
+                for capacity in MOE_CAPACITY:
+                    case = f"{arch}/{dtype}/{capacity}"
+                    cfg = moe_cfg(arch, dtype, capacity)
+                    layer = moe_layer(ref, case, cfg)
+                    B, S = MOE_SHAPE
+                    x = np.random.default_rng(1).standard_normal(
+                        (B, S, cfg.d_model)).astype(np.float32)
+                    bl = B // shape[0]
+                    xs = torch.from_numpy(x[i * bl:(i + 1) * bl]).to(
+                        getattr(torch, dtype))
+                    with SlotRecorder() as rec, use_mesh(mesh), \
+                            torch.no_grad():
+                        y = moe.moe_block(layer, xs, cfg, mesh=mesh)
+                    tag = f"{case}/{shape[0]}x{shape[1]}"
+                    result[tag] = {"coord": (i, j), "out": y.float(),
+                                   "slots": rec.rows}
+    _save(out, f"moe{world}", rank, result)
+
+
+def moe_grad_ranks(rank: int, world: int, ref_path: str, out: str) -> None:
+    """On (1, 2): loss and gradients through the expert-parallel
+    ``moe_block`` and through the same layer unsharded, float32."""
+    from _mesh_cases import MOE_SHAPE
+    from repro_torch.models import moe
+    ref = dict(np.load(ref_path))
+    mesh = _mesh((1, 2))
+    result = {}
+    for arch in MOE_ARCHS:
+        case = f"{arch}/float32/config"
+        cfg = moe_cfg(arch, "float32", "config")
+        B, S = MOE_SHAPE
+        rng = np.random.default_rng(4)
+        x0 = torch.from_numpy(rng.standard_normal(
+            (B, S, cfg.d_model)).astype(np.float32))
+        w = torch.from_numpy(rng.standard_normal(
+            (B, S, cfg.d_model)).astype(np.float32))
+        runs = {}
+        for how in ("sharded", "unsharded"):
+            layer = moe_layer(ref, case, cfg, grad=True)
+            x = x0.clone().requires_grad_(True)
+            y = (moe.moe_block(layer, x, cfg, mesh=mesh) if how == "sharded"
+                 else layer(x))
+            loss = (y * w).sum()
+            loss.backward()
+            runs[how] = {"loss": loss.detach(), "x": x.grad,
+                         **{f"p/{n}": p.grad for n, p
+                            in layer.named_parameters()}}
+        result[arch] = {"rank": mesh.get_local_rank("model"), **runs}
+    _save(out, "moe_grad", rank, result)
+
+
+def model_ranks(rank: int, world: int, ref_path: str, out: str) -> None:
+    """Tiny dbrx through ``shard_params`` on (2, 2): prefill and decode
+    steps of this rank's batch shard under ``use_mesh``."""
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.distributed.context import use_mesh
+    from repro_torch.distributed.sharding import shard_params
+    from repro_torch.models.convert import params_from_reference
+    ref = dict(np.load(ref_path))
+    cfg = get_tiny_config("dbrx-132b")
+    model = shard_params(params_from_reference(cfg, nested(ref, "params/")),
+                         _mesh((2, 2)))
+    mesh = model.embed.device_mesh
+    i = mesh.get_local_rank("data")
+    bl = ref["tokens"].shape[0] // 2
+    rows = slice(i * bl, (i + 1) * bl)
+    with use_mesh(mesh):
+        logits, cache = model.prefill(
+            {"tokens": torch.from_numpy(ref["tokens"][rows])})
+        result = {"data": i, "prefill": logits}
+        cache = model.extend_cache(cache, DECODE_STEPS)
+        for t in range(DECODE_STEPS):
+            logits, cache = model.decode_step(
+                cache, {"tokens": torch.from_numpy(ref["steps"][t][rows])})
+            result[f"decode/{t}"] = logits
+    result["k"], result["v"] = cache["k"], cache["v"]
+    _save(out, "model", rank, result)
+
+
+def ep_ranks(rank: int, world: int, moe_ref: str, model_ref: str,
+             out: str) -> None:
+    """The MoE file's ranks in one spawn: 2 ranks run the (1, 2) cases and
+    the gradients, 4 ranks the (2, 2) and (1, 4) cases and the model."""
+    if world == 2:
+        moe_ranks(rank, world, moe_ref, out, [(1, 2)])
+        moe_grad_ranks(rank, world, moe_ref, out)
+    else:
+        moe_ranks(rank, world, moe_ref, out, [(2, 2), (1, 4)])
+        model_ranks(rank, world, model_ref, out)
+
+
+# ---------------------------------------------------------------------------
+# Sharding: placed shards, remesh
+# ---------------------------------------------------------------------------
+
+
+def shard_ranks(rank: int, world: int, ref_path: str, out: str) -> None:
+    """Tiny dbrx placed with ``shard_params`` on (2, 2): this rank's local
+    shard of every parameter, by name, and its mesh coordinate."""
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.distributed.sharding import shard_params
+    from repro_torch.models.convert import params_from_reference
+    ref = dict(np.load(ref_path))
+    cfg = get_tiny_config("dbrx-132b")
+    mesh = _mesh((2, 2))
+    model = shard_params(params_from_reference(cfg, nested(ref, "params/")),
+                         mesh)
+    _save(out, "shards", rank, {
+        "coord": tuple(mesh.get_coordinate()),
+        "local": {n: p.to_local().clone() for n, p in
+                  model.named_parameters()}})
+
+
+REMESH_STEPS = 3
+
+
+def _remesh_batches(cfg) -> list[dict]:
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, cfg.vocab_size, (REMESH_STEPS, 4, 9))
+    return [{"tokens": t[:, :-1], "labels": t[:, 1:]} for t in toks]
+
+
+def _remesh_step(model):
+    """A step of the remesh runs: the loss of this rank's batch shard
+    under the parameters' mesh, averaged over "data", then every local
+    shard scaled by 0.99 (an update that no mesh changes)."""
+    from repro_torch.distributed.collectives import compressed_psum_mean
+    from repro_torch.distributed.context import use_mesh
+    from repro_torch.distributed.sharding import assign
+
+    @torch.no_grad()
+    def step_fn(state, batch):
+        for name, p in state["params"].items():
+            assign(model, name, p)
+        mesh = model.embed.device_mesh
+        n = mesh.size(mesh.mesh_dim_names.index("data"))
+        i = mesh.get_local_rank("data")
+        bl = batch["tokens"].shape[0] // n
+        local = {k: torch.from_numpy(v[i * bl:(i + 1) * bl])
+                 for k, v in batch.items()}
+        with use_mesh(mesh):
+            loss = compressed_psum_mean(model.loss(local), "data",
+                                        mode="none")
+        for p in state["params"].values():
+            p.to_local().mul_(0.99)
+        return state, {"loss": loss}
+    return step_fn
+
+
+def remesh_ranks(rank: int, world: int, out: str) -> None:
+    """Run A: tiny stablelm on (2, 2) for 2 steps through
+    ``FaultTolerantRunner``, ``remesh`` onto (1, 4)'s shardings, one more
+    step.  Run B: the same weights on (1, 4) throughout.  Saves the full
+    values before and after the re-mesh and both runs' losses."""
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.distributed.elastic import (FaultTolerantRunner,
+                                                 RunnerConfig)
+    from repro_torch.distributed.sharding import (gather, param_shardings,
+                                                  shard_params)
+    from repro_torch.models import Model
+    cfg = get_tiny_config("stablelm-12b")
+    batches = _remesh_batches(cfg)
+    mesh_a, mesh_b = _mesh((2, 2)), _mesh((1, 4))
+    result = {}
+    for run, first in (("a", mesh_a), ("b", mesh_b)):
+        model = shard_params(Model(cfg, device="cpu"), first)
+        state = {"params": dict(model.named_parameters())}
+        losses = {}
+        runner = FaultTolerantRunner(
+            RunnerConfig(checkpoint_dir=str(Path(out) / f"ckpt-{run}"),
+                         checkpoint_every=1),
+            step_fn=_remesh_step(model), state=state)
+        on = lambda step, m: losses.__setitem__(step, m["loss"].clone())  # noqa: E731
+        if run == "a":
+            runner.run(iter(batches), REMESH_STEPS - 1, on_metrics=on)
+            result["before"] = {n: gather(p).clone() for n, p in
+                                runner.state["params"].items()}
+            runner.remesh(param_shardings(runner.state, mesh_b))
+            result["after"] = {n: gather(p).clone() for n, p in
+                               runner.state["params"].items()}
+            result["placements"] = {
+                n: (tuple(p.device_mesh.shape), tuple(p.placements))
+                for n, p in runner.state["params"].items()}
+            result["step"] = runner.step
+        runner.run(iter(batches[runner.step:]), REMESH_STEPS, on_metrics=on)
+        result[f"losses/{run}"] = losses
+    _save(out, "remesh", rank, result)
+
+
+# ---------------------------------------------------------------------------
+# Collectives
+# ---------------------------------------------------------------------------
+
+
+def psum_ranks(rank: int, world: int, ref_path: str, out: str) -> None:
+    """``compressed_psum_mean`` of this rank's row over a ("pod",) mesh of
+    4, in the three modes, with the reference's uniforms; and int8 from a
+    generator."""
+    from repro_torch.distributed.collectives import (compressed_psum_mean,
+                                                     tree_compressed_psum_mean)
+    from repro_torch.distributed.context import use_mesh
+    ref = dict(np.load(ref_path))
+    mesh = _mesh((world,), ("pod",))
+    r = mesh.get_local_rank("pod")
+    result = {"coord": r}
+    with use_mesh(mesh):
+        for label in ("seeded", "example"):
+            x = torch.from_numpy(ref[f"x/{label}"][r])
+            u = torch.from_numpy(ref[f"u/{label}"])
+            for mode in ("none", "bf16", "int8"):
+                result[f"{label}/{mode}"] = compressed_psum_mean(
+                    x, "pod", mode=mode, u=u)
+        x = torch.from_numpy(ref["x/seeded"][r])
+        gen = torch.Generator().manual_seed(100 + r)
+        result["generator/int8"] = compressed_psum_mean(x, "pod", gen)
+        result["tree"] = tree_compressed_psum_mean(
+            {"b": x, "a": {"c": 2 * x}}, mesh.get_group("pod"), mode="none")
+    _save(out, "psum", rank, result)

@@ -20,7 +20,9 @@ PORT = SRC / "repro_torch"
     "repro_torch.training", "repro_torch.data", "repro_torch.checkpoint",
     "repro_torch.distributed", "repro_torch.launch.train",
     "repro_torch.core.graph", "repro_torch.distributed.hetero",
-    "repro_torch.models.moe"])
+    "repro_torch.models.moe", "repro_torch.distributed.context",
+    "repro_torch.distributed.sharding", "repro_torch.distributed.collectives",
+    "repro_torch.launch.mesh", "repro_torch.launch.specs"])
 def test_import_pulls_in_no_jax_and_no_reference(module):
     code = (f"import json, sys; import {module}; "
             "print(json.dumps(sorted(sys.modules)))")
@@ -43,3 +45,29 @@ def test_no_source_file_names_jax_or_the_reference():
                  for i, line in enumerate(p.read_text().splitlines(), 1)
                  if pattern.search(line)]
     assert offenders == []
+
+
+@pytest.mark.parametrize("module,names", [
+    ("context", ["current_mesh", "use_mesh", "batch_axes", "fsdp_axis",
+                 "model_axis_size", "data_shards", "constrain",
+                 "constrain_batch", "constrain_tokens"]),
+    ("sharding", ["batch_spec", "_param_spec", "param_shardings",
+                  "cache_shardings", "batch_shardings", "replicated"]),
+    ("collectives", ["quantize_int8", "dequantize_int8",
+                     "compressed_psum_mean", "tree_compressed_psum_mean"])])
+def test_distributed_modules_export_the_reference_names(module, names):
+    import importlib
+    mod = importlib.import_module(f"repro_torch.distributed.{module}")
+    assert [n for n in names if not hasattr(mod, n)] == []
+    if module == "context":
+        import repro_torch.distributed as pkg
+        assert [n for n in names if n not in pkg.__all__] == []
+
+
+def test_launch_modules_export_the_reference_names():
+    from repro_torch.launch import mesh, specs
+    for name in ("make_production_mesh", "make_debug_mesh"):
+        assert hasattr(mesh, name)
+    for name in ("ShapeSpec", "SHAPES", "shape_applicable", "input_specs",
+                 "param_specs"):
+        assert hasattr(specs, name)
