@@ -105,6 +105,23 @@ failed check exits non-zero):
              keeping only its own experts' pairs, K2 ``simt`` launches per
              rank, each rank's peak memory (no time: the two share the
              card and gloo stages the sum through the host).
+10. dryrun — ``launch.dryrun`` and ``launch.hlo_costs`` against the card:
+             (a) at world size 1 on fake ``cuda`` tensors, a prediction of
+             phase 7 (c)'s training step (hymba-1.5B, bf16, 4 x 2048,
+             remat "full", AdamW) and of phase 9 (a)'s largest prefill
+             (dbrx-132B bf16 at 4 layers, no mesh), then the same step for
+             real on those phases' models under the same accounting: FLOPs
+             and collective counts equal, the arguments within 1 % of
+             ``memory_allocated`` before the step, the peak within 15 % of
+             ``max_memory_allocated`` over it; the predicted H100 roofline
+             beside the measured time, and phase 6's prefill busy time and
+             phase 7's step time printed for comparison with earlier runs
+             (``PERF.md`` §5); (b) on the host, in subprocesses with a time
+             limit: the full-config dry run of dbrx-132B ``train_4k`` and
+             hymba-1.5B ``long_500k`` on the 16 x 16 mesh (fake process
+             group of 256 ranks), records printed, and two tiny cells on
+             the (2, 2, 2) mesh traced on fake ``cuda`` and fake ``cpu``
+             tensors with equal accounting.
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or run outside the
@@ -118,6 +135,7 @@ import gc
 import json
 import math
 import socket
+import os
 import subprocess
 import sys
 import tempfile
@@ -130,6 +148,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 from torch.distributed.tensor import DTensor
+from torch.utils._pytree import tree_flatten
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -155,7 +174,7 @@ from repro_torch.kernels import (flash_attention,  # noqa: E402
                                  ssd_chunk_bwd)
 from repro_torch.kernels.flash_attention import build as build_k2  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    _forward as k2_forward, build_bwd as build_k2_bwd,
+    _forward as k2_forward, band_pairs, build_bwd as build_k2_bwd,
     build_bwd_sm90 as build_k2_bwd_sm90, bwd_sm90_smem_bytes,
     build_sm90 as build_k2_sm90, reset_counts as reset_k2_counts, route,
     route_bwd, sm90_smem_bytes)
@@ -170,7 +189,10 @@ from repro_torch.kernels.ssd_chunk import (  # noqa: E402
     build_bwd as build_k3_bwd, bwd_heads_per_slice, bwd_kernel_figures,
     bwd_scratch_floats, bwd_smem_bytes, kernel_smem_bytes as k3_kernel_smem,
     smem_bytes as k3_smem)
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.launch.hlo_costs import CostMode  # noqa: E402
+from repro_torch.launch.specs import ShapeSpec, input_specs  # noqa: E402
 from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
 from repro_torch.models import Model, moe  # noqa: E402
 from repro_torch.models.transformer import chunked_xent  # noqa: E402
@@ -237,6 +259,19 @@ SHARD_LAYERS = 4
 # only the order of the two partial outputs' f32 sum differs.
 SHARD_TOL = 1e-5
 SHARD_RANKS, SHARD_TIMEOUT = 2, 900   # (b): ranks on the one card; seconds
+# Phase 10 (a): the predicted arguments less the batch must equal the bytes
+# the built tensors requested; against memory_allocated's growth they may
+# differ by the caching allocator's rounding of those blocks (512 bytes,
+# and up to 1 MiB of a new segment's remainder a block): 0.593-0.683 %
+# for hymba's 1834 blocks of weights and AdamW moments, by what the cache
+# already holds, and 0 for dbrx's 43 (the reading this phase prints;
+# NVIDIA H100 80GB HBM3, 700.00 W), so 1 %.
+# The peak against max_memory_allocated: scratch the kernels allocate inside
+# their operators and the same rounding are not in the prediction.
+DRYRUN_ARG_TOL, DRYRUN_PEAK_TOL = 0.01, 0.15
+DRYRUN_TIMEOUT = 600      # (b): seconds for each host-only dry run
+DRYRUN_OUT = ROOT / "experiments" / "dryrun_torch_chip"
+MEASURED: dict = {}       # phase 6's prefill busy s, phase 7's step times
 
 
 def fail(msg: str) -> None:
@@ -300,15 +335,6 @@ def bound_ms(m: int, k: int, n: int, peak: str) -> tuple[float, str]:
     once) over the memory rate."""
     size = 2 if peak == "bfloat16" else 4
     return roofline(2.0 * m * n * k, size * (m * k + k * n + m * n), peak)
-
-
-def band_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
-    """(query, key) pairs inside the causal/window band: the scores that
-    attention on these inputs must compute."""
-    q = np.arange(sq)
-    hi = np.minimum(q, skv - 1) if causal else np.full(sq, skv - 1)
-    lo = np.maximum(0, q - window + 1) if window > 0 else np.zeros(sq, int)
-    return int(np.maximum(0, hi - lo + 1).sum())
 
 
 def k2_counts() -> tuple[int, int]:
@@ -614,7 +640,7 @@ def bucket_tokens(bucket) -> torch.Tensor:
     return torch.from_numpy(prompts).to(DEV)
 
 
-def profile_serve(phase: str, model, bucket, breakdown=None) -> None:
+def profile_serve(phase: str, model, bucket, breakdown=None) -> float:
     """Where a bucket's time goes on the card: one prefill and three decode
     steps under ``torch.profiler``; device-busy share of the host wall time
     and the kernels that take the most device time, then
@@ -630,6 +656,7 @@ def profile_serve(phase: str, model, bucket, breakdown=None) -> None:
 
         label = f"prefill of {tokens.shape[0]} x {tokens.shape[1]}"
         result = traced(phase, label, prefill, 1)
+        busy = result[2] if result else float("nan")
         if breakdown and result:
             breakdown(phase, label, result)
         check(bool(torch.isfinite(out["logits"]).all()),
@@ -648,6 +675,7 @@ def profile_serve(phase: str, model, bucket, breakdown=None) -> None:
             breakdown(phase, "3 decode steps", result)
         check(bool(torch.isfinite(out["logits"]).all()),
               f"({phase}) decode logits are not finite")
+    return busy
 
 
 def serve_traffic(phase: str, cfg):
@@ -748,7 +776,8 @@ def serve(gen) -> tuple[dict, dict, dict]:
           "the serve path launched no K2 or K3")
     check(flash_attention.launches_simt == 0,
           "the bf16 serve path launched the simt K2")
-    profile_serve("serve", model, max(buckets, key=len))
+    MEASURED["prefill_busy_s"] = profile_serve("serve", model,
+                                               max(buckets, key=len))
     del model, engine
     torch.cuda.empty_cache()
 
@@ -1229,9 +1258,9 @@ def train_path(cfg) -> dict:
         "--arch", cfg.name, "--batch", str(TRAIN_BATCH), "--seq",
         str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS), "--device", DEV])
     t0 = time.perf_counter()
-    job = train_cli.build(args)
+    job, reading = built(lambda: train_cli.build(args),
+                         lambda job: tree_flatten(job.state)[0])
     n_params = sum(p.numel() for p in job.model.parameters())
-    torch.cuda.synchronize()
     say("train", f"(c) {job.cfg.name} bf16, remat {job.cfg.remat}, AdamW "
         f"(state {job.opt.state_dtype}), {n_params / 1e9:.4f} B params "
         f"(seed {args.seed}), batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens of "
@@ -1285,7 +1314,13 @@ def train_path(cfg) -> dict:
         f"{flops / step_s / PEAK['bfloat16'][0] * 100:.1f} % of the 989 "
         f"TFLOP/s bf16 peak); peak max_memory_allocated "
         f"{peak / 2**30:.3f} GiB; main path launches {launches}")
+    MEASURED["step_ms"] = [t * 1e3 for t in times]
     loss_head(job.model, profile_step(job, state, next(data)))
+    batch = next(data)
+    dryrun_hold("hymba-1.5B training step", job.cfg,
+                ShapeSpec("train", "train", TRAIN_SEQ, TRAIN_BATCH),
+                lambda: job.step_fn(state, batch), reading, step_s,
+                "step time")
     del job, state
     torch.cuda.empty_cache()
     return launches
@@ -1822,14 +1857,22 @@ def shard_world1(card: str) -> int:
         mesh = make_debug_mesh((1, 1))
         say("shard", f"(a) NCCL world 1, mesh {tuple(mesh.shape)} "
             f"{mesh.mesh_dim_names} on {mesh.device_type}")
-        model = Model(cfg, device=DEV,
-                      generator=torch.Generator(DEV).manual_seed(0))
+        model, reading = built(
+            lambda: Model(cfg, device=DEV,
+                          generator=torch.Generator(DEV).manual_seed(0)),
+            lambda model: list(model.parameters()))
         wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
         say("shard", f"(a) {cfg.name} bf16 cut to {SHARD_LAYERS} of 40 "
             f"layers: {wbytes / 1e9:.3f} GB of weights (seed 0)")
         engine = ServingEngine(model)
         buckets, warm = serve_traffic("shard", cfg)
         plain = serve_run("no mesh", model, engine, buckets, warm, card)
+        tokens = bucket_tokens(max(buckets, key=len))
+        dryrun_hold(f"dbrx-132B ({SHARD_LAYERS} layers) prefill", cfg,
+                    ShapeSpec("prefill", "prefill", tokens.shape[1],
+                              tokens.shape[0]),
+                    lambda: model.prefill({"tokens": tokens}), reading,
+                    plain["busy"], "traced device-busy time")
         shard_params(model, mesh)
         check(all(isinstance(p, DTensor) for p in model.parameters()),
               "(a) shard_params left a parameter that is not a DTensor")
@@ -1993,6 +2036,216 @@ def shard_phase(card: str) -> dict:
     say("shard", f"done in {time.perf_counter() - t0:.1f} s")
     return {"flash_attention/sm90": sm90, "flash_attention/simt": simt}
 
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the dry run against the card
+# ---------------------------------------------------------------------------
+
+
+DRYRUN_HELD: list = []    # (a)'s cells held, from phases 7 and 9
+
+
+def _site(block: dict) -> str:
+    """The innermost line of this repository that allocated ``block``
+    (the caching allocator's recorded frames), else the innermost line."""
+    frames = block.get("frames") or []
+    for f in frames:
+        if "repro_torch" in f["filename"] or "chip_smoke" in f["filename"]:
+            return f"{Path(f['filename']).name}:{f['line']} {f['name']}"
+    return (f"{Path(frames[0]['filename']).name}:{frames[0]['line']}"
+            if frames else "no frames recorded")
+
+
+def built(build, tensors) -> tuple:
+    """``build()`` under the caching allocator's record.  Returns its
+    result and the allocator's reading of what the build left allocated:
+    ``grown``, what ``memory_allocated`` grew by; for the blocks that hold
+    ``tensors(result)``, their ``blocks`` count, the bytes ``requested``
+    for them and the bytes ``charged`` (each block rounded up to 512 bytes,
+    and a large block cut from a new segment keeps the segment's remainder
+    when that is 1 MiB or less); ``other``, the bytes of every other block
+    allocated on the way and still held, by the line that allocated it."""
+    def active() -> dict:
+        return {b["address"]: b
+                for seg in torch.cuda.memory._snapshot()["segments"]
+                for b in seg["blocks"] if b["state"] == "active_allocated"}
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.memory._record_memory_history(max_entries=1_000_000)
+    try:
+        before = set(active())
+        base = torch.cuda.memory_allocated()
+        out = build()
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - base
+        new = {a: b for a, b in active().items() if a not in before}
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    ptrs = {t.untyped_storage().data_ptr() for t in tensors(out)}
+    own = [b for a, b in new.items() if a in ptrs]
+    other: dict = {}
+    for a, b in new.items():
+        if a not in ptrs:
+            other[_site(b)] = other.get(_site(b), 0) + b["size"]
+    return out, {"grown": grown, "blocks": len(own),
+                 "requested": sum(b["requested_size"] for b in own),
+                 "charged": sum(b["size"] for b in own), "other": other}
+
+
+def dryrun_hold(label: str, cfg, shape, step, reading: dict,
+                measured_s: float, measured_what: str) -> None:
+    """(a) ``launch.dryrun``'s prediction of ``cfg``'s step at ``shape``
+    at world size 1, traced on fake ``cuda`` tensors, then ``step()``, the
+    same step on the calling phase's model, under the same accounting
+    (``launch.hlo_costs``): FLOPs and collective counts equal.  The
+    predicted arguments, less the batch (on the host while the phase built
+    its state), equal the bytes the built tensors' blocks asked the caching
+    allocator for (``reading``, from ``built``); ``memory_allocated`` grew
+    by what the allocator charged those blocks and nothing else, and the
+    predicted arguments are within ``DRYRUN_ARG_TOL`` of that growth.  The
+    predicted peak is held against ``max_memory_allocated`` over the step,
+    net of what the process holds besides the state (cuBLAS workspaces,
+    earlier phases' tensors).  The roofline at the H100's data-sheet peaks
+    is printed beside ``measured_s``; no gate."""
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(cfg.name, shape.name, None, False, shape=shape,
+                          device=DEV, cfg=cfg)
+    trace_s = time.perf_counter() - t0
+    check(rec.get("status") == "ok", f"(a) {label}: the dry run gave {rec}")
+    gc.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - reading["grown"]
+    torch.cuda.reset_peak_memory_stats()
+    with CostMode() as costs:
+        step()
+        torch.cuda.synchronize()
+    real = costs.totals()
+    peak = torch.cuda.max_memory_allocated() - held
+    mem = rec["memory"]
+    batch = sum(t.numel() * t.element_size()
+                for t in input_specs(cfg, shape)["batch"].values())
+    state = mem["argument_bytes"] - batch
+    other = sum(reading["other"].values())
+    rounding = reading["charged"] - reading["requested"]
+    arg_err = abs(mem["argument_bytes"] - reading["grown"]) / reading["grown"]
+    peak_err = abs(mem["peak_bytes"] - peak) / peak
+    say("dryrun", f"(a) {label}: traced on fake cuda tensors in "
+        f"{trace_s:.1f} s; FLOPs predicted {rec['flops_per_device']:.6e}, "
+        f"on the card {real['flops']:.6e}; collectives predicted "
+        f"{rec['collective_counts']}, on the card "
+        f"{real['collective_counts']}; kernelized bytes predicted "
+        f"{rec['bytes_per_device_kernelized']:.6e}, on the card "
+        f"{real['bytes_kernelized']:.6e}; flash-loop bytes "
+        f"{rec['flash_loop_bytes_per_device']:.6e}")
+    say("dryrun", f"(a) {label}: arguments predicted "
+        f"{mem['argument_bytes']} B, less the batch's {batch} B: {state} B; "
+        f"the built tensors' {reading['blocks']} blocks requested "
+        f"{reading['requested']} B and were charged {reading['charged']} B "
+        f"(the allocator's rounding {rounding} B, "
+        f"{rounding / reading['requested'] * 100:.3f} %); other blocks the "
+        f"build left {other} B {sorted(reading['other'].items())[:8]}; "
+        f"memory_allocated grew by {reading['grown']} B; predicted "
+        f"arguments against that growth {arg_err * 100:.3f} % (gate "
+        f"{DRYRUN_ARG_TOL * 100:.0f} %)")
+    say("dryrun", f"(a) {label}: peak predicted "
+        f"{mem['peak_bytes'] / 2**30:.3f} GiB, max_memory_allocated "
+        f"net of the {held / 2**30:.3f} GiB held besides "
+        f"{peak / 2**30:.3f} GiB (error {peak_err * 100:.2f} %, gate "
+        f"{DRYRUN_PEAK_TOL * 100:.0f} %); roofline at the H100 data "
+        f"sheet's peaks {rec['roofline_s_h100'] * 1e3:.2f} ms against the "
+        f"measured {measured_what} {measured_s * 1e3:.2f} ms "
+        f"({rec['roofline_s_h100'] / measured_s * 100:.1f} %)")
+    check(rec["flops_per_device"] == real["flops"],
+          f"(a) {label}: predicted {rec['flops_per_device']} FLOPs, the "
+          f"card's step dispatched {real['flops']}")
+    check(rec["collective_counts"] == real["collective_counts"],
+          f"(a) {label}: collectives differ")
+    check(state == reading["requested"], f"(a) {label}: predicted state "
+          f"{state} B, the built tensors requested {reading['requested']} B")
+    check(reading["grown"] == reading["charged"] + other,
+          f"(a) {label}: memory_allocated grew by {reading['grown']} B, "
+          f"the blocks the build left hold {reading['charged'] + other} B")
+    check(arg_err <= DRYRUN_ARG_TOL, f"(a) {label}: arguments off by "
+          f"{arg_err * 100:.3f} %")
+    check(peak_err <= DRYRUN_PEAK_TOL, f"(a) {label}: peak off by "
+          f"{peak_err * 100:.2f} %")
+    DRYRUN_HELD.append(label)
+
+
+def dryrun_cli(args: list, out: Path) -> subprocess.Popen:
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *args, "--out",
+         str(out)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def dryrun_phase(card: str) -> None:
+    """Phase 10: (a)'s rows (taken in phases 7 and 9) summed up, then (b)
+    on the host: the full-config cells no package has a record of, and the
+    same records on fake cuda and fake cpu tensors: dbrx-132B's full
+    train_4k and three tiny train cells, hymba's under AdamW, dbrx's and
+    llama4's under FactoredAdam (a tiny cell keeps its full configuration's
+    optimizer)."""
+    t0 = time.perf_counter()
+    check(len(DRYRUN_HELD) == 2, f"(a) held {DRYRUN_HELD}, not 2 cells")
+    steps = MEASURED.get("step_ms", [])
+    say("dryrun", f"(a) both cells held; this run's phase 6 prefill "
+        f"(5 x 2776) device busy {MEASURED.get('prefill_busy_s', 0):.4f} "
+        f"s and phase 7 steps 2-{TRAIN_STEPS} "
+        f"{', '.join(f'{t:.2f}' for t in steps)} ms, beside earlier runs "
+        f"of this script with the kernels called through ctypes alone "
+        f"(PERF.md section 5); {card}")
+    devices = ("cuda", "cpu")
+    tiny_args = ["--tiny", "--singlepod", "--mesh-shape", "2,2,2", "--shape",
+                 "train_4k", "--seq", "64", "--batch", "8"]
+    runs = {   # name -> (CLI arguments, records compared across devices)
+        "full": (["--singlepod", "--arch", "dbrx-132b", "hymba-1_5b",
+                  "--shape", "train_4k", "long_500k"],
+                 ["dbrx-132b__train_4k__single"]),
+        "tiny": (tiny_args + ["--arch", "hymba-1_5b", "dbrx-132b",
+                              "llama4-maverick-400b-a17b"],
+                 ["hymba-1_5b__train_4k__single",
+                  "dbrx-132b__train_4k__single",
+                  "llama4-maverick-400b-a17b__train_4k__single"])}
+    procs = {(name, dev): dryrun_cli(args + ["--device", dev],
+                                     DRYRUN_OUT / f"{name}-{dev}")
+             for name, (args, _) in runs.items() for dev in devices}
+    for (name, dev), proc in procs.items():
+        try:
+            log, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            fail(f"(b) the {name} dry run on {dev} ran past "
+                 f"{DRYRUN_TIMEOUT} s")
+        for line in log.splitlines():
+            if line.split(" ", 1)[0] in ("[ok]", "[skip]", "[error]"):
+                say("dryrun", f"(b) {name} on {dev}: {line}")
+        check(proc.returncode == 0, f"(b) the {name} dry run on {dev} "
+              f"exited {proc.returncode}:\n{log[-3000:]}")
+    for tag in ("dbrx-132b__train_4k__single", "hymba-1_5b__long_500k__single"):
+        rec = json.loads((DRYRUN_OUT / "full-cuda" / f"{tag}.json")
+                         .read_text())
+        check(rec["status"] == "ok" and rec["chips"] == 256,
+              f"(b) {tag}: {rec}")
+        say("dryrun", f"(b) {tag}: {json.dumps(rec)}")
+    keys = ("flops_per_device", "bytes_per_device", "collective_counts",
+            "collective_bytes_per_device", "memory", "optimizer")
+    for name, (_, tags) in runs.items():
+        for tag in tags:
+            a, b = (json.loads((DRYRUN_OUT / f"{name}-{d}" / f"{tag}.json")
+                               .read_text()) for d in devices)
+            same = all(a[k] == b[k] for k in keys)
+            say("dryrun", f"(b) {name} {tag} ({a['optimizer']}) on fake "
+                f"cuda and fake cpu tensors: accounting equal={same} (FLOPs "
+                f"{a['flops_per_device']:.6e}, collective bytes "
+                f"{a['collective_bytes_per_device']})")
+            check(same, f"(b) {name} {tag}: the accounting depends on the "
+                  f"device")
+    say("dryrun", f"done in {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> None:
@@ -2245,6 +2498,10 @@ def main() -> None:
     say("shard", f"total {time.perf_counter() - t_start:.1f} s")
     for name, n in shard_launches.items():
         serve_launches[name] += n
+
+    # ---- 10. dryrun: the dry run and its accounting against the card ------
+    dryrun_phase(card)
+    say("dryrun", f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = [{"name": "matmul", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/matmul.cu",

@@ -217,14 +217,17 @@ def param_shardings(params: Any, mesh: DeviceMesh) -> Any:
 
     Full-shape moments ("m"/"v" subtrees) reuse the parameter rules via
     their path tail; Adafactor's factored moments ("vr"/"vc", one dim
-    removed) inherit the parent spec minus the removed dim.
+    removed) inherit the parent spec minus the removed dim.  A moment kept
+    for a whole stack of layers (FactoredAdam's, under a layer path with
+    no index) has its leading axis already and keeps it.
     """
     if isinstance(params, nn.Module):
         params = dict(params.named_parameters())
     out = []
     for keys, leaf in _flat(params):
         names = _path_names(keys)
-        layer = "layers" in names
+        layer = any(part.isdigit() for key in keys
+                    for part in str(key).split("."))
         shape = ((1,) if layer else ()) + _shape(leaf)
         if names[-1] == "vr":          # parent shape minus last dim
             parent = _param_spec(names[:-1], shape + (1,), mesh)

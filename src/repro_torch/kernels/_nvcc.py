@@ -7,6 +7,13 @@ machines without a toolkit import the package), lands in ``_build/`` under
 a name keyed by the hash of the source and the flags, and is reused while
 that hash holds.  Headers under ``csrc/`` (``*.cuh``) are part of every
 source's hash.
+
+``kernel_op`` is the glue every kernel wrapper shares on the other side: it
+makes a kernel's entry a ``torch.ops.repro_torch`` operator, so that
+dispatch modes (``FakeTensorMode``, ``FlopCounterMode``,
+``launch.hlo_costs``) see the kernel as one operator with a fake
+implementation, a flop formula and the bytes it keeps on chip, where a
+``ctypes`` launch through ``data_ptr()`` is invisible to them.
 """
 from __future__ import annotations
 
@@ -19,6 +26,10 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+from typing import Any, Callable
+
+import torch
+from torch.utils.flop_counter import register_flop_formula
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
@@ -114,3 +125,38 @@ def check(err: int, what: str) -> None:
     if err:
         raise RuntimeError(f"{what}: CUDA kernel launch failed with "
                            f"cudaError {err}")
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelOp:
+    """What ``launch.hlo_costs`` reads of a kernel operator besides its
+    own inputs and outputs (the bytes it moves): ``loop_bytes(*args)``,
+    the bytes the plain version moves that the kernel keeps on chip (K2's
+    scores and probabilities), or None."""
+    name: str
+    loop_bytes: Callable[..., int] | None = None
+
+
+KERNEL_OPS: dict[Any, KernelOp] = {}
+
+
+def kernel_op(name: str, impl: Callable, *, fake: Callable,
+              flops: Callable[..., int],
+              loop_bytes: Callable[..., int] | None = None):
+    """Register ``impl`` (its annotations give the schema) as the operator
+    ``torch.ops.repro_torch.<name>``: ``impl`` runs for real tensors (the
+    plain version on the CPU, the launch on the card, a raise elsewhere),
+    ``fake`` gives the outputs' shapes and dtypes (fake and ``meta``
+    tensors), ``flops(*args)`` the operations, at the arguments' shapes
+    (tensors as their shapes), for ``FlopCounterMode``.  Returns the
+    operator."""
+    torch.library.custom_op(f"repro_torch::{name}", impl,
+                            mutates_args=()).register_fake(fake)
+    op = getattr(torch.ops.repro_torch, name)
+
+    def formula(*args, out_shape=None, **kwargs):
+        return flops(*args, **kwargs)
+
+    register_flop_formula(op)(formula)
+    KERNEL_OPS[op] = KernelOp(name, loop_bytes)
+    return op

@@ -32,13 +32,23 @@ CPU tensors take ``ref.flash_attention_bwd_ref``.  It is the gradient of
 the reference model's ``flash_attention`` (``src/repro/models/layers.py:90``),
 which the reference differentiates with ``jax.value_and_grad``; the Pallas
 kernel has no backward.
+
+Each entry is an operator (``_nvcc.kernel_op``):
+``torch.ops.repro_torch.flash_attention`` (o),
+``flash_attention_lse`` (o and the rows' log-sum-exp) and
+``flash_attention_bwd`` (dq, dk, dv), with fake implementations and flop
+formulas over the band's kept (query, key) pairs (``band_pairs``): 2 (Dk +
+Dv) a pair and query head forward, the seven products of the backward
+kernels (S and dP recomputed by both of their passes) 2 (4 Dk + 3 Dv).
 """
 from __future__ import annotations
 
 import ctypes
 import math
 import threading
+from typing import Optional
 
+import numpy as np
 import torch
 
 from . import _nvcc
@@ -186,7 +196,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, causal, window, scale)
-    return _forward(q, k, v, causal, window, scale, False)[0]
+    return torch.ops.repro_torch.flash_attention(q, k, v, causal, window,
+                                                 scale)
 
 
 def _forward(q, k, v, causal: bool, window: int, scale, with_lse: bool):
@@ -249,7 +260,8 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
-        o, lse = _forward(q, k, v, causal, window, scale, True)
+        o, lse = torch.ops.repro_torch.flash_attention_lse(q, k, v, causal,
+                                                           window, scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.mask = (causal, window, scale)
         return o
@@ -283,6 +295,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if tuple(lse.shape) != (B, H, Sq) or lse.dtype != torch.float32:
         raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "
                          f"{lse.dtype} is not ({B}, {H}, {Sq}) float32")
+    return torch.ops.repro_torch.flash_attention_bwd(q, k, v, o, do, lse,
+                                                     causal, window, scale)
+
+
+def _backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+              causal: bool, window: int, scale: Optional[float]
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv): the plain backward on the CPU, the route's kernel on
+    the card (the operator ``flash_attention_bwd``)."""
+    B, Sq, H, Dk = q.shape
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
                                        window=window, scale=scale)
@@ -352,3 +375,77 @@ def reset_counts() -> None:
     with _count_lock:
         for fn in (flash_attention, flash_attention_bwd):
             fn.launches = fn.launches_sm90 = fn.launches_simt = 0
+
+
+def band_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask keeps: key kept iff ``k_pos <= q_pos``
+    (causal) and ``k_pos > q_pos - window`` (window > 0), positions from
+    0 for queries and keys alike, as ``ref._band``."""
+    q = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(q, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(0, q - window + 1) if window > 0 else np.zeros(sq, int)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def attention_flops(q_shape, k_shape, v_shape, causal: bool, window: int,
+                    *_) -> int:
+    """K2's operations: S = QKᵀ and O = PV over the kept pairs, 2 (Dk + Dv)
+    a pair per query head."""
+    B, Sq, H, Dk = q_shape
+    return (2 * B * H * (Dk + v_shape[3])
+            * band_pairs(Sq, k_shape[1], causal, window))
+
+
+def attention_bwd_flops(q_shape, k_shape, v_shape, o_shape, do_shape,
+                        lse_shape, causal: bool, window: int, *_) -> int:
+    """K2-bwd's operations: the dK/dV pass's S, dP, dV, dK and the dQ
+    pass's S, dP, dQ over the kept pairs, 2 (4 Dk + 3 Dv) a pair per query
+    head."""
+    B, Sq, H, Dk = q_shape
+    return (2 * B * H * (4 * Dk + 3 * v_shape[3])
+            * band_pairs(Sq, k_shape[1], causal, window))
+
+
+def _score_bytes(matrices: int):
+    """Bytes of ``matrices`` float32 (B, H, Sq, Skv) score-shaped tensors
+    each written once and read once: what the plain version moves and the
+    kernel keeps on chip."""
+    def loop_bytes(q, k, *_):
+        B, Sq, H, _ = q.shape
+        return 2 * matrices * 4 * B * H * Sq * k.shape[1]
+    return loop_bytes
+
+
+def _op_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool, window: int,
+                scale: Optional[float]) -> torch.Tensor:
+    return _forward(q, k, v, causal, window, scale, False)[0]
+
+
+def _op_forward_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool, window: int, scale: Optional[float]
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    return _forward(q, k, v, causal, window, scale, True)
+
+
+def _fake_o(q, k, v, *_):
+    B, Sq, H, _ = q.shape
+    return q.new_empty((B, Sq, H, v.shape[3]))
+
+
+def _fake_o_lse(q, k, v, *_):
+    B, Sq, H, _ = q.shape
+    return (_fake_o(q, k, v),
+            q.new_empty((B, H, Sq), dtype=torch.float32))
+
+
+def _fake_grads(q, k, v, *_):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+_nvcc.kernel_op("flash_attention", _op_forward, fake=_fake_o,
+                flops=attention_flops, loop_bytes=_score_bytes(2))
+_nvcc.kernel_op("flash_attention_lse", _op_forward_lse, fake=_fake_o_lse,
+                flops=attention_flops, loop_bytes=_score_bytes(2))
+_nvcc.kernel_op("flash_attention_bwd", _backward, fake=_fake_grads,
+                flops=attention_bwd_flops, loop_bytes=_score_bytes(4))

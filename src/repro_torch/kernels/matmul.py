@@ -13,6 +13,8 @@ CUDA tensors launch the kernel or raise — there is no fallback.
 
 The kernel is compiled with ``nvcc`` into ``_build/`` at its first CUDA
 launch (never at import) by ``_nvcc``, which all the port's kernels share.
+The entry is the operator ``torch.ops.repro_torch.matmul``
+(``_nvcc.kernel_op``): a fake implementation and 2·M·N·K operations.
 """
 from __future__ import annotations
 
@@ -106,6 +108,12 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a, b = a.to(out_dtype), b.to(out_dtype)
     _check_layout(a, "a")
     _check_layout(b, "b")
+    return torch.ops.repro_torch.matmul(a, b)
+
+
+def _launch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The plain version on the CPU, the kernel on the card."""
+    out_dtype = a.dtype
     if a.device.type == "cpu":
         return matmul_ref(a, b)
     if a.device.type != "cuda":
@@ -131,3 +139,12 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 matmul.launches = 0
+
+
+def matmul_flops(a_shape, b_shape) -> int:
+    return 2 * a_shape[0] * a_shape[1] * b_shape[1]
+
+
+_nvcc.kernel_op("matmul", _launch,
+                fake=lambda a, b: a.new_empty((a.shape[0], b.shape[1])),
+                flops=matmul_flops)

@@ -22,6 +22,11 @@ intra-chunk part of the reference model's ``ssd_scan``
 ``jax.value_and_grad``; the Pallas kernel has no backward.  Both forms take
 exp only of kept (q >= t) decay differences, so their gradient stays
 finite where the reference's turns NaN (ROADMAP, C3).
+
+Both entries are operators (``_nvcc.kernel_op``):
+``torch.ops.repro_torch.ssd_chunk`` and ``ssd_chunk_bwd``, with fake
+implementations and flop formulas (``chunk_flops``, ``chunk_bwd_flops``)
+over each chunk's Q(Q+1)/2 kept (q, t) pairs.
 """
 from __future__ import annotations
 
@@ -210,10 +215,13 @@ def ssd_chunk(xdt: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     if torch.is_grad_enabled() and any(
             x.requires_grad for x in (xdt, B, C, cum)):
         return _SsdChunk.apply(xdt, B, C, cum)
-    return _forward(xdt, B, C, cum)
+    return torch.ops.repro_torch.ssd_chunk(xdt, B, C, cum)
 
 
-def _forward(xdt, B, C, cum):
+def _forward(xdt: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+             cum: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(y, states): the plain version on the CPU, the kernel on the card
+    (the operator ``ssd_chunk``)."""
     if xdt.device.type == "cpu":
         return ssd_chunk_ref(xdt, B, C, cum)
     if xdt.device.type != "cuda":
@@ -262,7 +270,7 @@ class _SsdChunk(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xdt, B, C, cum):
-        y, states = _forward(xdt, B, C, cum)
+        y, states = torch.ops.repro_torch.ssd_chunk(xdt, B, C, cum)
         ctx.save_for_backward(xdt, B, C, cum)
         return y, states
 
@@ -291,6 +299,17 @@ def ssd_chunk_bwd(xdt: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
             b, nc, nh, ds, hp):
         raise ValueError(f"ssd_chunk_bwd: dy {tuple(dy.shape)} / dstates "
                          f"{tuple(dstates.shape)} do not match the inputs")
+    return torch.ops.repro_torch.ssd_chunk_bwd(xdt, B, C, cum, dy, dstates)
+
+
+def _backward(xdt: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+              cum: torch.Tensor, dy: torch.Tensor, dstates: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                         torch.Tensor]:
+    """The plain backward on the CPU, the kernels on the card (the
+    operator ``ssd_chunk_bwd``)."""
+    b, nc, Q, nh, hp = xdt.shape
+    G, ds = B.shape[3], B.shape[4]
     if xdt.device.type == "cpu":
         return ssd_chunk_bwd_ref(xdt, B, C, cum, dy, dstates)
     if xdt.device.type != "cuda":
@@ -342,3 +361,42 @@ def ssd_chunk_bwd(xdt: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
 
 ssd_chunk.launches = 0
 ssd_chunk_bwd.launches = 0
+
+
+def chunk_flops(xdt_shape, B_shape, *_) -> int:
+    """K3's operations per (batch, chunk, head), over the Q(Q+1)/2 kept
+    (q, t) pairs: C·Bᵀ (ds a pair) and (C·Bᵀ∘L)·xdt (hp a pair), and the
+    chunk state (Q ds hp), 2 operations a product."""
+    b, nc, Q, nh, hp = xdt_shape
+    ds = B_shape[4]
+    pairs = Q * (Q + 1) // 2
+    return 2 * b * nc * nh * (pairs * (ds + hp) + Q * ds * hp)
+
+
+def chunk_bwd_flops(xdt_shape, B_shape, *_) -> int:
+    """K3-bwd's operations per (batch, chunk), over the kept pairs: dM =
+    dy xdtᵀ and dxdt = Mᵀ dy per head (hp a pair each), C·Bᵀ, dC and dB
+    once per group (ds a pair each), and the two state terms per head
+    (Q ds hp each)."""
+    b, nc, Q, nh, hp = xdt_shape
+    G, ds = B_shape[3], B_shape[4]
+    pairs = Q * (Q + 1) // 2
+    return 2 * b * nc * (pairs * (nh * 2 * hp + G * 3 * ds)
+                         + nh * 2 * Q * ds * hp)
+
+
+def _fake_forward(xdt, B, C, cum):
+    b, nc, Q, nh, hp = xdt.shape
+    return (torch.empty_like(xdt),
+            xdt.new_empty((b, nc, nh, B.shape[4], hp), dtype=torch.float32))
+
+
+def _fake_backward(xdt, B, C, cum, dy, dstates):
+    return (torch.empty_like(xdt), torch.empty_like(B), torch.empty_like(C),
+            torch.empty_like(cum))
+
+
+_nvcc.kernel_op("ssd_chunk", _forward, fake=_fake_forward,
+                flops=chunk_flops)
+_nvcc.kernel_op("ssd_chunk_bwd", _backward, fake=_fake_backward,
+                flops=chunk_bwd_flops)

@@ -6,8 +6,10 @@ layer with the same leaf names, so leaf ``layers/attn/wq`` row ``i`` is the
 port's ``layers.{i}.attn.wq``.  A config whose layers come in groups of g
 sub-layers (llama4: ``moe_every`` = 2, dense then MoE) stacks each
 sub-layer ``s{i}`` over the num_layers / g groups: row j of
-``layers/s{i}/...`` is the port's layer ``j * g + i``.  This is the one way
-the tests share weights between the two packages.
+``layers/s{i}/...`` is the port's layer ``j * g + i`` (``reference_leaf``).
+This is the one way the tests share weights between the two packages, and
+the map by which the optimizers give a per-layer leaf the reference's
+stacked rank.
 """
 from __future__ import annotations
 
@@ -35,13 +37,33 @@ def _flatten(tree: dict, prefix: str = "") -> dict:
     return out
 
 
+def reference_leaf(name: str, groups: int = 1) -> tuple[str, int | None]:
+    """(the reference's leaf, row) of the port's parameter ``name``: layer
+    j's ``layers.{j}.rest`` is row j // g of ``layers.s{j % g}.rest`` for
+    ``groups`` g > 1, of ``layers.rest`` for g = 1; any other leaf is the
+    same name, row None."""
+    head, _, tail = name.partition(".")
+    index, _, rest = tail.partition(".")
+    if head != "layers" or not index.isdigit() or not rest:
+        return name, None
+    j = int(index)
+    sub = f"s{j % groups}." if groups > 1 else ""
+    return f"layers.{sub}{rest}", j // groups
+
+
+def layer_groups(cfg: ArchConfig) -> int:
+    """Sub-layers a group of layers has (llama4: 2), each stacked on its
+    own in the reference."""
+    return len(_sub_cfgs(cfg))
+
+
 def params_from_reference(cfg: ArchConfig, tree: dict, *,
                           device="cpu") -> Model:
     """A ``Model`` of ``cfg`` on ``device`` holding the reference tree's
     values (numpy arrays, or anything ``np.asarray`` takes).  Raises if a
     leaf is missing or left over, or if a shape disagrees."""
     model = Model(cfg, device=device)
-    g = len(_sub_cfgs(cfg))
+    g = layer_groups(cfg)
     groups = cfg.num_layers // g
     state = {}
     for name, val in _flatten(tree).items():
@@ -58,7 +80,7 @@ def params_from_reference(cfg: ArchConfig, tree: dict, *,
             if stacked.shape[0] != groups:
                 raise ValueError(f"{name}: leading axis {stacked.shape[0]} "
                                  f"is not num_layers / {g} = {groups}")
-            for j in range(groups):
+            for j in range(groups):   # reference_leaf's map, inverted
                 state[f"layers.{j * g + sub}.{rest}"] = stacked[j]
         else:
             state[name] = _tensor(val)

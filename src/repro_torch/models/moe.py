@@ -64,6 +64,14 @@ def route(x: torch.Tensor, router: torch.Tensor, k: int
     return top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9), top_i
 
 
+def _count(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """How often each of ``0 .. n - 1`` occurs in ``ids`` (all of them in
+    range): ``bincount`` with an output length that does not depend on the
+    values, so fake tensors (``launch.dryrun``) can trace it."""
+    return torch.zeros(n, dtype=torch.long, device=ids.device).scatter_add_(
+        0, ids, torch.ones_like(ids))
+
+
 def dispatch(top_i: torch.Tensor, *, e_off: int, num_local: int,
              capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Where each (token, choice) pair of ``top_i`` (T, k) lands among the
@@ -76,7 +84,7 @@ def dispatch(top_i: torch.Tensor, *, e_off: int, num_local: int,
     # dustbin id = num_local for non-local pairs
     eid_l = torch.where(local, eid - e_off, num_local)
     eid_s, order = torch.sort(eid_l, stable=True)
-    counts = torch.bincount(eid_s, minlength=num_local + 1)
+    counts = _count(eid_s, num_local + 1)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(eid_s.numel(), device=eid.device) - starts[eid_s]
     keep_s = (pos < capacity) & (eid_s < num_local)
@@ -132,8 +140,7 @@ def moe_local(p: dict, x: torch.Tensor, cfg: ArchConfig, *, e_off: int,
         out = torch.zeros((T, d), dtype=F32, device=x.device)
         for j in range(k):
             out.addcmul_(y[slot[:, j]].to(F32), w[:, j, None])
-        counts = torch.bincount(top_i.reshape(-1),
-                                minlength=cfg.num_experts).to(F32)
+        counts = _count(top_i.reshape(-1), cfg.num_experts).to(F32)
         return out.to(x.dtype), counts
 
 

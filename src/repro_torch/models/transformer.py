@@ -33,7 +33,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..distributed.context import (batch_axes, constrain_batch,
-                                   constrain_tokens, current_mesh)
+                                   constrain_tokens, current_mesh, use_mesh)
 from ..distributed.sharding import gathered
 from .config import ArchConfig
 from .layers import (MLA, MLP, Attention, Init, RMSNorm, _dtype, _linear,
@@ -126,9 +126,15 @@ class Block(nn.Module):
             return self._ffn(x + self._mix(a, s))
 
 
-def _block_out(blk: Block, x: torch.Tensor, window: int) -> torch.Tensor:
-    return blk(x, window=window,
-               seq_shard=blk.cfg.seq_shard_activations)[0]
+def _block_out(blk: Block, x: torch.Tensor, window: int,
+               mesh=None) -> torch.Tensor:
+    """``blk``'s output under ``mesh``: remat's recompute runs in the
+    backward, on the autograd engine's own thread for CUDA tensors, where
+    ``use_mesh``'s context variable is not set, so the mesh of the
+    forward is passed along."""
+    with use_mesh(mesh):
+        return blk(x, window=window,
+                   seq_shard=blk.cfg.seq_shard_activations)[0]
 
 
 def _chunk_xent(hx: torch.Tensor, lx: torch.Tensor, w32: torch.Tensor):
@@ -269,9 +275,10 @@ class Model(nn.Module):
         x = self.embed_inputs(batch)
         for blk, w in zip(self.layers, self.windows):
             if remat == "full" and torch.is_grad_enabled():
-                x = checkpoint(_block_out, blk, x, w, use_reentrant=False)
+                x = checkpoint(_block_out, blk, x, w, current_mesh(),
+                               use_reentrant=False)
             else:
-                x = _block_out(blk, x, w)
+                x = _block_out(blk, x, w, current_mesh())
         return rmsnorm(self.final_norm.scale, x, self.cfg.norm_eps)
 
     @_gathering

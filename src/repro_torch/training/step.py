@@ -13,6 +13,7 @@ import torch
 
 from ..models import Model
 from ..models.config import ArchConfig
+from ..models.convert import layer_groups
 from .optim import AdamW, FactoredAdam, cosine_schedule
 
 
@@ -21,7 +22,7 @@ def default_optimizer(cfg: ArchConfig):
     (the 400B-class archs can't hold full Adam states on one pod)."""
     lr = cosine_schedule(3e-4, warmup=200, total=10_000)
     if cfg.param_count() > 100e9:
-        return FactoredAdam(learning_rate=lr)
+        return FactoredAdam(learning_rate=lr, layer_groups=layer_groups(cfg))
     return AdamW(learning_rate=lr, state_dtype=torch.bfloat16)
 
 

@@ -22,7 +22,8 @@ PORT = SRC / "repro_torch"
     "repro_torch.core.graph", "repro_torch.distributed.hetero",
     "repro_torch.models.moe", "repro_torch.distributed.context",
     "repro_torch.distributed.sharding", "repro_torch.distributed.collectives",
-    "repro_torch.launch.mesh", "repro_torch.launch.specs"])
+    "repro_torch.launch.mesh", "repro_torch.launch.specs",
+    "repro_torch.launch.dryrun", "repro_torch.launch.hlo_costs"])
 def test_import_pulls_in_no_jax_and_no_reference(module):
     code = (f"import json, sys; import {module}; "
             "print(json.dumps(sorted(sys.modules)))")
@@ -65,9 +66,13 @@ def test_distributed_modules_export_the_reference_names(module, names):
 
 
 def test_launch_modules_export_the_reference_names():
-    from repro_torch.launch import mesh, specs
+    from repro_torch.launch import dryrun, hlo_costs, mesh, specs
     for name in ("make_production_mesh", "make_debug_mesh"):
         assert hasattr(mesh, name)
     for name in ("ShapeSpec", "SHAPES", "shape_applicable", "input_specs",
                  "param_specs"):
         assert hasattr(specs, name)
+    for name in ("model_flops", "run_cell", "main"):
+        assert hasattr(dryrun, name)
+    for name in ("analyze", "breakdown", "COLLECTIVES"):
+        assert hasattr(hlo_costs, name)

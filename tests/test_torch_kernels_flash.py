@@ -10,6 +10,8 @@ are made with numpy from a seed and handed to both packages.  Tolerances
 are the reference's own (``tests/test_kernels_flash.py``): 2e-5 in float32,
 2e-2 in bfloat16.
 """
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +27,9 @@ from repro_torch.kernels.flash_attention import (SOURCE, SOURCE_SM90,
                                                  build_sm90, reset_counts,
                                                  route)
 from repro_torch.kernels.ref import flash_attention_ref
+
+# the module (the package exports the function under the same name)
+fa_module = importlib.import_module("repro_torch.kernels.flash_attention")
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -110,9 +115,15 @@ def test_rejects_bad_inputs():
         flash_attention(q, torch.zeros(1, 8, 2, 8), torch.zeros(1, 8, 2, 8))
     with pytest.raises(TypeError, match="float32 or"):
         flash_attention(q.half(), q.half(), q.half())
+    # the operator's fake implementation serves the meta device: shapes
+    # and dtypes only, nothing launched or counted
     meta = torch.empty((1, 8, 4, 16), device="meta")
+    before = flash_attention.launches
+    out = flash_attention(meta, meta, meta[..., :8])
+    assert out.is_meta and out.shape == (1, 8, 4, 8)
+    assert flash_attention.launches == before
     with pytest.raises(ValueError, match="unsupported device"):
-        flash_attention(meta, meta, meta)
+        fa_module._forward(meta, meta, meta, True, 0, None, False)
 
 
 def test_cpu_calls_do_not_count_launches():
@@ -206,8 +217,8 @@ def test_aligned16_copies_only_misaligned_rows():
 
 
 class _ReportsCuda:
-    """A CPU tensor that reports a CUDA device: it takes the wrapper down
-    its CUDA branch on a machine with no card."""
+    """A CPU tensor that reports a CUDA device: it takes the operator's
+    implementation down its CUDA branch on a machine with no card."""
     device = torch.device("cuda", 0)
 
     def __init__(self, t):
@@ -250,8 +261,8 @@ def test_each_route_raises_without_a_card(route_name, monkeypatch, tmp_path):
         q = _ReportsCuda(torch.ones(1, 8, 2, dk, dtype=dtype))
         v = _ReportsCuda(torch.ones(1, 8, 2, dv, dtype=dtype))
         loaded.clear()
-        with pytest.raises(RuntimeError, match="nvcc"):
-            flash_attention(q, q, v)
+        with pytest.raises(RuntimeError, match="nvcc"):   # the operator's
+            fa_module._forward(q, q, v, True, 0, None, False)  # CUDA branch
         assert loaded == [source], case
         assert (flash_attention.launches, flash_attention.launches_sm90,
                 flash_attention.launches_simt) == counts

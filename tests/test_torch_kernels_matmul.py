@@ -5,6 +5,8 @@ On CPU tensors the wrapper runs its plain version; the CUDA kernel itself is
 held against that plain version on the card by ``chip_smoke.py``.  Inputs
 are made with numpy from a seed and handed to both packages.
 """
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -106,9 +108,13 @@ def test_rejects_bad_shapes_and_devices():
         matmul(torch.zeros(4, 5), torch.zeros(4, 5))
     with pytest.raises(ValueError, match="do not chain"):
         matmul(torch.zeros(4), torch.zeros(4, 5))
+    # the operator's fake implementation serves the meta device
     meta = torch.empty((4, 4), device="meta")
+    out = matmul(meta, meta[:, :3])
+    assert out.is_meta and out.shape == (4, 3)
     with pytest.raises(ValueError, match="unsupported device"):
-        matmul(meta, meta)
+        importlib.import_module("repro_torch.kernels.matmul")._launch(
+            meta, meta)
 
 
 def test_plain_version_is_torch_matmul_in_f32():

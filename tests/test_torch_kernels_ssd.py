@@ -6,6 +6,8 @@ Inputs are made with numpy from a seed and handed to both packages.
 Tolerances are the reference's own (``tests/test_kernels_ssd.py``): 1e-4
 in float32, 3e-2 in bfloat16, 2e-4 for the composed scan.
 """
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -120,9 +122,14 @@ def test_rejects_bad_inputs():
         ssd_chunk(xdt, B, C, cum.double())
     with pytest.raises(TypeError, match="float32 or"):
         ssd_chunk(xdt.half(), B.half(), C.half(), cum)
+    # the operator's fake implementation serves the meta device
     meta = [x.to("meta") for x in (xdt, B, C, cum)]
+    y, st = ssd_chunk(*meta)
+    assert y.is_meta and y.shape == xdt.shape and y.dtype == xdt.dtype
+    assert st.shape == (1, 1, 4, 8, 8) and st.dtype == torch.float32
     with pytest.raises(ValueError, match="unsupported device"):
-        ssd_chunk(*meta)
+        importlib.import_module("repro_torch.kernels.ssd_chunk")._forward(
+            *meta)
 
 
 def test_plain_version_matches_the_oracle_in_bf16_inputs():

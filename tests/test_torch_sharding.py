@@ -42,6 +42,7 @@ from repro_torch.distributed.context import (batch_axes, data_shards,
 from repro_torch.launch import specs
 from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
 from repro_torch.models import Model
+from repro_torch.models.convert import layer_groups, reference_leaf
 from repro_torch.models.transformer import _sub_cfgs
 from repro_torch.training import optim
 
@@ -85,18 +86,16 @@ def _port_params(arch):
 
 def _ref_path(cfg, keys) -> tuple:
     """The reference's tree path of a port leaf under nested ``keys``
-    (``models/convert.py``'s mapping: layer j of groups of g is row j // g
-    of sub-layer s{j % g})."""
+    (``models/convert.py``'s ``reference_leaf``: layer j of groups of g is
+    row j // g of sub-layer s{j % g}); a FactoredAdam moment kept for a
+    whole stack is keyed by that stacked name already."""
     g = len(_sub_cfgs(cfg))
-    out = []
-    for key in keys:
-        parts = str(key).split(".")
-        if parts[0] == "layers":
-            j = int(parts[1])
-            out += ["layers"] + ([f"s{j % g}"] if g > 1 else []) + parts[2:]
-        else:
-            out += parts
-    return tuple(out)
+    return tuple(part for key in keys
+                 for part in reference_leaf(str(key), g)[0].split("."))
+
+
+def _per_layer(keys) -> bool:
+    return any(part.isdigit() for key in keys for part in str(key).split("."))
 
 
 def _ref_leaf(tree, path):
@@ -113,19 +112,14 @@ def _compare(cfg, port_tree, ref_tree, port_mesh, ref_mesh):
     n = 0
     for keys, sh in got:
         path = _ref_path(cfg, keys)
-        if path[-1] == "v" and "vr" in _ref_leaf(want, path[:-1]):
-            # FactoredAdam: the reference factors a layer's 1-D leaf
-            # stacked over layers, (L, d), into "vr"/"vc"; the port's
-            # per-layer leaf is 1-D and keeps "v", replicated as the
-            # reference's 1-D moments are (ROADMAP C5)
-            assert all(a is None for a in sh.spec), path
-            continue
         ref_sh = _ref_leaf(want, path)
         ref_shape = _ref_leaf(ref_tree, path).shape
         w = _norm(ref_sh.spec, len(ref_shape))
-        if "layers" in path:
-            w = w[1:]
         leaf = _ref_leaf(port_tree, keys)
+        if _per_layer(keys):
+            w = w[1:]
+        else:   # a FactoredAdam moment of a whole stack: the same shape
+            assert tuple(leaf.shape) == tuple(ref_shape), path
         assert _norm(sh.spec, leaf.dim()) == w, (path, sh.spec, ref_sh.spec)
         n += 1
     return n
@@ -144,11 +138,17 @@ def test_param_specs_match_reference(meshes, arch):
 def test_optimizer_state_specs_match_reference(meshes, arch, opt):
     port_mesh, ref_mesh = meshes
     cfg = get_config(arch)
-    port_state = getattr(optim, opt)().init(_port_params(arch))
+    kw = {"layer_groups": layer_groups(cfg)} if opt == "FactoredAdam" else {}
+    port_state = getattr(optim, opt)(**kw).init(_port_params(arch))
     ref_state = jax.eval_shape(getattr(ref_optim, opt)().init,
                                _ref_params(arch))
     assert all(t.is_meta for _, t in sharding._flat(port_state))
     assert _compare(cfg, port_state, ref_state, port_mesh, ref_mesh) > 0
+    # every moment of the reference has its counterpart, and only those
+    ref_paths = {tuple(k.key for k in path) for path, _ in
+                 jax.tree_util.tree_flatten_with_path(ref_state)[0]}
+    assert {_ref_path(cfg, keys) for keys, _ in
+            sharding._flat(port_state)} == ref_paths
 
 
 @pytest.mark.parametrize("seq_shard", [False, True])
@@ -316,3 +316,46 @@ def test_remesh_onto_new_shardings(ranks):
     placements = ranks["remesh"][0]["placements"]
     assert placements["embed"][1] == (sharding.Replicate(),
                                       sharding.Shard(0))
+
+
+def test_remat_recompute_keeps_the_mesh():
+    """``remat="full"`` recomputes each layer in the backward, which the
+    autograd engine runs on a thread of its own for CUDA tensors, where
+    the mesh installed by ``use_mesh`` (a context variable) is not set.
+    The recompute must still see the mesh: tiny dbrx with ``remat="full"``
+    on a (1, 2) mesh (the MoE expert-parallel, 8 of 16 experts a rank),
+    fake tensors, its loss's backward taken on another thread."""
+    import dataclasses
+    import threading
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
+    try:
+        mesh = make_debug_mesh((1, 2), ("data", "model"), device_type="cpu")
+        cfg = dataclasses.replace(get_tiny_config("dbrx-132b"), remat="full")
+        errors = []
+        mode = FakeTensorMode()
+        with mode:
+            net = Model(cfg, device="meta")
+            for mod in net.modules():
+                for name, p in mod._parameters.items():
+                    mod._parameters[name] = torch.nn.Parameter(
+                        torch.empty_like(p, device="cpu"))
+            sharding.shard_params(net, mesh)
+            tokens = torch.zeros((2, 16), dtype=torch.long)
+            with use_mesh(mesh):
+                loss = net.loss({"tokens": tokens, "labels": tokens})
+
+            def backward():       # dispatch modes go with the engine's
+                try:              # threads; context variables do not
+                    with mode:
+                        loss.backward()
+                except Exception as e:  # noqa: BLE001 - asserted below
+                    errors.append(e)
+
+            t = threading.Thread(target=backward)
+            t.start()
+            t.join(120)
+        assert not t.is_alive()
+        assert errors == []
+    finally:
+        dist.destroy_process_group()

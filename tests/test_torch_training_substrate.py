@@ -59,7 +59,7 @@ def test_adamw_minimizes_quadratic():
 
 def test_factored_adam_minimizes_matrix_quadratic():
     params = {"w": torch.ones((8, 16)) * 2.0}
-    opt = FactoredAdam(learning_rate=0.1)
+    opt = FactoredAdam(learning_rate=0.1, layer_groups=1)
     state = opt.init(params)
     # factored state is O(n+m), not O(nm)
     assert state["v"]["w"]["vr"].shape == (8,)
@@ -133,7 +133,8 @@ def test_optimizer_updates_match_reference(name):
     params, moments, grad_norm and lr within 1e-6 of the reference's."""
     lr = (cosine_schedule(1e-2, 2, 10), ref_cosine(1e-2, 2, 10))
     if name == "factored":
-        port = FactoredAdam(learning_rate=lr[0], weight_decay=0.01)
+        port = FactoredAdam(learning_rate=lr[0], weight_decay=0.01,
+                            layer_groups=1)
         ref = RefFactoredAdam(learning_rate=lr[1], weight_decay=0.01)
     else:
         bf16 = name.endswith("bf16-states")
