@@ -122,6 +122,37 @@ failed check exits non-zero):
              group of 256 ranks), records printed, and two tiny cells on
              the (2, 2, 2) mesh traced on fake ``cuda`` and fake ``cpu``
              tensors with equal accounting.
+11. moe-train — MoE training, remat "dots", llama4 served: (a) a float32
+             gradient gate of dbrx-132B at full width cut to 1 layer, phase 8
+             (a)'s 512-token prompt: the loss and every parameter gradient on
+             the card (K2 and K2-bwd ``simt``) against the same weights moved
+             to the host (plain versions) at phase 7 (b)'s gates, every kept
+             (expert, slot) identical; (b) dbrx-132B in bfloat16 cut to 2 of
+             40 layers, batch 2 x 2048 (1 x 2048 if the dry run's predicted
+             peak passes 72 GiB), remat "full", AdamW with bf16 states,
+             through ``launch.train``'s objects: K2's ``lse``, K2-bwd (Dk =
+             Dv = 128) and the two chained through autograd at the step's
+             attention shape against their plain versions, 4 steps with
+             launches and kept/dropped pairs per step, ms/step, tokens/s,
+             model TFLOP/s, peak, one step traced by kind (K2, K2-bwd, the
+             expert products and the combine forward and backward, the
+             optimizer), the dry run held against a step as phase 10 (a)
+             holds its cells, the loss and gradients taken twice from one
+             state, bit-equal, and once with K2-bwd's plain version in its
+             place, every leaf within K2-bwd's bf16 band; (c) phase 7 (c)'s
+             hymba-1.5B step under remat "dots" (K2 and K3 still recomputed:
+             64 of each a step), one step traced against phase 7 (c)'s "full"
+             one, its step 1 loss against phase 7 (c)'s under "full", the dry
+             run's prediction of it held as in (b), and one step of (b)'s
+             dbrx cut under "dots"; (d) llama4-maverick-400B-A17B in bfloat16
+             cut to 2 of 48 layers (one dense, one MoE layer), phase 6 (b)'s
+             traffic through ``PoasDispatcher`` and ``ServingEngine`` (2 K2
+             launches a prefill, all ``sm90``; kept and dropped pairs; peak),
+             the larger bucket traced, and its prefill with K2, with K2's
+             plain version and with sdpa on the card (last-token logits and
+             the router logits within K2's bf16 band; the tokens routed to
+             another expert than through the plain version counted, at most
+             twice sdpa's count), and with K2 twice, bit-equal.
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or run outside the
@@ -132,6 +163,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import importlib
 import json
 import math
 import socket
@@ -195,6 +227,7 @@ from repro_torch.launch.hlo_costs import CostMode  # noqa: E402
 from repro_torch.launch.specs import ShapeSpec, input_specs  # noqa: E402
 from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
 from repro_torch.models import Model, moe  # noqa: E402
+from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models.transformer import chunked_xent  # noqa: E402
 from repro_torch.serving.engine import (PoasDispatcher,  # noqa: E402
                                         Request, ServingEngine)
@@ -252,6 +285,8 @@ MOE_ARCH = "dbrx-132b"
 MOE_LAYERS = 8
 MOE_GATE_TOKENS = 512     # phase 8 (a): one float32 prompt, also run on the host
 MOE_RANGES = ("moe.router", "moe.dispatch", "moe.experts", "moe.combine")
+# record_function ranges: their device rows in a trace are spans, not kernels
+RANGES = MOE_RANGES + ("transformer.layer", "train_step.optimizer")
 # Phase 9 (a): 4 of dbrx's 40 layers in bf16 (4 x 6.52 GB + 2.47 GB of
 # embedding and head, ~28.6 GB), served twice: no mesh, then the mesh.
 SHARD_LAYERS = 4
@@ -271,7 +306,26 @@ SHARD_RANKS, SHARD_TIMEOUT = 2, 900   # (b): ranks on the one card; seconds
 DRYRUN_ARG_TOL, DRYRUN_PEAK_TOL = 0.01, 0.15
 DRYRUN_TIMEOUT = 600      # (b): seconds for each host-only dry run
 DRYRUN_OUT = ROOT / "experiments" / "dryrun_torch_chip"
+# Phase 11 (b): 2 of dbrx's 40 layers in bf16 with their gradients and
+# AdamW's bf16 moments: 7.751 B parameters at 8 bytes, ~62 GB, and the f32
+# head; a batch of 2 x TRAIN_SEQ unless the dry run's peak passes 72 GiB.
+MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_STEPS = 2, 2, 4
+MOE_TRAIN_PEAK = 72 * 2**30
+# (b): gradient leaves held in float32 blocks of this many elements
+GRAD_BLOCK = 2**26
+# (c): the forward is the same arithmetic under "dots" and "full"
+DOTS_LOSS_RTOL = 1e-6
+# (d): 2 of llama4's 48 layers (one dense, one MoE), 18.55 B parameters;
+# its prefill's last-token logits through K2 against K2's plain version,
+# both bf16: K2's bf16 band (tests/test_kernels_flash.py:33) as rtol and
+# as a share of the largest logit
+LLAMA4_ARCH, LLAMA4_LAYERS = "llama4-maverick-400b-a17b", 2
+LLAMA4_TOL = 2e-2
+# (d): tokens K2 may route to another top-1 expert than K2's plain version
+# does, as a multiple of those the library's bf16 attention (sdpa) moves
+LLAMA4_MOVED_FACTOR = 2
 MEASURED: dict = {}       # phase 6's prefill busy s, phase 7's step times
+                          # and its traced step's (busy, wall) s
 
 
 def fail(msg: str) -> None:
@@ -602,7 +656,7 @@ def traced(phase: str, label: str, fn, steps: int, part: str = "(c)"):
     host wall, launches per step and the kernels that take the most device
     time; returns (profile, device kernels, busy seconds), or None when
     the trace holds no device time.  Device rows of ``record_function``
-    ranges (``MOE_RANGES``) are spans, not kernels, and are left out."""
+    ranges (``RANGES``) are spans, not kernels, and are left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -614,7 +668,7 @@ def traced(phase: str, label: str, fn, steps: int, part: str = "(c)"):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.key not in MOE_RANGES]
+            if e.device_type == DeviceType.CUDA and e.key not in RANGES]
     if not kern:
         say(phase, f"{part} {label}: the trace holds no device time")
         return None
@@ -640,11 +694,12 @@ def bucket_tokens(bucket) -> torch.Tensor:
     return torch.from_numpy(prompts).to(DEV)
 
 
-def profile_serve(phase: str, model, bucket, breakdown=None) -> float:
+def profile_serve(phase: str, model, bucket, breakdown=None,
+                  part: str = "(c)") -> float:
     """Where a bucket's time goes on the card: one prefill and three decode
     steps under ``torch.profiler``; device-busy share of the host wall time
     and the kernels that take the most device time, then
-    ``breakdown(phase, label, traced's result)`` of each trace.  The
+    ``breakdown(phase, label, traced's result, part)`` of each trace.  The
     prefill's and the decode steps' logits must be finite.  Measurement
     only."""
     tokens = bucket_tokens(bucket)
@@ -655,10 +710,10 @@ def profile_serve(phase: str, model, bucket, breakdown=None) -> float:
             out["logits"], out["cache"] = model.prefill({"tokens": tokens})
 
         label = f"prefill of {tokens.shape[0]} x {tokens.shape[1]}"
-        result = traced(phase, label, prefill, 1)
+        result = traced(phase, label, prefill, 1, part)
         busy = result[2] if result else float("nan")
         if breakdown and result:
-            breakdown(phase, label, result)
+            breakdown(phase, label, result, part)
         check(bool(torch.isfinite(out["logits"]).all()),
               f"({phase}) prefill logits are not finite")
         cache = model.extend_cache(out["cache"], 4)
@@ -670,9 +725,9 @@ def profile_serve(phase: str, model, bucket, breakdown=None) -> float:
             for _ in range(3):
                 out["logits"], c = model.decode_step(c, {"tokens": tok})
 
-        result = traced(phase, "3 decode steps", decode, 3)
+        result = traced(phase, "3 decode steps", decode, 3, part)
         if breakdown and result:
-            breakdown(phase, "3 decode steps", result)
+            breakdown(phase, "3 decode steps", result, part)
         check(bool(torch.isfinite(out["logits"]).all()),
               f"({phase}) decode logits are not finite")
     return busy
@@ -848,7 +903,8 @@ def k2b_counts() -> tuple[int, int]:
 
 
 def flash_bwd_row(label, gen, B, S, H, KH, Dk, Dv, window, dtype,
-                  twice: bool = False) -> dict:
+                  twice: bool = False, phase: str = "train",
+                  part: str = "(a)") -> dict:
     """K2-bwd against its plain backward on the same card tensors (q, k, v,
     dO random; o and lse from the plain forward), then kernel, plain
     version and sdpa's backward timed.  Fails if the launch did not take
@@ -913,7 +969,7 @@ def flash_bwd_row(label, gen, B, S, H, KH, Dk, Dv, window, dtype,
     row["tc_bound_ms"], _ = roofline(ops, nbytes, "bfloat16")
     smem = (f", {bwd_sm90_smem_bytes(Dk, Dv) / 1024:.0f} KiB dynamic shared "
             f"memory (dK/dV)" if rounded else "")
-    say("train", f"(a) K2-bwd {label} B{B} S{S} H{H}/{KH} Dk{Dk} Dv{Dv} "
+    say(phase, f"{part} K2-bwd {label} B{B} S{S} H{H}/{KH} Dk{Dk} Dv{Dv} "
         f"window {window} {name} route {kind}{smem}: vs plain"
         f"{' (P, dS rounded to bf16)' if rounded else ''} max_abs_err="
         f"{err:.3e} violations={bad} ({tol}){extra}; kernel_ms="
@@ -1012,10 +1068,10 @@ def ssd_bwd_row(label, gen, b, nc, Q, nh, G, hp, ds, dtype,
     return row
 
 
-def train_qkv(gen, cfg, dtype, dv: bool = False):
-    """Random q, k, v (and dO when ``dv``) at the training path's attention
-    shape: (4, 2048) tokens, 25 query and 5 KV heads of 64."""
-    shapes = [(TRAIN_BATCH, TRAIN_SEQ, h, cfg.head_dim)
+def train_qkv(gen, cfg, dtype, dv: bool = False, batch: int = TRAIN_BATCH):
+    """Random q, k, v (and dO when ``dv``) at ``cfg``'s training attention
+    shape: (``batch``, ``TRAIN_SEQ``) tokens, its query and KV heads."""
+    shapes = [(batch, TRAIN_SEQ, h, cfg.head_dim)
               for h in (cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads)]
     if dv:
         shapes.append(shapes[0])
@@ -1023,14 +1079,15 @@ def train_qkv(gen, cfg, dtype, dv: bool = False):
             for shape in shapes]
 
 
-def k2_lse(gen, cfg) -> None:
-    """K2's ``lse`` output at the training shape, on both routes (bf16 ->
-    sm90, float32 -> simt), against the plain version's log-sum-exp on the
-    same card tensors; then sm90's forward timed with and without ``lse``,
-    in turns (without, with, with, without)."""
+def k2_lse(gen, cfg, batch: int = TRAIN_BATCH, phase: str = "train",
+           part: str = "(a)") -> None:
+    """K2's ``lse`` output at ``cfg``'s training shape, on both routes
+    (bf16 -> sm90, float32 -> simt), against the plain version's
+    log-sum-exp on the same card tensors; then sm90's forward timed with
+    and without ``lse``, in turns (without, with, with, without)."""
     for dtype, kind in ((torch.bfloat16, "sm90"), (torch.float32, "simt")):
-        q, k, v = train_qkv(gen, cfg, dtype)
-        for window in (cfg.window, 0):
+        q, k, v = train_qkv(gen, cfg, dtype, batch=batch)
+        for window in dict.fromkeys((cfg.window, 0)):
             before = k2_counts()
             _, lse = k2_forward(q, k, v, True, window, None, True)
             torch.cuda.synchronize()
@@ -1042,7 +1099,7 @@ def k2_lse(gen, cfg) -> None:
                                        return_lse=True)[1]
             diff = (lse - want).abs()
             bad = int((diff > LSE_TOL + LSE_TOL * want.abs()).sum())
-            say("train", f"(a) K2 lse ({kind}) B{TRAIN_BATCH} S{TRAIN_SEQ} "
+            say(phase, f"{part} K2 lse ({kind}) B{batch} S{TRAIN_SEQ} "
                 f"H{cfg.num_heads}/{cfg.num_kv_heads} D{cfg.head_dim} window "
                 f"{window} {DTYPE_NAME[dtype]}: vs plain max_abs_err="
                 f"{float(diff.max()):.3e} violations={bad} (rtol=atol="
@@ -1054,14 +1111,15 @@ def k2_lse(gen, cfg) -> None:
             times = [cuda_ms(lambda: k2_forward(q, k, v, True, window, None,
                                                 w))
                      for w in (False, True, True, False)]
-            say("train", f"(a) K2 forward (sm90) B{TRAIN_BATCH} S{TRAIN_SEQ} "
+            say(phase, f"{part} K2 forward (sm90) B{batch} S{TRAIN_SEQ} "
                 f"window {window}: without lse {times[0]:.4f}/"
                 f"{times[3]:.4f} ms, with lse {times[1]:.4f}/{times[2]:.4f} "
                 f"ms")
         del q, k, v, lse, want, diff
 
 
-def flash_autograd_row(gen, cfg, window: int) -> None:
+def flash_autograd_row(gen, cfg, window: int, batch: int = TRAIN_BATCH,
+                       phase: str = "train", part: str = "(a)") -> None:
     """K2's forward (sm90, writing ``lse``) and K2-bwd (sm90) chained
     through autograd at the training shape in bf16, as the training step
     runs them: the forward's o against the plain forward at K2's band, and
@@ -1072,7 +1130,7 @@ def flash_autograd_row(gen, cfg, window: int) -> None:
     O) takes the forward's own bf16 O (the sm90 kernel's P enters P V as
     bf16), so only the kernel's o isolates what the chain adds: its lse,
     and K2-bwd."""
-    q, k, v, do = train_qkv(gen, cfg, torch.bfloat16, dv=True)
+    q, k, v, do = train_qkv(gen, cfg, torch.bfloat16, dv=True, batch=batch)
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     before = k2_counts() + k2b_counts()
     out = flash_attention(*leaves, window=window)
@@ -1093,8 +1151,8 @@ def flash_autograd_row(gen, cfg, window: int) -> None:
     norms = rel_norms(grads, flash_attention_bwd_ref(
         q.float(), k.float(), v.float(), out.detach().float(), do.float(),
         lse, window=window))
-    say("train", f"(a) K2 -> K2-bwd through autograd (sm90 lse, sm90 "
-        f"backward) B{TRAIN_BATCH} S{TRAIN_SEQ} H{cfg.num_heads}/"
+    say(phase, f"{part} K2 -> K2-bwd through autograd (sm90 lse, sm90 "
+        f"backward) B{batch} S{TRAIN_SEQ} H{cfg.num_heads}/"
         f"{cfg.num_kv_heads} D{cfg.head_dim} window {window} bfloat16: o vs "
         f"the plain forward max_abs_err={float(diff.max()):.3e} violations="
         f"{o_bad} (rtol=atol={tol}); dq, dk, dv vs the plain backward (the "
@@ -1128,8 +1186,7 @@ def gradient_gate(cfg) -> int:
                  generator=torch.Generator().manual_seed(0))
     card = Model(cut, device=DEV)
     card.load_state_dict(host.state_dict())
-    reset_k2_counts()
-    ssd_chunk.launches = ssd_chunk_bwd.launches = 0
+    reset_launches()
     before = (flash_attention.launches_simt,
               flash_attention_bwd.launches_simt, ssd_chunk.launches,
               ssd_chunk_bwd.launches)
@@ -1171,6 +1228,12 @@ def gradient_gate(cfg) -> int:
     return launches
 
 
+def reset_launches() -> None:
+    """Every kernel's launch counts to 0."""
+    reset_k2_counts()
+    ssd_chunk.launches = ssd_chunk_bwd.launches = 0
+
+
 def launch_counts() -> dict:
     return {"flash_attention/sm90": flash_attention.launches_sm90,
             "flash_attention/simt": flash_attention.launches_simt,
@@ -1180,10 +1243,12 @@ def launch_counts() -> dict:
             "ssd_chunk_bwd": ssd_chunk_bwd.launches}
 
 
-def profile_step(job, state, batch) -> float:
-    """(c) one training step under ``torch.profiler``: device-busy share of
+def profile_step(job, state, batch, phase: str = "train",
+                 part: str = "(c)") -> tuple[float, float]:
+    """One training step under ``torch.profiler``: device-busy share of
     the host wall, the top device ops, and each hand-written kernel's
-    share of device time; returns the busy seconds.  Measurement only."""
+    share of device time; returns (busy, wall) seconds.  Measurement
+    only."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1195,16 +1260,16 @@ def profile_step(job, state, batch) -> float:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    check(bool(kern), "(c) the trace holds no device time")
+            if e.device_type == DeviceType.CUDA and e.key not in RANGES]
+    check(bool(kern), f"{part} the trace holds no device time")
     busy = sum(e.self_device_time_total for e in kern) / 1e6
-    say("train", f"(c) one step under torch.profiler: wall {wall:.4f} s, "
+    say(phase, f"{part} one step under torch.profiler: wall {wall:.4f} s, "
         f"device busy {busy:.4f} s ({busy / wall * 100:.1f} %, idle "
         f"{(1 - busy / wall) * 100:.1f} %), "
         f"{sum(e.count for e in kern)} kernel launches")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
         t = e.self_device_time_total / 1e6
-        say("train", f"(c)   {t:.4f} s ({t / busy * 100:.1f} % of busy) "
+        say(phase, f"{part}   {t:.4f} s ({t / busy * 100:.1f} % of busy) "
             f"x{e.count} {e.key[:90]}")
     groups = (("hand-written K2 sm90", ("flash_sm90_kernel",)),
               ("hand-written K2-bwd sm90", ("flash_bwd_sm90_",)),
@@ -1218,14 +1283,14 @@ def profile_step(job, state, batch) -> float:
                 and any(k in e.key for k in keys)]
         seen.update(e.key for e in mine)
         t = sum(e.self_device_time_total for e in mine) / 1e6
-        say("train", f"(c)   {label}: {t:.4f} s ({t / busy * 100:.1f} % "
+        say(phase, f"{part}   {label}: {t:.4f} s ({t / busy * 100:.1f} % "
             f"of busy), {sum(e.count for e in mine)} launches")
     rest = [e for e in kern if e.key not in seen]
     t = sum(e.self_device_time_total for e in rest) / 1e6
-    say("train", f"(c)   other PyTorch kernels (elementwise, copies, "
+    say(phase, f"{part}   other PyTorch kernels (elementwise, copies, "
         f"reductions, embedding): {t:.4f} s ({t / busy * 100:.1f} % of "
         f"busy), {sum(e.count for e in rest)} launches")
-    return busy
+    return busy, wall
 
 
 def loss_head(model, busy: float) -> None:
@@ -1251,6 +1316,77 @@ def loss_head(model, busy: float) -> None:
         f"{flops:.4e} FLOP at {flops / ms / 1e9:.2f} TFLOP/s")
 
 
+def take_steps(phase: str, part: str, job, steps: int, want: dict,
+               records: list | None = None):
+    """``steps`` steps of ``job`` from its state on its data stream from
+    batch 0, each step's kernel launches held to ``want``; with
+    ``records`` (``record_moe``'s), each step's kept and dropped (token,
+    choice) pairs over the forward's MoE calls (remat's recompute calls
+    the layers again).  The peak is read over steps 2.. (over the one step
+    when ``steps`` is 1).  Returns (state, the data stream, the losses,
+    the times of steps 2.. in s, the peak in bytes)."""
+    data = job.data.stream(0)
+    state = job.state
+    L = sum(hasattr(blk, "moe") for blk in job.model.layers)
+    losses, times = [], []
+    for step in range(1, steps + 1):
+        batch = next(data)
+        if step == min(2, steps):
+            torch.cuda.reset_peak_memory_stats()
+        before = launch_counts()
+        if records is not None:
+            records.clear()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = job.step_fn(state, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        per = {k: v - before[k] for k, v in launch_counts().items()}
+        pairs = ""
+        if records is not None:
+            kept, dropped = kept_dropped(job.cfg, records[:L])
+            pairs = (f"; MoE kept {kept}, dropped {dropped} (token, choice) "
+                     f"pairs over the forward's {L} layers")
+        say(phase, f"{part} step {step}: loss {loss:.4f} grad_norm "
+            f"{gnorm:.4f} lr {float(m['lr']):.3e}; {dt:.4f} s; launches "
+            f"{per}{pairs}")
+        check(math.isfinite(loss) and math.isfinite(gnorm),
+              f"{part} step {step}: loss {loss}, grad_norm {gnorm}")
+        check(per == want, f"{part} step {step} launched {per}, remat "
+              f"{job.cfg.remat} implies {want}")
+        losses.append(loss)
+        if step > 1:
+            times.append(dt)
+    return state, data, losses, times, torch.cuda.max_memory_allocated()
+
+
+def step_launches(cfg) -> dict:
+    """The kernel launches of one bf16 training step of ``cfg``: K2 and K3
+    once a layer forward, again in remat's recompute, and their backwards
+    once a layer."""
+    fwd = 1 if cfg.remat == "none" else 2     # forward, then recompute
+    L = cfg.num_layers
+    attn = 0 if cfg.is_attention_free else L
+    ssm = L if cfg.uses_ssm else 0
+    return {"flash_attention/sm90": fwd * attn, "flash_attention/simt": 0,
+            "flash_attention_bwd/sm90": attn, "flash_attention_bwd/simt": 0,
+            "ssd_chunk": fwd * ssm, "ssd_chunk_bwd": ssm}
+
+
+def model_flop(cfg, n_params: int, batch: int, seq: int,
+               windows) -> tuple[float, float]:
+    """(6·N·T, attention) model FLOP of one training step: N the active
+    parameters (a MoE's routed top-k experts), attention 6·B·H·(Dk+Dv)
+    per kept (query, key) pair over the layers."""
+    if cfg.uses_moe:
+        n_params -= (cfg.num_layers // cfg.moe_every) * (
+            cfg.num_experts - cfg.experts_per_token) * 3 * cfg.d_model * cfg.d_ff
+    attn = 6.0 * batch * cfg.num_heads * 2 * cfg.head_dim * sum(
+        band_pairs(seq, seq, True, w) for w in windows)
+    return 6.0 * n_params * batch * seq, attn
+
+
 def train_path(cfg) -> dict:
     """(c) bf16 at full width and depth through ``launch.train``'s own
     objects; returns the launch counts of the steps' run."""
@@ -1266,56 +1402,29 @@ def train_path(cfg) -> dict:
         f"(seed {args.seed}), batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens of "
         f"SyntheticLM (seed {args.seed}); built in "
         f"{time.perf_counter() - t0:.1f} s")
-    fwd = 2 if job.cfg.remat == "full" else 1     # forward, then recompute
-    L = job.cfg.num_layers
-    want = {"flash_attention/sm90": fwd * L, "flash_attention/simt": 0,
-            "flash_attention_bwd/sm90": L, "flash_attention_bwd/simt": 0,
-            "ssd_chunk": fwd * L, "ssd_chunk_bwd": L}
-    data = job.data.stream(0)
-    state = job.state
-    reset_k2_counts()
-    ssd_chunk.launches = ssd_chunk_bwd.launches = 0
-    times = []
-    for step in range(1, TRAIN_STEPS + 1):
-        batch = next(data)
-        if step == 2:
-            torch.cuda.reset_peak_memory_stats()
-        before = launch_counts()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        state, m = job.step_fn(state, batch)
-        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t
-        per = {k: v - before[k] for k, v in launch_counts().items()}
-        say("train", f"(c) step {step}: loss {loss:.4f} grad_norm "
-            f"{gnorm:.4f} lr {float(m['lr']):.3e}; {dt:.4f} s; launches "
-            f"{per}")
-        check(math.isfinite(loss) and math.isfinite(gnorm),
-              f"(c) step {step}: loss {loss}, grad_norm {gnorm}")
-        check(per == want, f"(c) step {step} launched {per}, remat "
-              f"{job.cfg.remat} implies {want}")
-        if step > 1:
-            times.append(dt)
+    reset_launches()
+    state, data, losses, times, peak = take_steps(
+        "train", "(c)", job, TRAIN_STEPS, step_launches(job.cfg))
     launches = launch_counts()
-    peak = torch.cuda.max_memory_allocated()
     step_s = float(np.mean(times))
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    attn = 6.0 * TRAIN_BATCH * job.cfg.num_heads * 2 * job.cfg.head_dim * sum(
-        band_pairs(TRAIN_SEQ, TRAIN_SEQ, True, w) for w in job.model.windows)
-    flops = 6.0 * n_params * tokens + attn
+    dense, attn = model_flop(job.cfg, n_params, TRAIN_BATCH, TRAIN_SEQ,
+                             job.model.windows)
+    flops = dense + attn
     say("train", f"(c) steps 2-{TRAIN_STEPS}: {step_s * 1e3:.2f} ms/step "
         f"({', '.join(f'{t * 1e3:.2f}' for t in times)}), "
         f"{tokens / step_s:.1f} training tokens/s, model "
         f"{flops / step_s / 1e12:.2f} TFLOP/s (6*N*T "
-        f"{6.0 * n_params * tokens:.4e} + attention {attn:.4e} = "
+        f"{dense:.4e} + attention {attn:.4e} = "
         f"6*B*H*(Dk+Dv)*band pairs over the "
         f"layers; SSD's intra-chunk products not counted; "
         f"{flops / step_s / PEAK['bfloat16'][0] * 100:.1f} % of the 989 "
         f"TFLOP/s bf16 peak); peak max_memory_allocated "
         f"{peak / 2**30:.3f} GiB; main path launches {launches}")
     MEASURED["step_ms"] = [t * 1e3 for t in times]
-    loss_head(job.model, profile_step(job, state, next(data)))
+    MEASURED["train_loss"] = losses[0]
+    MEASURED["step_trace"] = profile_step(job, state, next(data))
+    loss_head(job.model, MEASURED["step_trace"][0])
     batch = next(data)
     dryrun_hold("hymba-1.5B training step", job.cfg,
                 ShapeSpec("train", "train", TRAIN_SEQ, TRAIN_BATCH),
@@ -1438,19 +1547,43 @@ def moe_layers(model) -> list:
     return [blk.moe for blk in model.layers if hasattr(blk, "moe")]
 
 
-def record_moe(layers, records: list, routed: dict) -> None:
+def moe_input(model):
+    """A forward pre-hook on ``model``'s first MoE layer that keeps its last
+    input (tokens, d) in the returned dict under "x"; and the hook."""
+    seen: dict = {}
+    layer = moe_layers(model)[0]
+    hook = layer.register_forward_pre_hook(
+        lambda m, args: seen.__setitem__(
+            "x", args[0].detach().reshape(-1, args[0].shape[-1])))
+    return seen, hook
+
+
+def kept_slots(model, x: torch.Tensor) -> list:
+    """(expert ids, slot, keep) of every (token, choice) of the first MoE
+    layer's input ``x``, on the host: the layer's router and dispatch."""
+    layer = moe_layers(model)[0]
+    cfg = layer.cfg
+    with torch.inference_mode():
+        _, top_i = moe.route(x, layer.router, cfg.experts_per_token)
+        return [t.cpu() for t in (top_i, *moe.dispatch(
+            top_i, e_off=0, num_local=cfg.num_experts,
+            capacity=moe.capacity_for(x.shape[0], cfg)))]
+
+
+def record_moe(layers, records: list, routed: dict | None = None) -> None:
     """Shadow each MoE layer's ``moe_local`` with an instance attribute that
-    appends (tokens, per-expert counts) of every call to ``records``; the
-    first layer also routes a prefill's input again (router and dispatch
-    only) and keeps (expert ids, keep) in ``routed[tokens]``.  ``del
-    layer.moe_local`` restores the method."""
+    appends (tokens, per-expert counts) of every call to ``records``; with
+    ``routed``, the first layer also routes a prefill's input again (router
+    and dispatch only) and keeps (expert ids, keep) in ``routed[tokens]``.
+    ``del layer.moe_local`` restores the method."""
     def recording(m, first):
         inner = m.moe_local
 
         def moe_local(x, **kw):
             out, counts = inner(x, **kw)
             records.append((x.shape[0], counts))
-            if first and x.shape[0] > SERVE_REQUESTS:      # a prefill
+            if (first and routed is not None
+                    and x.shape[0] > SERVE_REQUESTS):      # a prefill
                 _, top_i = moe.route(x, m.router, m.cfg.experts_per_token)
                 routed[x.shape[0]] = top_i, moe.dispatch(
                     top_i, e_off=kw["e_off"], num_local=kw["num_local"],
@@ -1496,11 +1629,7 @@ def moe_gate(cfg, card: str) -> int:
         1, cfg.vocab_size, MOE_GATE_TOKENS)[None])
     model = Model(cut, device=DEV,
                   generator=torch.Generator(DEV).manual_seed(0))
-    layer = model.layers[0].moe
-    seen = {}
-    hook = layer.register_forward_pre_hook(      # the layer's last input
-        lambda m, args: seen.__setitem__("x", args[0].reshape(-1,
-                                                              cut.d_model)))
+    seen, hook = moe_input(model)
     T, k = MOE_GATE_TOKENS, cut.experts_per_token
     C = moe.capacity_for(T, cut)
     reset_k2_counts()
@@ -1511,9 +1640,7 @@ def moe_gate(cfg, card: str) -> int:
         with torch.inference_mode():
             logits[where] = model.prefill(
                 {"tokens": prompt.to(where)})[0][0].cpu()
-            _, top_i = moe.route(seen["x"], layer.router, k)
-            slots[where] = [t.cpu() for t in (top_i, *moe.dispatch(
-                top_i, e_off=0, num_local=cut.num_experts, capacity=C))]
+        slots[where] = kept_slots(model, seen["x"])
         times[where] = time.perf_counter() - t0
     hook.remove()
     sm90, simt = k2_counts()
@@ -1540,13 +1667,13 @@ def moe_gate(cfg, card: str) -> int:
     check(ok, "(a) the card's float32 prefill disagrees with the CPU's")
     check(same_slots, "(a) the card's MoE keeps other (expert, slot) pairs "
           "than the CPU's")
-    del model, layer, seen
+    del model, seen
     gc.collect()
     torch.cuda.empty_cache()
     return simt
 
 
-def moe_breakdown(phase: str, label: str, result) -> None:
+def moe_breakdown(phase: str, label: str, result, part: str) -> None:
     """Device time of a trace by kind: K2, each MoE stage (its
     ``record_function`` range: the router; dispatch = sort, positions and
     the scatter/gather into the expert buffer; the expert products; the
@@ -1561,11 +1688,71 @@ def moe_breakdown(phase: str, label: str, result) -> None:
     k2 = sum(e.self_device_time_total for e in kern
              if "flash_sm90_kernel" in e.key) / 1e6
     rest = busy - k2 - sum(parts.values())
-    say(phase, f"(c)   {label} by kind: K2 sm90 {k2:.4f} s "
+    say(phase, f"{part}   {label} by kind: K2 sm90 {k2:.4f} s "
         f"({k2 / busy * 100:.1f} %), " + ", ".join(
             f"{n} {t:.4f} s ({t / busy * 100:.1f} %)"
             for n, t in parts.items())
         + f", everything else {rest:.4f} s ({rest / busy * 100:.1f} %)")
+
+
+def serve_moe_buckets(phase: str, part: str, model, buckets, warm,
+                      card: str, routed: dict | None = None) -> dict:
+    """``buckets`` through a ``ServingEngine`` of ``model`` (``warm``
+    first, not counted): each prefill launches K2 once a layer, all on
+    sm90, and every completion holds in-vocabulary tokens; per bucket the
+    time, the peak and the kept and dropped (token, choice) pairs of the
+    prefill and of the decode steps over the MoE layers; with ``routed``,
+    who the first MoE layer drops at prefill, pads or real tokens.
+    Returns the buckets' launches."""
+    cut = model.cfg
+    engine = ServingEngine(model)
+    layers = moe_layers(model)
+    records: list = []
+    record_moe(layers, records, routed)
+    engine.generate(warm)
+    L, n_moe = cut.num_layers, len(layers)
+    reset_launches()
+    for gi, bucket in enumerate(buckets):
+        B = len(bucket)
+        plen = max(len(r.tokens) for r in bucket)
+        records.clear()
+        sm0, f0 = flash_attention.launches_sm90, flash_attention.launches
+        torch.cuda.reset_peak_memory_stats()
+        done = engine.generate(bucket)
+        peak = torch.cuda.max_memory_allocated()
+        df = flash_attention.launches - f0
+        dsm = flash_attention.launches_sm90 - sm0
+        check(df == L and dsm == df, f"{part} bucket {gi}: one prefill "
+              f"launched K2 {df} times ({dsm} sm90), not {L}, all sm90")
+        pre, dec = records[:n_moe], records[n_moe:]
+        check([T for T, _ in pre] == [B * plen] * n_moe
+              and all(T == B for T, _ in dec),
+              f"{part} bucket {gi}: MoE calls of "
+              f"{[T for T, _ in records]} tokens")
+        (pk, pd), (dk, dd) = kept_dropped(cut, pre), kept_dropped(cut, dec)
+        for c in done:
+            check(len(c.tokens) == SERVE_MAX_NEW and bool(
+                ((c.tokens >= 0) & (c.tokens < cut.vocab_size)).all()),
+                f"{part} completion {c.uid}: {c.tokens}")
+        real = sum(len(r.tokens) for r in bucket)
+        pre_s, dec_s = done[0].prefill_s, done[0].decode_s
+        say(phase, f"{part} bucket {gi}: {B} requests, prompts padded to "
+            f"{plen} ({real} real tokens); prefill {pre_s:.4f} s = "
+            f"{B * plen / pre_s:.1f} tok/s ({real / pre_s:.1f} real tok/s);"
+            f" decode {SERVE_MAX_NEW - 1} steps {dec_s:.4f} s = "
+            f"{B * (SERVE_MAX_NEW - 1) / dec_s:.1f} tok/s "
+            f"({dec_s / (SERVE_MAX_NEW - 1) * 1e3:.2f} ms/step); MoE "
+            f"capacity {moe.capacity_for(B * plen, cut)} per expert at "
+            f"prefill: kept {pk}, dropped {pd} choices over {n_moe} MoE "
+            f"layers (decode: kept {dk}, dropped {dd}); peak "
+            f"max_memory_allocated {peak / 2**30:.3f} GiB; K2 +{df} (sm90); "
+            f"first completion {done[0].tokens.tolist()}; {card}")
+        if routed is not None:
+            say(phase, f"{part} bucket {gi}, first MoE layer's prefill: "
+                + pad_drops(cut, bucket, *routed[B * plen]) + f"; {card}")
+    for m in layers:
+        del m.moe_local
+    return launch_counts()
 
 
 def moe_serve(cfg, card: str) -> tuple[int, int, int]:
@@ -1593,54 +1780,9 @@ def moe_serve(cfg, card: str) -> tuple[int, int, int]:
         f"{torch.cuda.memory_allocated() / 1e9:.3f} GB; mem_get_info free "
         f"{free0 / 1e9:.3f} -> {free1 / 1e9:.3f} GB of {total / 1e9:.3f} GB "
         f"(the allocator also keeps the init's float32 draws cached)")
-    engine = ServingEngine(model)
     buckets, warm = serve_traffic("moe", cut)
-    records: list = []
-    routed: dict = {}
-    record_moe(moe_layers(model), records, routed)
-    engine.generate(warm)                              # warm-up, not counted
-    L = cut.num_layers
-    reset_k2_counts()
-    for gi, bucket in enumerate(buckets):
-        B = len(bucket)
-        plen = max(len(r.tokens) for r in bucket)
-        records.clear()
-        sm0, f0 = flash_attention.launches_sm90, flash_attention.launches
-        torch.cuda.reset_peak_memory_stats()
-        done = engine.generate(bucket)
-        peak = torch.cuda.max_memory_allocated()
-        df = flash_attention.launches - f0
-        dsm = flash_attention.launches_sm90 - sm0
-        check(df == L and dsm == df, f"(b) bucket {gi}: one prefill "
-              f"launched K2 {df} times ({dsm} sm90), not {L}, all sm90")
-        pre, dec = records[:L], records[L:]
-        check([T for T, _ in pre] == [B * plen] * L
-              and all(T == B for T, _ in dec),
-              f"(b) bucket {gi}: MoE calls of {[T for T, _ in records]} "
-              f"tokens")
-        (pk, pd), (dk, dd) = kept_dropped(cut, pre), kept_dropped(cut, dec)
-        for c in done:
-            check(len(c.tokens) == SERVE_MAX_NEW and bool(
-                ((c.tokens >= 0) & (c.tokens < cut.vocab_size)).all()),
-                f"(b) completion {c.uid}: {c.tokens}")
-        real = sum(len(r.tokens) for r in bucket)
-        pre_s, dec_s = done[0].prefill_s, done[0].decode_s
-        say("moe", f"(b) bucket {gi}: {B} requests, prompts padded to "
-            f"{plen} ({real} real tokens); prefill {pre_s:.4f} s = "
-            f"{B * plen / pre_s:.1f} tok/s ({real / pre_s:.1f} real tok/s);"
-            f" decode {SERVE_MAX_NEW - 1} steps {dec_s:.4f} s = "
-            f"{B * (SERVE_MAX_NEW - 1) / dec_s:.1f} tok/s "
-            f"({dec_s / (SERVE_MAX_NEW - 1) * 1e3:.2f} ms/step); MoE "
-            f"capacity {moe.capacity_for(B * plen, cut)} per expert at "
-            f"prefill: kept {pk}, dropped {pd} choices over {L} layers "
-            f"(decode: kept {dk}, dropped {dd}); peak max_memory_allocated "
-            f"{peak / 2**30:.3f} GiB; K2 +{df} (sm90); first completion "
-            f"{done[0].tokens.tolist()}; {card}")
-        say("moe", f"(b) bucket {gi}, first MoE layer's prefill: "
-            + pad_drops(cut, bucket, *routed[B * plen]) + f"; {card}")
-    for m in moe_layers(model):
-        del m.moe_local
-    launches = flash_attention.launches_sm90
+    launches = serve_moe_buckets("moe", "(b)", model, buckets, warm, card,
+                                 routed={})["flash_attention/sm90"]
     big = max(buckets, key=len)
     profile_serve("moe", model, big, moe_breakdown)
 
@@ -1657,7 +1799,7 @@ def moe_serve(cfg, card: str) -> tuple[int, int, int]:
     say("moe", f"(e) the MoE layer twice at {B} x {S} x {cut.d_model} "
         f"{x.dtype} on the card: outputs and counts bit-equal={same_out}")
     check(same_out, "(e) two runs of the MoE layer differ")
-    del model, engine, layer, a, b, x, records, routed
+    del model, layer, a, b, x
     gc.collect()
     torch.cuda.empty_cache()
     return launches, B, S
@@ -2095,7 +2237,8 @@ def built(build, tensors) -> tuple:
 
 
 def dryrun_hold(label: str, cfg, shape, step, reading: dict,
-                measured_s: float, measured_what: str) -> None:
+                measured_s: float, measured_what: str,
+                rec: dict | None = None) -> None:
     """(a) ``launch.dryrun``'s prediction of ``cfg``'s step at ``shape``
     at world size 1, traced on fake ``cuda`` tensors, then ``step()``, the
     same step on the calling phase's model, under the same accounting
@@ -2108,11 +2251,12 @@ def dryrun_hold(label: str, cfg, shape, step, reading: dict,
     predicted peak is held against ``max_memory_allocated`` over the step,
     net of what the process holds besides the state (cuBLAS workspaces,
     earlier phases' tensors).  The roofline at the H100's data-sheet peaks
-    is printed beside ``measured_s``; no gate."""
-    t0 = time.perf_counter()
-    rec = dryrun.run_cell(cfg.name, shape.name, None, False, shape=shape,
-                          device=DEV, cfg=cfg)
-    trace_s = time.perf_counter() - t0
+    is printed beside ``measured_s``; no gate.  ``rec``: the prediction,
+    when the caller has traced it already."""
+    if rec is None:
+        rec = dryrun.run_cell(cfg.name, shape.name, None, False, shape=shape,
+                              device=DEV, cfg=cfg)
+    trace_s = rec["trace_s"]
     check(rec.get("status") == "ok", f"(a) {label}: the dry run gave {rec}")
     gc.collect()
     torch.cuda.synchronize()
@@ -2246,6 +2390,543 @@ def dryrun_phase(card: str) -> None:
             check(same, f"(b) {name} {tag}: the accounting depends on the "
                   f"device")
     say("dryrun", f"done in {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: MoE training on the card, remat "dots", llama4 served
+# ---------------------------------------------------------------------------
+
+
+def host_available() -> int:
+    """The host's available memory in bytes (``MemAvailable``)."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    return 0
+
+
+def moe_train_gate(cfg, card: str) -> dict:
+    """(a) float32, full width cut to 1 layer, phase 8 (a)'s 512-token
+    prompt (labels: the next token): the loss and every parameter gradient
+    on the card (K2 and K2-bwd ``simt``) against the same weights moved to
+    the host (the plain versions), at phase 7 (b)'s gates, and every
+    (token, choice)'s kept (expert, slot) identical.  Returns the launches
+    of the card's step, counted from 0."""
+    cut = dataclasses.replace(cfg, num_layers=1, dtype="float32",
+                              remat="none")
+    T = MOE_GATE_TOKENS
+    prompt = np.random.default_rng(1).integers(1, cfg.vocab_size, T)
+    batch = {"tokens": prompt[None], "labels": np.append(prompt[1:], -1)[None]}
+    need = 2 * 4 * cut.param_count()          # float32 weights and grads
+    avail = host_available()
+    say("moe-train", f"(a) host MemAvailable {avail / 1e9:.1f} GB; the "
+        f"host's float32 weights and gradients need {need / 1e9:.1f} GB")
+    check(avail > 1.2 * need, f"(a) the host has {avail / 1e9:.1f} GB "
+          f"available, the gate needs {need / 1e9:.1f} GB and more")
+    t0 = time.perf_counter()
+    card_m = Model(cut, device=DEV,
+                   generator=torch.Generator(DEV).manual_seed(0))
+    host_m = Model(cut, device="meta")
+    host_m.load_state_dict({k: v.cpu() for k, v in
+                            card_m.state_dict().items()}, assign=True)
+    losses, slots = {}, {}
+    reset_launches()
+    for where, model in (("card", card_m), ("host", host_m)):
+        model.requires_grad_(True)
+        seen, hook = moe_input(model)
+        loss = model.loss({k: torch.as_tensor(v).to(model.device)
+                           for k, v in batch.items()})
+        loss.backward()
+        hook.remove()
+        losses[where] = float(loss.detach())
+        slots[where] = kept_slots(model, seen["x"])
+        if where == "card":
+            torch.cuda.synchronize()
+            launches = launch_counts()
+    check(launches == {"flash_attention/sm90": 0, "flash_attention/simt": 1,
+                       "flash_attention_bwd/sm90": 0,
+                       "flash_attention_bwd/simt": 1, "ssd_chunk": 0,
+                       "ssd_chunk_bwd": 0},
+          f"(a) the card's float32 step launched {launches}")
+    rel = {}
+    for (name, pc), (_, ph) in zip(card_m.named_parameters(),
+                                   host_m.named_parameters()):
+        diff = pc.grad.cpu() - ph.grad
+        rel[name] = float(diff.norm() / ph.grad.norm().clamp(min=1e-30))
+        del diff
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(losses["card"] - losses["host"]) / abs(losses["host"])
+    same = all(torch.equal(a, b)
+               for a, b in zip(slots["card"], slots["host"]))
+    kept = int(slots["host"][2].sum())
+    k = cut.experts_per_token
+    say("moe-train", f"(a) float32 gate, {cut.name} cut to 1 layer, 1 x {T} "
+        f"tokens (seed 1), capacity {moe.capacity_for(T, cut)} per expert: "
+        f"loss card {losses['card']:.6f} vs cpu {losses['host']:.6f} (rel "
+        f"{loss_rel:.2e} <= {GATE_LOSS_RTOL}); {len(rel)} gradient leaves, "
+        f"worst ||g_card - g_cpu|| / ||g_cpu|| = {rel[worst]:.3e} ({worst}) "
+        f"<= {GATE_LEAF_RTOL}; router {rel['layers.0.moe.router']:.3e}, "
+        f"experts {max(rel['layers.0.moe.' + n] for n in moe.MoE.expert_leaves):.3e}; "
+        f"(token, choice) -> (expert, slot) identical={same}, kept {kept}, "
+        f"dropped {T * k - kept} of {T * k}; {time.perf_counter() - t0:.1f} "
+        f"s; {card}")
+    check(math.isfinite(losses["card"]) and loss_rel <= GATE_LOSS_RTOL,
+          "(a) the card's loss disagrees with the host's")
+    check(rel[worst] <= GATE_LEAF_RTOL, f"(a) gradient of {worst} "
+          f"disagrees: {rel[worst]}")
+    check(same, "(a) the card's MoE keeps other (expert, slot) pairs than "
+          "the host's")
+    del card_m, host_m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def node_time(prof, nodes) -> dict:
+    """Device seconds of the kernels that each autograd node of ``nodes``
+    (by the name of its ``evaluate_function`` event) launched itself:
+    each host op's own kernels go to the innermost such node above it,
+    and to none when a ``record_function`` range (``RANGES``: a layer's
+    recompute run from inside the node) comes first."""
+    from torch.autograd import DeviceType
+
+    prefix = "autograd::engine::evaluate_function: "
+    out = {n: 0.0 for n in nodes}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or not e.self_device_time_total:
+            continue
+        a = e
+        while a is not None and a.name not in RANGES and \
+                a.name.removeprefix(prefix) not in out:
+            a = a.cpu_parent
+        if a is not None and a.name not in RANGES:
+            out[a.name.removeprefix(prefix)] += e.self_device_time_total / 1e6
+    return out
+
+
+def train_breakdown(phase: str, part: str, job, state, batch) -> None:
+    """One training step under ``torch.profiler``: device time by kind.
+    Ranges by their device-side spans (the trace's rows of
+    ``record_function`` ranges): the MoE's router, dispatch, expert
+    products and combine in the forward and remat's recompute (``moe.*``)
+    and the optimizer (``train_step.optimizer``).  Backward nodes by the
+    kernels they launched (``node_time``; the recompute they run is under
+    ``transformer.layer`` ranges and left out): the expert products'
+    (``BmmBackward0``), the gathers' (``IndexBackward0``: the combine's,
+    the dispatch's, the embedding's) and the combine's sum
+    (``AddcmulBackward0``).  Kernels by name: K2, K2-bwd and the float32
+    GEMMs (the loss head's products)."""
+    result = traced(phase, "one training step", lambda: job.step_fn(
+        state, batch), 1, part)
+    check(result is not None, f"{part} the step's trace holds no device time")
+    prof, kern, busy = result
+    from torch.autograd import DeviceType
+    span = {r: 0.0 for r in RANGES}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.key in span:
+            span[e.key] += e.self_device_time_total / 1e6
+    nodes = node_time(prof, ("BmmBackward0", "IndexBackward0",
+                             "AddcmulBackward0"))
+    rest = (busy - sum(span[n] for n in MOE_RANGES)
+            - span["train_step.optimizer"] - sum(nodes.values()))
+    kernels = {"K2 sm90": ("flash_sm90_kernel",),
+               "K2-bwd sm90": ("flash_bwd_sm90_",),
+               "float32 GEMMs (the loss head)": ("f32f32", "sgemm")}
+    by_key = {label: sum(e.self_device_time_total for e in kern
+                         if any(k in e.key for k in keys)) / 1e6
+              for label, keys in kernels.items()}
+    parts = {**{f"{n} forward+recompute": span[n] for n in MOE_RANGES},
+             "expert bmms backward": nodes["BmmBackward0"],
+             "gathers' backward (combine, dispatch, embedding)":
+                 nodes["IndexBackward0"],
+             "combine's sum backward": nodes["AddcmulBackward0"],
+             "optimizer": span["train_step.optimizer"],
+             "everything else (attention, projections and norms forward, "
+             "recompute and backward; the loss head; the embedding)": rest}
+    say(phase, f"{part}   device time by kind: " + ", ".join(
+        f"{n} {t:.4f} s ({t / busy * 100:.1f} %)" for n, t in parts.items())
+        + "; by kernel: " + ", ".join(
+            f"{n} {t:.4f} s ({t / busy * 100:.1f} %)"
+            for n, t in by_key.items()))
+
+
+def plain_k2_bwd(q, k, v, o, do, lse, *, causal: bool = True,
+                 window: int = 0, scale: float | None = None):
+    """K2-bwd's plain version in its place, one sequence at a time, P and
+    dS rounded to bf16 where the ``sm90`` kernel rounds them."""
+    parts = [flash_attention_bwd_ref(
+        *(x[i:i + 1] for x in (q, k, v, o, do, lse)), causal=causal,
+        window=window, scale=scale, round_to=torch.bfloat16)
+        for i in range(q.shape[0])]
+    return tuple(torch.cat(g) for g in zip(*parts))
+
+
+def leaf_rel(host: torch.Tensor, card: torch.Tensor) -> float:
+    """||card - host|| / ||host|| of one gradient leaf (``host`` on the
+    host), summed in float32 blocks of ``GRAD_BLOCK`` elements."""
+    h, c = host.reshape(-1), card.reshape(-1)
+    num = den = 0.0
+    for i in range(0, h.numel(), GRAD_BLOCK):
+        w = h[i:i + GRAD_BLOCK].to(DEV).float()
+        num += float((c[i:i + GRAD_BLOCK].float() - w).square().sum())
+        den += float(w.square().sum())
+    return math.sqrt(num / den) if den else math.sqrt(num)
+
+
+def grads_held(job, batch) -> dict:
+    """``job``'s loss and gradients from its state on ``batch`` three times
+    (no optimizer step between): twice through K2-bwd, bit-equal; then
+    with K2-bwd's plain version in its place (``plain_k2_bwd``): the
+    forward, so the routing, is the same, and each gradient leaf may
+    differ only by what K2-bwd's band lets through the rest of the
+    backward, held at relative norm ``K2B_NORM``.  The first run's
+    gradients wait on the host.  Returns the loss, whether the reruns were
+    bit-equal, and each leaf's relative norm against the plain backward."""
+    model = job.model
+    batch = batch_on_card(batch)
+    k2_module = importlib.import_module("repro_torch.kernels.flash_attention")
+    kernel_bwd = k2_module.flash_attention_bwd
+    out: dict = {}
+    for run, bwd in enumerate((kernel_bwd, kernel_bwd, plain_k2_bwd)):
+        for p in model.parameters():
+            p.grad = None
+        k2_module.flash_attention_bwd = bwd
+        try:
+            loss = model.loss(batch)
+            loss.backward()
+        finally:
+            k2_module.flash_attention_bwd = kernel_bwd
+        loss = loss.detach()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        if run == 0:
+            out["loss"], host = loss, {n: g.cpu() for n, g in grads.items()}
+        elif run == 1:
+            out["twice"] = torch.equal(loss, out["loss"]) and all(
+                torch.equal(host[n], g.cpu()) for n, g in grads.items())
+        else:
+            out["plain_loss_equal"] = torch.equal(loss, out["loss"])
+            out["rel"] = {n: leaf_rel(host[n], g) for n, g in grads.items()}
+        del grads
+    for p in model.parameters():
+        p.grad = None
+    out["loss"] = float(out["loss"])
+    return out
+
+
+def moe_train_path(gen, cfg, card: str) -> tuple[dict, float, int]:
+    """(b) bf16 at full width cut to ``MOE_TRAIN_LAYERS`` layers, remat
+    "full", AdamW with bf16 states, through ``launch.train``'s objects:
+    the dry run's peak first (batch ``MOE_TRAIN_BATCH``, else 1); K2's
+    ``lse``, K2-bwd and the two chained through autograd at the step's
+    attention shape against their plain versions; then
+    ``MOE_TRAIN_STEPS`` steps with launches and kept/dropped pairs counted,
+    one step traced by kind, the dry run held against a step, and the
+    loss and gradients taken twice from one state, bit-equal, and once
+    with K2-bwd's plain version (``grads_held``).  Returns the steps'
+    launches, the first step's loss and the batch size."""
+    cut = dataclasses.replace(cfg, num_layers=MOE_TRAIN_LAYERS)
+    batch_n = MOE_TRAIN_BATCH
+    shape = ShapeSpec("train", "train", TRAIN_SEQ, batch_n)
+    rec = dryrun.run_cell(cut.name, "train", None, False, shape=shape,
+                          device=DEV, cfg=cut)
+    check(rec.get("status") == "ok", f"(b) the dry run gave {rec}")
+    peak = rec["memory"]["peak_bytes"]
+    say("moe-train", f"(b) dry run of {cut.name} cut to {cut.num_layers} "
+        f"layers, batch {batch_n} x {TRAIN_SEQ}: arguments "
+        f"{rec['memory']['argument_bytes'] / 2**30:.3f} GiB, peak "
+        f"{peak / 2**30:.3f} GiB (limit {MOE_TRAIN_PEAK / 2**30:.0f} GiB), "
+        f"{rec['flops_per_device']:.4e} FLOP; traced in {rec['trace_s']} s")
+    if peak > MOE_TRAIN_PEAK:
+        batch_n = 1
+        shape = ShapeSpec("train", "train", TRAIN_SEQ, batch_n)
+        rec = dryrun.run_cell(cut.name, "train", None, False, shape=shape,
+                              device=DEV, cfg=cut)
+        say("moe-train", f"(b) over the limit: batch 1 x {TRAIN_SEQ}, peak "
+            f"predicted {rec['memory']['peak_bytes'] / 2**30:.3f} GiB")
+    # K2 (with lse) and K2-bwd at this step's attention shape (Dk = Dv =
+    # 128: K2-bwd's DKB = DVB = 2 instantiation), before the model is built
+    flash_bwd_row(f"{cut.name}-train-path", gen, batch_n, TRAIN_SEQ,
+                  cut.num_heads, cut.num_kv_heads, cut.head_dim,
+                  cut.head_dim, cut.window, torch.bfloat16, twice=True,
+                  phase="moe-train", part="(b)")
+    k2_lse(gen, cut, batch_n, "moe-train", "(b)")
+    flash_autograd_row(gen, cut, cut.window, batch_n, "moe-train", "(b)")
+    torch.cuda.empty_cache()
+    args = train_cli.parse_args([
+        "--arch", cfg.name, "--batch", str(batch_n), "--seq",
+        str(TRAIN_SEQ), "--steps", str(MOE_TRAIN_STEPS), "--device", DEV])
+    t0 = time.perf_counter()
+    job, reading = built(lambda: train_cli.build(args, cut),
+                         lambda job: tree_flatten(job.state)[0])
+    n_params = sum(p.numel() for p in job.model.parameters())
+    say("moe-train", f"(b) {cut.name} bf16 cut to {cut.num_layers} of "
+        f"{cfg.num_layers} layers, remat {cut.remat}, AdamW (state "
+        f"{job.opt.state_dtype}): {n_params / 1e9:.4f} B params (seed "
+        f"{args.seed}), batch {batch_n} x {TRAIN_SEQ} tokens of SyntheticLM; "
+        f"built in {time.perf_counter() - t0:.1f} s; memory_allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB; {card}")
+    records: list = []
+    record_moe(moe_layers(job.model), records)
+    reset_launches()
+    state, data, losses, times, peak = take_steps(
+        "moe-train", "(b)", job, MOE_TRAIN_STEPS, step_launches(cut), records)
+    launches = launch_counts()
+    for m in moe_layers(job.model):
+        del m.moe_local
+    step_s = float(np.mean(times))
+    tokens = batch_n * TRAIN_SEQ
+    dense, attn = model_flop(cut, n_params, batch_n, TRAIN_SEQ,
+                             job.model.windows)
+    flops = dense + attn
+    say("moe-train", f"(b) steps 2-{MOE_TRAIN_STEPS}: {step_s * 1e3:.2f} "
+        f"ms/step ({', '.join(f'{t * 1e3:.2f}' for t in times)}), "
+        f"{tokens / step_s:.1f} training tokens/s, model "
+        f"{flops / step_s / 1e12:.2f} TFLOP/s (6*N_active*T {dense:.4e}, "
+        f"top-{cut.experts_per_token} of {cut.num_experts} experts, + "
+        f"attention {attn:.4e}; {flops / step_s / PEAK['bfloat16'][0] * 100:.1f}"
+        f" % of the 989 TFLOP/s bf16 peak); peak max_memory_allocated "
+        f"{peak / 2**30:.3f} GiB; launches {launches}; {card}")
+    train_breakdown("moe-train", "(b)", job, state, next(data))
+    batch = next(data)
+    dryrun_hold(f"{cut.name} at {cut.num_layers} layers, training step",
+                cut, shape, lambda: job.step_fn(state, batch), reading,
+                step_s, "step time", rec=rec)
+    held = grads_held(job, next(data))
+    rel = held["rel"]
+    worst = max(rel, key=rel.get)
+    exact = sum(r == 0.0 for r in rel.values())
+    say("moe-train", f"(b) loss and {n_params / 1e9:.4f} B gradients taken "
+        f"twice from one state on one batch: bit-equal={held['twice']} "
+        f"(loss {held['loss']:.6f}; the MoE's backward: PyTorch's gathers' "
+        f"index_put_ with accumulate, as it stands); with K2-bwd's plain "
+        f"version (P, dS rounded to bf16) in its place: loss bit-equal="
+        f"{held['plain_loss_equal']}, {len(rel)} gradient leaves, {exact} "
+        f"bit-equal, worst ||g_K2-bwd - g_plain|| / ||g_plain|| = "
+        f"{rel[worst]:.3e} ({worst}) <= {K2B_NORM}; {card}")
+    check(held["twice"], "(b) two runs of the step's loss and gradients "
+          "differ")
+    check(held["plain_loss_equal"], "(b) the step's loss changed with the "
+          "backward")
+    check(rel[worst] <= K2B_NORM, f"(b) the step's gradient of {worst} "
+          f"through K2-bwd disagrees with the plain backward's: {rel[worst]}")
+    del job, state, records
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, losses[0], batch_n
+
+
+def dots_hymba(card: str) -> dict:
+    """(c) phase 7 (c)'s hymba-1.5B step (bf16, full depth, batch
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ``) under remat "dots": launches, ms/step,
+    peak, one step traced (device busy and idle against phase 7 (c)'s
+    traced "full" step), step 1's loss against phase 7 (c)'s under "full"
+    from the same weights and batch, and the dry run's prediction of the
+    step held as phase 10 (a) holds it.  Returns the steps' launches."""
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), remat="dots")
+    args = train_cli.parse_args([
+        "--arch", cfg.name, "--batch", str(TRAIN_BATCH), "--seq",
+        str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS), "--device", DEV])
+    job, reading = built(lambda: train_cli.build(args, cfg),
+                         lambda job: tree_flatten(job.state)[0])
+    reset_launches()
+    state, data, losses, times, peak = take_steps(
+        "moe-train", "(c)", job, TRAIN_STEPS, step_launches(cfg))
+    launches = launch_counts()
+    step_s = float(np.mean(times))
+    full = MEASURED.get("train_loss", float("nan"))
+    busy, wall = profile_step(job, state, next(data), "moe-train", "(c)")
+    f_busy, f_wall = MEASURED.get("step_trace", (float("nan"),) * 2)
+    say("moe-train", f"(c) traced step, dots against phase 7 (c)'s full: "
+        f"device busy {busy:.4f} s vs {f_busy:.4f} s, wall {wall:.4f} s vs "
+        f"{f_wall:.4f} s, idle {(1 - busy / wall) * 100:.1f} % vs "
+        f"{(1 - f_busy / f_wall) * 100:.1f} %; {card}")
+    say("moe-train", f"(c) {cfg.name} bf16, remat dots, batch {TRAIN_BATCH} "
+        f"x {TRAIN_SEQ}: steps 2-{TRAIN_STEPS} {step_s * 1e3:.2f} ms/step "
+        f"({', '.join(f'{t * 1e3:.2f}' for t in times)}; phase 7 (c) under "
+        f"full: {', '.join(f'{t:.2f}' for t in MEASURED.get('step_ms', []))}"
+        f"); peak max_memory_allocated {peak / 2**30:.3f} GiB; launches "
+        f"{launches}; step 1 loss {losses[0]!r} vs full's {full!r}: "
+        f"bit-equal={losses[0] == full}; {card}")
+    check(abs(losses[0] - full) <= DOTS_LOSS_RTOL * abs(full),
+          f"(c) step 1's loss under dots {losses[0]} is not full's {full}")
+    batch = next(data)
+    dryrun_hold("hymba-1.5B training step, remat dots", cfg,
+                ShapeSpec("train", "train", TRAIN_SEQ, TRAIN_BATCH),
+                lambda: job.step_fn(state, batch), reading, step_s,
+                "step time")
+    del job, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dots_dbrx(cfg, loss_full: float, batch_n: int, card: str) -> dict:
+    """(c) one step of (b)'s dbrx-132B cut under remat "dots" from the same
+    seed and batch (``batch_n`` x ``TRAIN_SEQ``): launches, peak, and its
+    loss against (b)'s first.  Returns the step's launches."""
+    cut = dataclasses.replace(cfg, num_layers=MOE_TRAIN_LAYERS, remat="dots")
+    args = train_cli.parse_args([
+        "--arch", cfg.name, "--batch", str(batch_n), "--seq",
+        str(TRAIN_SEQ), "--steps", "1", "--device", DEV])
+    job = train_cli.build(args, cut)
+    reset_launches()
+    _, _, losses, _, peak = take_steps("moe-train", "(c)", job, 1,
+                                       step_launches(cut))
+    launches = launch_counts()
+    say("moe-train", f"(c) {cut.name} cut to {cut.num_layers} layers under "
+        f"remat dots, batch {batch_n} x {TRAIN_SEQ}: one step, peak "
+        f"max_memory_allocated {peak / 2**30:.3f} GiB; loss {losses[0]!r} "
+        f"vs (b)'s full {loss_full!r}: bit-equal={losses[0] == loss_full}; "
+        f"{card}")
+    check(abs(losses[0] - loss_full) <= DOTS_LOSS_RTOL * abs(loss_full),
+          f"(c) the dbrx step's loss under dots {losses[0]} is not full's "
+          f"{loss_full}")
+    del job
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def llama4_prefill(model, tokens) -> tuple:
+    """The prefill of ``tokens``: (last-token logits on the host, the first
+    MoE layer's router logits (tokens, experts) in float32 on the host, its
+    (expert ids, slot, keep))."""
+    seen, hook = moe_input(model)
+    try:
+        with torch.inference_mode():
+            logits = model.prefill({"tokens": tokens})[0].float().cpu()
+            router = (seen["x"].float() @ moe_layers(model)[0].router).cpu()
+    finally:
+        hook.remove()
+    return logits, router, kept_slots(model, seen["x"])
+
+
+def sdpa_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                   scale: float | None = None) -> torch.Tensor:
+    """``flash_attention``'s function through one
+    ``scaled_dot_product_attention`` call in q's dtype, KV heads repeated
+    to the query heads: the library's bf16 attention, the yardstick of
+    (d)'s routing."""
+    G = q.shape[2] // k.shape[2]
+    qt, kt, vt = (x.transpose(1, 2) for x in (
+        q, k.repeat_interleave(G, 2), v.repeat_interleave(G, 2)))
+    kw: dict = {"scale": scale}
+    if window > 0:
+        pos = torch.arange(q.shape[1], device=q.device)
+        kw["attn_mask"] = ((pos[:, None] >= pos[None, :])
+                           & (pos[None, :] > pos[:, None] - window))
+    else:
+        kw["is_causal"] = causal
+    return torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, **kw).transpose(1, 2).contiguous()
+
+
+def llama4_serve(card: str) -> dict:
+    """(d) llama4-maverick-400B-A17B bf16 at full width cut to
+    ``LLAMA4_LAYERS`` layers (one dense, one MoE): phase 6 (b)'s traffic
+    through ``PoasDispatcher`` and ``ServingEngine`` with K2 (all
+    ``sm90``) and kept/dropped pairs counted per prefill, the larger bucket
+    traced, then its prefill with K2, with K2's plain version and with
+    sdpa on the card: logits and the MoE layer's router logits within the
+    bf16 gate; the kept pairs only through that band, so the tokens K2
+    routes to another expert than the plain version are counted and held
+    to ``LLAMA4_MOVED_FACTOR`` times sdpa's; and with K2 again, bit-equal.
+    Returns the launches of the served traffic."""
+    cfg = get_config(LLAMA4_ARCH)
+    cut = dataclasses.replace(cfg, num_layers=LLAMA4_LAYERS)
+    t0 = time.perf_counter()
+    model = Model(cut, device=DEV,
+                  generator=torch.Generator(DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    say("moe-train", f"(d) {cut.name} bf16 cut to {LLAMA4_LAYERS} of "
+        f"{cfg.num_layers} layers ({cut.num_experts} experts top-"
+        f"{cut.experts_per_token}, shared expert of {cut.shared_expert_ff}, "
+        f"dense and MoE layers alternating, vocab {cut.vocab_size}): "
+        f"{n_params / 1e9:.4f} B params, {wbytes / 1e9:.3f} GB of weights "
+        f"(seed 0), built in {time.perf_counter() - t0:.1f} s; {card}")
+    buckets, warm = serve_traffic("moe-train", cut)
+    launches = serve_moe_buckets("moe-train", "(d)", model, buckets, warm,
+                                 card)
+    big = max(buckets, key=len)
+    profile_serve("moe-train", model, big, moe_breakdown, "(d)")
+    tokens = bucket_tokens(big)
+    (a, ra, sa), (b, rb, sb) = (llama4_prefill(model, tokens)
+                                for _ in range(2))
+    kernel_attention = model_layers.flash_attention
+    swapped = {}
+    for name, fn in (("plain", flash_attention_ref), ("sdpa", sdpa_attention)):
+        model_layers.flash_attention = fn
+        try:
+            swapped[name] = llama4_prefill(model, tokens)
+        finally:
+            model_layers.flash_attention = kernel_attention
+    (p, rp, sp), (_, _, sl) = swapped["plain"], swapped["sdpa"]
+    twice = (torch.equal(a, b) and torch.equal(ra, rb)
+             and all(torch.equal(x, y) for x, y in zip(sa, sb)))
+    err, scale = float((a - p).abs().max()), float(p.abs().max())
+    ok = torch.allclose(a, p, rtol=LLAMA4_TOL, atol=LLAMA4_TOL * scale)
+    r_err, r_scale = float((ra - rp).abs().max()), float(rp.abs().max())
+    r_ok = torch.allclose(ra, rp, rtol=LLAMA4_TOL,
+                          atol=LLAMA4_TOL * r_scale)
+    # The expert ids come from these router logits, so a token moves only
+    # where its top-1 margin is below their difference: the band above is
+    # all that holds the kept pairs.  How many move is held against the
+    # library's bf16 attention.
+    moved = (sa[0] != sp[0]).any(-1)
+    lib_moved = int((sl[0] != sp[0]).any(-1).sum())
+    top2 = rp.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    same = all(torch.equal(x, y) for x, y in zip(sa, sp))
+    say("moe-train", f"(d) prefill of {tuple(tokens.shape)} with K2 against "
+        f"K2's plain version (flash_attention_ref) on the card: last-token "
+        f"logits max_abs_err={err:.3e} of max |logit| {scale:.3e}, "
+        f"allclose(rtol={LLAMA4_TOL}, atol={LLAMA4_TOL} x max)={ok}; the "
+        f"MoE layer's router logits max_abs_err={r_err:.3e} of "
+        f"{r_scale:.3e}, allclose={r_ok}; kept (token, choice) -> (expert, "
+        f"slot) identical={same}: {int(moved.sum())} of {moved.numel()} "
+        f"tokens routed to another expert (top-1 margin of those "
+        f"<= {float(margin[moved].max()) if moved.any() else 0.0:.3e}, "
+        f"median margin of all {float(margin.median()):.3e}), kept "
+        f"{int(sa[2].sum())} vs {int(sp[2].sum())}; through sdpa (bf16) "
+        f"{lib_moved} tokens moved (bound: K2's <= {LLAMA4_MOVED_FACTOR} x "
+        f"sdpa's); with K2 twice: logits, "
+        f"router logits and kept pairs bit-equal={twice}; {card}")
+    check(bool(torch.isfinite(a).all()), "(d) the prefill's logits are not "
+          "finite")
+    check(ok, "(d) the prefill through K2 disagrees with its plain version")
+    check(r_ok, "(d) the MoE layer's router logits through K2 disagree "
+          "with its plain version's")
+    check(int(moved.sum()) <= LLAMA4_MOVED_FACTOR * lib_moved,
+          f"(d) K2 routes {int(moved.sum())} tokens to another expert than "
+          f"its plain version, sdpa {lib_moved}")
+    check(twice, "(d) two prefills through K2 differ")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_train_phase(gen, card: str) -> dict:
+    """Phase 11: (a) dbrx-132B's float32 gradient gate, (b) its bf16
+    training path at 2 layers, (c) remat "dots" on hymba-1.5B and on (b)'s
+    cut, (d) llama4-maverick served at 2 layers.  Returns each kernel's
+    launches over the phase's main paths."""
+    cfg = get_config(MOE_ARCH)
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = moe_train_gate(cfg, card)
+    b, loss_full, batch_n = moe_train_path(gen, cfg, card)
+    parts = [b, dots_hymba(card), dots_dbrx(cfg, loss_full, batch_n, card),
+             llama4_serve(card)]
+    for part in parts:
+        for name, n in part.items():
+            total[name] += n
+    say("moe-train", f"main path launches {total}; done in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return total
 
 
 def main() -> None:
@@ -2502,6 +3183,12 @@ def main() -> None:
     # ---- 10. dryrun: the dry run and its accounting against the card ------
     dryrun_phase(card)
     say("dryrun", f"total {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 11. moe-train: MoE training, remat "dots", llama4 served ---------
+    for name, n in moe_train_phase(gen, card).items():
+        launches_of = (train_launches if "bwd" in name else serve_launches)
+        launches_of[name] = launches_of.get(name, 0) + n
+    say("moe-train", f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = [{"name": "matmul", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/matmul.cu",

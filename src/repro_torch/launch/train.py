@@ -57,12 +57,17 @@ class Job:
     step_fn: Callable[[dict, dict], tuple[dict, dict]]   # numpy batches
 
 
-def build(args: argparse.Namespace) -> Job:
+def build(args: argparse.Namespace, cfg: ArchConfig | None = None) -> Job:
+    """The objects ``main`` trains with, for ``args``; ``cfg`` (a cut of a
+    configuration, another remat) in place of the one ``--arch`` and
+    ``--tiny`` name."""
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda asked for, but "
                            "torch.cuda.is_available() is False; pass "
                            "--device cpu to run on the host")
-    cfg = get_tiny_config(args.arch) if args.tiny else get_config(args.arch)
+    if cfg is None:
+        cfg = (get_tiny_config(args.arch) if args.tiny
+               else get_config(args.arch))
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     model = Model(cfg, device=args.device, generator=gen)
     opt = AdamW(learning_rate=cosine_schedule(args.lr, warmup=20,

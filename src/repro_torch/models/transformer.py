@@ -15,11 +15,20 @@ Training (``loss``, ``hidden_states``) runs the same blocks with autograd:
 K2 and K3 then run as ``torch.autograd.Function``s whose backward is a
 kernel too (``kernels.flash_attention_bwd``, ``kernels.ssd_chunk_bwd``).
 ``cfg.remat`` picks what a layer keeps for the backward, as the reference's
-``jax.checkpoint`` around its layer scan: ``"full"`` keeps only each
-layer's input and recomputes the layer in the backward
-(``torch.utils.checkpoint``, non-reentrant), ``"none"`` keeps everything.
-``"dots"`` (keep matmul outputs; no shipped config sets it) is not ported
-and raises.
+``jax.checkpoint`` around its layer scan: ``"none"`` keeps everything;
+``"full"`` keeps only each layer's input and recomputes the layer in the
+backward (``torch.utils.checkpoint``, non-reentrant); ``"dots"`` is the
+reference's ``dots_with_no_batch_dims_saveable`` policy, a selective
+checkpoint (``create_selective_checkpoint_contexts``) that keeps the
+outputs of the products with no batch dimension, the projections
+(``aten.mm`` on the folded tokens: attention's and the SSM's in and out
+projections, the MLP's, the MoE router's), and recomputes everything else:
+K2 and K3 as whole operators, the MoE's expert ``bmm``s (the reference's
+``ecd,edf->ecf`` has the batch dimension ``e``), norms, rope, gathers and
+collectives.  A layer's last product, whose output only feeds the
+residual sum (``Block.out_weight``), is not kept: no backward op reads it
+(the recompute stops before it), and the reference keeps no residual for
+it.
 """
 from __future__ import annotations
 
@@ -30,7 +39,9 @@ from typing import Any
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.profiler import record_function
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..distributed.context import (batch_axes, constrain_batch,
                                    constrain_tokens, current_mesh, use_mesh)
@@ -43,6 +54,9 @@ from .ssm import SSM, init_ssm_cache
 
 _SEQ_KEYS = ("k", "v", "ckv", "krope")
 F32 = torch.float32
+REMATS = ("none", "full", "dots")
+# the products remat "dots" keeps: a projection of (tokens, d) by a weight
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
 class Block(nn.Module):
@@ -84,6 +98,22 @@ class Block(nn.Module):
         elif self.cfg.d_ff:
             x = x + self.mlp(self.ln2(x, self.cfg.norm_eps))
         return x
+
+    def out_weight(self) -> torch.Tensor | None:
+        """The weight of the product whose output this layer adds straight
+        into the residual stream, where no later op of the layer reads it
+        (the MLP's or the shared expert's ``wo``, or a lone mixer's output
+        projection); None where the layer ends otherwise (the MoE's
+        combine, the hybrid's normed mix).  Read at call time: under a mesh
+        it is the gathered value."""
+        cfg = self.cfg
+        if cfg.uses_moe:
+            return self.moe.shared.wo if cfg.shared_expert_ff else None
+        if cfg.d_ff:
+            return self.mlp.wo
+        if cfg.family == "hybrid":
+            return None
+        return self.ssm.w_out if cfg.uses_ssm else self.attn.wo
 
     def _gathered(self):
         """This layer's ``DTensor`` parameters at their full values for a
@@ -131,10 +161,28 @@ def _block_out(blk: Block, x: torch.Tensor, window: int,
     """``blk``'s output under ``mesh``: remat's recompute runs in the
     backward, on the autograd engine's own thread for CUDA tensors, where
     ``use_mesh``'s context variable is not set, so the mesh of the
-    forward is passed along."""
-    with use_mesh(mesh):
+    forward is passed along.  A ``record_function`` range,
+    ``transformer.layer``, lets a trace tell the layers' forward and
+    recompute from the backward."""
+    with use_mesh(mesh), record_function("transformer.layer"):
         return blk(x, window=window,
                    seq_shard=blk.cfg.seq_shard_activations)[0]
+
+
+def _dots_policy(blk: Block):
+    """remat "dots" for ``blk``: keep the output of every projection but
+    the layer's last (``Block.out_weight``), recompute every other op."""
+    def policy(ctx, op, *args, **kwargs):
+        if op in _DOTS:
+            w, last = args[-1], blk.out_weight()
+            if last is None or (w is not last and w._base is not last):
+                return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    return policy
+
+
+def _dots_contexts(blk: Block):
+    return create_selective_checkpoint_contexts(_dots_policy(blk))
 
 
 def _chunk_xent(hx: torch.Tensor, lx: torch.Tensor, w32: torch.Tensor):
@@ -268,15 +316,16 @@ class Model(nn.Module):
         """The final-normed hidden states (B, S, d) with autograd, each
         layer kept for the backward as ``cfg.remat`` says."""
         remat = self.cfg.remat
-        if remat not in ("none", "full"):
-            raise NotImplementedError(
-                f"{self.cfg.name}: remat={remat!r} is not ported (ROADMAP "
-                f"A7: only 'none' and 'full')")
+        if remat not in REMATS:
+            raise ValueError(f"{self.cfg.name}: remat={remat!r}, not one of "
+                             f"{REMATS}")
         x = self.embed_inputs(batch)
         for blk, w in zip(self.layers, self.windows):
-            if remat == "full" and torch.is_grad_enabled():
+            if remat != "none" and torch.is_grad_enabled():
+                kw = ({"context_fn": functools.partial(_dots_contexts, blk)}
+                      if remat == "dots" else {})
                 x = checkpoint(_block_out, blk, x, w, current_mesh(),
-                               use_reentrant=False)
+                               use_reentrant=False, **kw)
             else:
                 x = _block_out(blk, x, w, current_mesh())
         return rmsnorm(self.final_norm.scale, x, self.cfg.norm_eps)

@@ -12,7 +12,11 @@ hold.  Unlike the reference, ``update`` works in place: it writes the new
 parameters into the tensors it was given (so a module's parameters move with
 them) and the new moments into the state's tensors, and returns those same
 objects.  Arithmetic is float32 throughout; states are stored in
-``state_dtype``.
+``state_dtype``.  AdamW updates a plain leaf of more than ``BLOCK``
+elements a block of rows at a time: the update is elementwise, so the
+result is the same to the bit, and its float32 temporaries stay a block's
+size (a dbrx-132B expert leaf is 1.06e9 elements, 4.2 GB in float32 for
+each temporary).
 
 The reference stacks each layer's leaves over the layers, so a per-layer
 norm scale (d,) of the port is a row of an (L, d) leaf there.  Both
@@ -34,6 +38,7 @@ from torch.distributed.tensor import DTensor, Replicate
 from ..models.convert import reference_leaf
 
 F32 = torch.float32
+BLOCK = 1 << 26       # elements of AdamW's update of a plain leaf at a time
 
 
 # ---------------------------------------------------------------------------
@@ -98,6 +103,18 @@ def _broadcast_to(x: torch.Tensor, like: torch.Tensor,
     return x.redistribute(x.device_mesh, want)
 
 
+def _row_blocks(*leaves: torch.Tensor) -> list[tuple]:
+    """``leaves`` (of one shape) in blocks of whole rows of at most
+    ``BLOCK`` elements, as views; a ``DTensor``, a 0-d or a smaller leaf
+    is one block of the leaves themselves."""
+    p = leaves[0]
+    if isinstance(p, DTensor) or p.dim() == 0 or p.numel() <= BLOCK:
+        return [leaves]
+    rows = max(1, BLOCK // (p.numel() // p.shape[0]))
+    return [tuple(t[i:i + rows] for t in leaves)
+            for i in range(0, p.shape[0], rows)]
+
+
 def _grad(g, p: torch.Tensor) -> torch.Tensor:
     """A leaf's gradient; ``None`` (the leaf did not reach the loss) is a
     zero gradient, as ``jax.grad`` returns."""
@@ -160,19 +177,21 @@ class AdamW(_Optimizer):
         stepf = step.to(F32)
         bc1 = 1 - torch.tensor(b1, dtype=F32, device=step.device) ** stepf
         bc2 = 1 - torch.tensor(b2, dtype=F32, device=step.device) ** stepf
-        for k, p in params.items():
-            m, v = state["m"][k], state["v"][k]
-            g = grads[k].to(F32) * scale
-            m_new = b1 * m.to(F32) + (1 - b1) * g
-            v_new = b2 * v.to(F32) + (1 - b2) * g * g
-            mh = m_new / bc1
-            vh = v_new / bc2
-            delta = mh / (torch.sqrt(vh) + self.eps)
-            if _stacked_dim(k, p) >= 2:   # decoupled decay, matrices only
-                delta = delta + self.weight_decay * p.to(F32)
-            p.copy_((p.to(F32) - lr * delta).to(p.dtype))
-            m.copy_(m_new.to(self.state_dtype))
-            v.copy_(v_new.to(self.state_dtype))
+        for k, leaf in params.items():
+            decay = _stacked_dim(k, leaf) >= 2   # decoupled, matrices only
+            for p, m, v, g in _row_blocks(leaf, state["m"][k],
+                                          state["v"][k], grads[k]):
+                g = g.to(F32) * scale
+                m_new = b1 * m.to(F32) + (1 - b1) * g
+                v_new = b2 * v.to(F32) + (1 - b2) * g * g
+                mh = m_new / bc1
+                vh = v_new / bc2
+                delta = mh / (torch.sqrt(vh) + self.eps)
+                if decay:
+                    delta = delta + self.weight_decay * p.to(F32)
+                p.copy_((p.to(F32) - lr * delta).to(p.dtype))
+                m.copy_(m_new.to(self.state_dtype))
+                v.copy_(v_new.to(self.state_dtype))
         state["step"].copy_(step)
         return params, state, {"grad_norm": gnorm, "lr": lr}
 

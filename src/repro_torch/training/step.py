@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+from torch.profiler import record_function
 
 from ..models import Model
 from ..models.config import ArchConfig
@@ -37,9 +38,11 @@ def init_state(model: Model, optimizer) -> dict:
 
 def make_train_step(model: Model, optimizer) -> Callable:
     """``train_step(state, batch) -> (state, metrics)``: zero the grads, run
-    ``model.loss`` and its backward, apply the optimizer in place; metrics
-    are the optimizer's (``grad_norm``, ``lr``) plus ``loss``, as 0-d
-    tensors on the model's device."""
+    ``model.loss`` and its backward, apply the optimizer in place (under a
+    ``record_function`` range, ``train_step.optimizer``, so a trace
+    attributes its device time); metrics are the optimizer's
+    (``grad_norm``, ``lr``) plus ``loss``, as 0-d tensors on the model's
+    device."""
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         params = state["params"]
         for p in params.values():
@@ -47,8 +50,9 @@ def make_train_step(model: Model, optimizer) -> Callable:
         loss = model.loss(batch)
         loss.backward()
         grads = {k: p.grad for k, p in params.items()}
-        new_params, new_opt, metrics = optimizer.update(grads, state["opt"],
-                                                        params)
+        with record_function("train_step.optimizer"):
+            new_params, new_opt, metrics = optimizer.update(
+                grads, state["opt"], params)
         for p in params.values():
             p.grad = None
         metrics["loss"] = loss.detach()

@@ -379,25 +379,30 @@ def psum_ranks(rank: int, world: int, ref_path: str, out: str) -> None:
 
 
 def dryrun_ranks(rank: int, world: int, out: str, cells: list) -> None:
-    """Each (arch, shape, seq, batch) of ``cells`` at its tiny config,
-    for real on the (2, 2, 2) ("pod", "data", "model") mesh: the step the
-    dry run traces (``launch.dryrun.build_cell`` with seeded weights and
-    tokens, the full configuration's optimizer), under
-    ``launch.hlo_costs.CostMode``.  Saves this rank's FLOPs, collectives
-    and argument bytes per cell."""
+    """Each (arch, shape, seq, batch[, remat]) of ``cells`` at its tiny
+    config (``remat`` in place of its own where given, keyed
+    "arch/shape/remat"), for real on the (2, 2, 2) ("pod", "data",
+    "model") mesh: the step the dry run traces
+    (``launch.dryrun.build_cell`` with seeded weights and tokens, the full
+    configuration's optimizer), under ``launch.hlo_costs.CostMode``.
+    Saves this rank's FLOPs, collectives and argument bytes per cell."""
     from repro_torch.configs import get_config, get_tiny_config
     from repro_torch.launch import dryrun
     from repro_torch.training.step import default_optimizer
     from repro_torch.launch.specs import SHAPES
     mesh = _mesh((2, 2, 2), ("pod", "data", "model"))
     result = {}
-    for arch, shape_name, seq, batch in cells:
+    for arch, shape_name, seq, batch, *remat in cells:
         shape = dataclasses.replace(SHAPES[shape_name], seq=seq, batch=batch)
-        cell = dryrun.build_cell(get_tiny_config(arch), shape, mesh,
-                                 device="cpu", fake=False,
+        cfg = get_tiny_config(arch)
+        key = f"{arch}/{shape_name}"
+        if remat:
+            cfg = dataclasses.replace(cfg, remat=remat[0])
+            key += f"/{remat[0]}"
+        cell = dryrun.build_cell(cfg, shape, mesh, device="cpu", fake=False,
                                  opt=default_optimizer(get_config(arch)))
         acc = dryrun.measure(cell)
-        result[f"{arch}/{shape_name}"] = {
+        result[key] = {
             "flops": acc["flops"],
             "collective_counts": acc["collective_counts"],
             "collective_bytes": acc["collective_bytes"],

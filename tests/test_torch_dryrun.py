@@ -83,6 +83,7 @@ CELLS = [("qwen2-72b", ["train_4k", "decode_32k"]),
          ("llama4-maverick-400b-a17b", ["train_4k"])]
 KEYS = [(arch, shape) for arch, shapes in CELLS for shape in shapes]
 FACTORED = {"dbrx-132b", "llama4-maverick-400b-a17b"}
+DOTS_ARCH = "dbrx-132b"     # the tiny train cell also taken under "dots"
 ENV = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
 
 
@@ -110,6 +111,7 @@ def real(tmp_path_factory):
     """Rank 0's counts of the same steps, for real on 8 gloo ranks."""
     out = tmp_path_factory.mktemp("dryrun-real")
     cells = [(arch, shape, SEQ, BATCH) for arch, shape in KEYS]
+    cells.append((DOTS_ARCH, "train_4k", SEQ, BATCH, "dots"))
     _torch_dist.spawn(_torch_dist.dryrun_ranks, 8, out, str(out), cells,
                       timeout=400.0)
     return _torch_dist.load(out, "dryrun", 8)[0]
@@ -138,6 +140,35 @@ def test_tiny_cell_equals_a_real_run(records, real, arch, shape):
     attention = not get_tiny_config(arch).is_attention_free
     assert (rec["flash_loop_bytes_per_device"] > 0) == (
         attention and shape == "train_4k")
+
+
+def test_dots_cell_equals_a_real_run(records, real):
+    """The tiny dbrx-132b train_4k cell under remat "dots", traced as rank
+    0 of a fake group of 8 on the (2, 2, 2) mesh (the selective
+    checkpoint's cache mode over ``CostMode``; the experts' "model" shards
+    and every other leaf gathered inside the checkpointed layers), equals
+    rank 0 of a real 8-rank gloo run of it; K2 runs twice a layer, so it
+    costs more FLOPs than the cell without remat."""
+    cfg = dataclasses.replace(get_tiny_config(DOTS_ARCH), remat="dots")
+    spec = dataclasses.replace(SHAPES["train_4k"], seq=SEQ, batch=BATCH)
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
+    try:
+        mesh = make_debug_mesh((2, 2, 2), ("pod", "data", "model"),
+                               device_type="cpu")
+        rec = dryrun.run_cell(DOTS_ARCH, "train_4k", mesh, False, tiny=True,
+                              shape=spec, device="cpu", cfg=cfg)
+    finally:
+        dist.destroy_process_group()
+    assert rec["status"] == "ok", rec
+    assert rec["optimizer"] == "FactoredAdam"
+    want = real[f"{DOTS_ARCH}/train_4k/dots"]
+    assert rec["flops_per_device"] == want["flops"]
+    assert rec["collective_counts"] == want["collective_counts"]
+    assert rec["collective_bytes_per_device"] == want["collective_bytes"]
+    assert rec["memory"]["argument_bytes"] == want["argument_bytes"] > 0
+    none = records[DOTS_ARCH, "train_4k"]
+    assert none["memory"]["argument_bytes"] == want["argument_bytes"]
+    assert rec["flops_per_device"] > none["flops_per_device"]
 
 
 _REF_MODEL_FLOPS = """
@@ -233,13 +264,19 @@ import dataclasses, json, os, re, sys
 os.environ["REPRO_DRYRUN_DEVICES"] = "1"
 import jax, numpy as np
 from jax.sharding import Mesh
-from repro.configs import get_tiny_config
+import repro.configs
 from repro.distributed.context import use_mesh
 from repro.launch import dryrun as rd, hlo_costs as hc
 from repro.launch.specs import input_specs, param_specs
 from repro.models import Model
 from repro.training.step import default_optimizer, make_train_step
-arch, seq, batch = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+arch, seq, batch, remat = (sys.argv[1], int(sys.argv[2]), int(sys.argv[3]),
+                           sys.argv[4])
+_tiny = repro.configs.get_tiny_config
+# the cell's configuration at this remat, for run_cell's lookup too
+repro.configs.get_tiny_config = lambda a: dataclasses.replace(_tiny(a),
+                                                              remat=remat)
+get_tiny_config = repro.configs.get_tiny_config
 mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1, 1),
             ("pod", "data", "model"))
 cfg = get_tiny_config(arch)
@@ -303,18 +340,21 @@ print(json.dumps({"flops": rec["flops_per_device"], "chunk":
 """
 
 
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
 @pytest.mark.parametrize("arch", ["qwen2-72b", "mamba2-2_7b"])
-def test_train_cell_against_the_reference(arch):
+def test_train_cell_against_the_reference(arch, remat):
     r = subprocess.run([sys.executable, "-c", _REF_TRAIN, arch, str(SEQ),
-                        str(BATCH)], capture_output=True, text=True, cwd=ROOT,
-                       env={**ENV, "JAX_PLATFORMS": "cpu"}, timeout=300)
+                        str(BATCH), remat], capture_output=True, text=True,
+                       cwd=ROOT, env={**ENV, "JAX_PLATFORMS": "cpu"},
+                       timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
     ref = json.loads(r.stdout.strip().splitlines()[-1])
     # the split covers the reference's whole count
     assert ref["loop_dots"] + ref["other_dots"] + ref["reductions"] == \
         pytest.approx(ref["flops"], rel=1e-12)
-    cfg = get_tiny_config(arch)
+    cfg = dataclasses.replace(get_tiny_config(arch), remat=remat)
     shape = dataclasses.replace(SHAPES["train_4k"], seq=SEQ, batch=BATCH)
+    fwd = 1 if remat == "none" else 2     # forward, then the recompute
     with FakeTensorMode(allow_non_fake_inputs=True):
         cell = dryrun.build_cell(cfg, shape, None, device="cpu")
         with CostMode() as costs:
@@ -325,13 +365,14 @@ def test_train_cell_against_the_reference(arch):
     assert kernels > 0 and ref["reductions"] > 0
     if not cfg.is_attention_free:    # qwen2-72b: attention alone
         H, Dk = cfg.num_heads, cfg.head_dim
-        assert kernels == BATCH * H * 2 * (5 * Dk + 4 * Dk) * sum(
+        per_pair = fwd * 2 * Dk + 4 * Dk + 3 * Dk
+        assert kernels == BATCH * H * 2 * per_pair * sum(
             band_pairs(SEQ, SEQ, True, 0) for _ in range(cfg.num_layers))
         assert other == ref["other_dots"]
         padded = -(-SEQ // ref["chunk"]) * ref["chunk"]
         pairs = band_pairs(SEQ, SEQ, True, 0)
-        assert (kernels * SEQ * padded * 3 * (Dk + Dk)
-                == ref["loop_dots"] * pairs * (5 * Dk + 4 * Dk))
+        assert (kernels * SEQ * padded * (fwd + 2) * (Dk + Dk)
+                == ref["loop_dots"] * pairs * per_pair)
     else:
         assert ref["loop_dots"] == 0
         Q = ref["ssm_chunk"]

@@ -129,3 +129,33 @@ def test_one_step_matches_reference_on_every_leaf(arch, opt_name):
     assert stacks and len(state["v"]) == len(params) - sum(
         1 for k, p in params.items()
         if reference_leaf(k)[1] is not None and p.dim() == 1) + len(stacks)
+
+
+@pytest.mark.parametrize("state_dtype", [torch.float32, torch.bfloat16])
+def test_adamw_in_row_blocks_is_bit_equal(monkeypatch, state_dtype):
+    """AdamW updates a plain leaf of more than ``optim.BLOCK`` elements a
+    block of rows at a time (a dbrx-132B expert leaf would otherwise make
+    4.2 GB float32 temporaries): with blocks of 3 rows of a (10, 7, 5)
+    leaf and of an (11, 13) one, the same leaves, moments and metrics to
+    the bit as one block each."""
+    shapes = {"layers.0.moe.w_in": (10, 7, 5), "lm_head": (11, 13),
+              "final_norm.scale": (13,)}
+    results = []
+    for block in (10 ** 9, 3 * 7 * 5):
+        monkeypatch.setattr(optim, "BLOCK", block)
+        rng = np.random.default_rng(3)
+        params, grads = ({k: torch.tensor(rng.standard_normal(s),
+                                          dtype=torch.float32)
+                          for k, s in shapes.items()} for _ in range(2))
+        opt = optim.AdamW(learning_rate=LR, state_dtype=state_dtype)
+        state = opt.init(params)
+        for _ in range(2):
+            params, state, metrics = opt.update(grads, state, params)
+        results.append((params, state, metrics))
+    assert len(optim._row_blocks(*[torch.zeros(10, 7, 5)] * 2)) == 4
+    (p1, s1, m1), (p2, s2, m2) = results
+    for k in shapes:
+        assert torch.equal(p1[k], p2[k]), k
+        assert torch.equal(s1["m"][k], s2["m"][k]), k
+        assert torch.equal(s1["v"][k], s2["v"][k]), k
+    assert all(torch.equal(m1[k], m2[k]) for k in m1)

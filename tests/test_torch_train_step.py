@@ -186,12 +186,6 @@ def test_full_remat_gives_the_same_gradients(arch):
         assert torch.equal(a[name], b[name]), name
 
 
-def test_dots_remat_is_not_ported():
-    _, _, _, port = _pair("stablelm-12b", remat="dots")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.loss(_port_batch(_batch(port.cfg)))
-
-
 @pytest.mark.parametrize("arch", ["hymba-1_5b", "internvl2-26b"])
 def test_three_train_steps_track_the_reference(arch):
     """Three AdamW steps from the same weights on the same batches: the
