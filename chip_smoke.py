@@ -22,7 +22,10 @@ failed check exits non-zero):
              head dims that are multiples of 16 on its tensor-core route
              (``sm90``), and float32 and bf16 at other head dims on its
              CUDA-core route (``simt``); every row prints its route and
-             fails if it is not the rule's.
+             fails if it is not the rule's.  K2 also runs at query offsets
+             (``q_offset``, off the 64-row tile, with and without a
+             window, Skv = q_offset + Sq and beyond it, one shape whose
+             last rows keep no key and must be 0) on both routes.
 4. predict — fit the node (host CPU + card) with ``Profiler``/``fit_linear``
              and a timed host->device copy; no rate is hard-coded.
 5. main    — ``HGemms(fitted, device="cuda").execute`` on the paper's
@@ -49,7 +52,8 @@ failed check exits non-zero):
              the kernel does, and at relative norm 1e-2 against the float32
              plain backward; float32 rows run ``simt`` at 1e-4.  The
              training-shape rows run each kernel twice and require
-             bit-equal gradients.  K2's ``lse`` output on both routes
+             bit-equal gradients; phase 3's offset shapes run through
+             K2-bwd on both routes too, ``sm90`` twice, bit-equal.  K2's ``lse`` output on both routes
              against the plain version's at the training shape, K2
              forward and K2-bwd chained through autograd there against
              the plain backward, and K2's forward timed with and without
@@ -153,6 +157,25 @@ failed check exits non-zero):
              the router logits within K2's bf16 band; the tokens routed to
              another expert than through the plain version counted, at most
              twice sdpa's count), and with K2 twice, bit-equal.
+12. mla    — minicpm3-4B (MLA: q rank 768, kv rank 256, K2 at Dk 96 / Dv
+             64, absorbed-matmul decode over the latent cache): (a) float32
+             at full width cut to 2 layers, a 1100-token prefill's
+             last-token logits and one loss with every parameter gradient
+             on the card (K2 and K2-bwd ``simt``) against the same weights
+             on the host (plain versions), then the cut's prefill against
+             its decode (phase 6 (a)'s check); (b) bf16 at full width and
+             depth (62 layers, 4.26 B params), phase 6 (b)'s traffic
+             through ``PoasDispatcher`` and ``ServingEngine``: 62 K2
+             ``sm90`` launches a prefill and none in decode, rates, peak,
+             the larger bucket traced; (c) bf16 training at full width
+             through ``launch.train``'s objects at the largest depth whose
+             dry-run peak stays under 72 GiB, batch 4 x 2048, remat
+             "full": launches per step, ms/step, tokens/s, model TFLOP/s,
+             peak, a traced step, the dry run held as phase 10 (a) holds
+             its cells, loss and gradients twice from one state,
+             bit-equal; (d) K2 at (b)'s larger prefill and K2-bwd at (c)'s
+             step against their plain versions, timed beside their bounds
+             and sdpa, and which of sdpa's backends take Dk != Dv.
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or run outside the
@@ -295,12 +318,15 @@ SHARD_LAYERS = 4
 SHARD_TOL = 1e-5
 SHARD_RANKS, SHARD_TIMEOUT = 2, 900   # (b): ranks on the one card; seconds
 # Phase 10 (a): the predicted arguments less the batch must equal the bytes
-# the built tensors requested; against memory_allocated's growth they may
+# the built tensors requested; against memory_allocated's growth they
 # differ by the caching allocator's rounding of those blocks (512 bytes,
 # and up to 1 MiB of a new segment's remainder a block): 0.593-0.683 %
 # for hymba's 1834 blocks of weights and AdamW moments, by what the cache
-# already holds, and 0 for dbrx's 43 (the reading this phase prints;
-# NVIDIA H100 80GB HBM3, 700.00 W), so 1 %.
+# already holds, 0 for dbrx's 43, and 1.659 % for minicpm3-4b's 2428,
+# whose 31.25 MiB MLP leaves each take a 32 MiB block (the readings this
+# phase prints; NVIDIA H100 80GB HBM3, 700.00 W).  So the prediction is
+# held with that rounding modelled (``allocator_charge``: 0.248 % of
+# hymba's arguments, 1.716 % of minicpm3's), to 1 %.
 # The peak against max_memory_allocated: scratch the kernels allocate inside
 # their operators and the same rounding are not in the prediction.
 DRYRUN_ARG_TOL, DRYRUN_PEAK_TOL = 0.01, 0.15
@@ -324,6 +350,24 @@ LLAMA4_TOL = 2e-2
 # (d): tokens K2 may route to another top-1 expert than K2's plain version
 # does, as a multiple of those the library's bf16 attention (sdpa) moves
 LLAMA4_MOVED_FACTOR = 2
+# Phases 3 and 7 (a): K2 and K2-bwd with query row i at position q_offset
+# + i, on both routes.  Offsets off the 64-row tile; Skv = q_offset + Sq
+# (chunked prefill) and Skv > q_offset + Sq (keys after the last query);
+# "empty-rows" keeps no key for its last 17 rows (both write 0 there).
+# label, B, S, H, KH, Dk, Dv, window, causal, q_offset, Skv
+K2_OFFSET_ROWS = (
+    ("offset-chunk", 1, 200, 8, 2, 64, 64, 0, True, 37, 237),
+    ("offset-window-beyond", 2, 200, 8, 2, 64, 64, 100, True, 37, 287),
+    ("offset-mla-window-beyond", 1, 333, 8, 8, 96, 64, 256, True, 1000,
+     1410),
+    ("offset-empty-rows", 1, 130, 4, 2, 64, 64, 64, True, 300, 350),
+    ("offset-noncausal-window", 1, 100, 4, 4, 32, 32, 30, False, 45, 150),
+)
+# Phase 12: minicpm3-4B (MLA).  (a) float32 at 2 layers, also run on the
+# host; (c) the largest depth whose dry-run peak stays under the limit
+# (the full 62 layers are predicted at ~34 GiB at 4 x 2048).
+MLA_ARCH, MLA_GATE_LAYERS = "minicpm3-4b", 2
+MLA_TRAIN_PEAK, MLA_TRAIN_STEPS = 72 * 2**30, 4
 MEASURED: dict = {}       # phase 6's prefill busy s, phase 7's step times
                           # and its traced step's (busy, wall) s
 
@@ -395,20 +439,40 @@ def k2_counts() -> tuple[int, int]:
     return flash_attention.launches_sm90, flash_attention.launches_simt
 
 
+def band_mask(S: int, skv: int, causal: bool, window: int,
+              q_offset: int = 0) -> torch.Tensor:
+    """(S, skv) bool on the card: K2's mask, query row i at position
+    ``q_offset + i``, keys at 0..skv-1 (sdpa's ``attn_mask``)."""
+    qp = q_offset + torch.arange(S, device=DEV)[:, None]
+    kp = torch.arange(skv, device=DEV)[None, :]
+    mask = torch.ones((S, skv), dtype=torch.bool, device=DEV)
+    if causal:
+        mask &= qp >= kp
+    if window > 0:
+        mask &= kp > qp - window
+    return mask
+
+
 def flash_row(label, gen, B, S, H, KH, Dk, Dv, window, dtype,
-              causal=True) -> dict:
+              causal=True, q_offset: int = 0, skv: int | None = None,
+              phase: str = "kernel") -> dict:
     """K2 against its plain version on the same card tensors, then kernel,
-    plain version and ``scaled_dot_product_attention`` timed (at window 0,
-    also sdpa's ``is_causal`` form, which needs no mask tensor and may take
-    PyTorch's flash backend).  Fails if the launch did not take the route
-    that ``route`` names, or bf16 at head dims that are multiples of 16 did
-    not run on the tensor cores."""
+    plain version and ``scaled_dot_product_attention`` timed (at window 0
+    and offset 0, also sdpa's ``is_causal`` form, which needs no mask
+    tensor and may take PyTorch's flash backend).  ``q_offset``: query row
+    i at position ``q_offset + i`` over ``skv`` keys (default S); rows that
+    keep no key must be 0 in both.  Fails if the launch did not take the
+    route that ``route`` names, or bf16 at head dims that are multiples of
+    16 did not run on the tensor cores."""
     name = DTYPE_NAME[dtype]
+    skv = S if skv is None else skv
     q, k, v = (torch.randn(shape, generator=gen, device=DEV).to(dtype)
-               for shape in ((B, S, H, Dk), (B, S, KH, Dk), (B, S, KH, Dv)))
+               for shape in ((B, S, H, Dk), (B, skv, KH, Dk),
+                             (B, skv, KH, Dv)))
     kind = route(dtype, Dk, Dv)
     before = k2_counts()
-    out = flash_attention(q, k, v, causal=causal, window=window)
+    out = flash_attention(q, k, v, causal=causal, window=window,
+                          q_offset=q_offset)
     torch.cuda.synchronize()
     ran = [r for r, a, b in zip(("sm90", "simt"), k2_counts(), before)
            if a > b]
@@ -416,31 +480,30 @@ def flash_row(label, gen, B, S, H, KH, Dk, Dv, window, dtype,
     if dtype == torch.bfloat16 and Dk % 16 == 0 and Dv % 16 == 0:
         check(kind == "sm90", f"K2 {label}: bf16 at Dk {Dk}, Dv {Dv} did not "
               f"take the tensor-core route")
-    plain = flash_attention_ref(q, k, v, causal=causal, window=window)
+    plain = flash_attention_ref(q, k, v, causal=causal, window=window,
+                                q_offset=q_offset)
     diff = (out.float() - plain.float()).abs()
     tol = K2_TOL[name]
+    mask = band_mask(S, skv, causal, window, q_offset)
+    empty = ~mask.any(-1)
     row = {"label": label, "dtype": name, "route": kind,
            "max_abs_err": float(diff.max()),
            "violations": int((diff > tol + tol * plain.float().abs()).sum()),
-           "tol": tol}
+           "tol": tol, "empty_rows": int(empty.sum()),
+           "empty_nonzero": int((out[:, empty] != 0).sum()
+                                + (plain[:, empty] != 0).sum())}
     del out, plain, diff
-    pos = torch.arange(S, device=DEV)
-    mask = torch.ones((S, S), dtype=torch.bool, device=DEV)
-    if causal:
-        mask &= pos[:, None] >= pos[None, :]
-    if window > 0:
-        mask &= pos[None, :] > pos[:, None] - window
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     row["kernel_ms"] = cuda_ms(lambda: flash_attention(
-        q, k, v, causal=causal, window=window))
+        q, k, v, causal=causal, window=window, q_offset=q_offset))
     row["plain_ms"] = cuda_ms(lambda: flash_attention_ref(
-        q, k, v, causal=causal, window=window))
+        q, k, v, causal=causal, window=window, q_offset=q_offset))
     row["library_ms"] = cuda_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, scale=1.0 / math.sqrt(Dk),
             enable_gqa=True))
     causal_text = ""
-    if causal and window == 0:
+    if causal and window == 0 and q_offset == 0 and skv == S:
         row["library_causal_ms"] = cuda_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, scale=1.0 / math.sqrt(Dk),
@@ -448,21 +511,27 @@ def flash_row(label, gen, B, S, H, KH, Dk, Dv, window, dtype,
         causal_text = (f" library_causal_ms={row['library_causal_ms']:.4f} "
                        f"(sdpa, is_causal, enable_gqa)")
     size = q.element_size()
-    ops = 2.0 * B * H * band_pairs(S, S, causal, window) * (Dk + Dv)
-    nbytes = size * (B * S * H * (Dk + Dv) + B * S * KH * (Dk + Dv))
+    ops = 2.0 * B * H * band_pairs(S, skv, causal, window, q_offset) * (
+        Dk + Dv)
+    nbytes = size * (B * S * H * (Dk + Dv) + B * skv * KH * (Dk + Dv))
     row["peak"] = name
     row["bound_ms"], row["bound_by"] = roofline(ops, nbytes, name)
     smem = (f", {sm90_smem_bytes(Dk, Dv) / 1024:.0f} KiB dynamic shared "
             f"memory" if kind == "sm90" else "")
-    say("kernel", f"K2 {label} B{B} S{S} H{H}/{KH} Dk{Dk} Dv{Dv} "
-        f"window {window}{'' if causal else ' noncausal'} {name} route "
-        f"{kind}{smem}: vs plain max_abs_err={row['max_abs_err']:.3e} "
+    offset = (f" q_offset {q_offset} Skv {skv} ({row['empty_rows']} rows "
+              f"keep no key, nonzero there: {row['empty_nonzero']})"
+              if q_offset or skv != S else "")
+    say(phase, f"K2 {label} B{B} S{S} H{H}/{KH} Dk{Dk} Dv{Dv} "
+        f"window {window}{'' if causal else ' noncausal'}{offset} {name} "
+        f"route {kind}{smem}: vs plain max_abs_err={row['max_abs_err']:.3e} "
         f"violations={row['violations']} (rtol=atol={tol}); kernel_ms="
         f"{row['kernel_ms']:.4f} plain_ms={row['plain_ms']:.4f} library_ms="
         f"{row['library_ms']:.4f} (sdpa, bool mask, enable_gqa)"
         f"{causal_text} " + bound_text(row))
     check(row["violations"] == 0, f"K2 disagrees with its plain version: "
           f"{row}")
+    check(row["empty_nonzero"] == 0, f"K2 {label}: rows that keep no key "
+          f"are not 0: {row}")
     return row
 
 
@@ -614,9 +683,10 @@ def check_rows(c, a, b, rows, label: str) -> float:
     return err
 
 
-def prefill_matches_decode(cfg, gen) -> None:
+def prefill_matches_decode(cfg, gen, phase: str = "serve") -> None:
     """Serve phase (a): in float32, decode through plain torch must give
-    the last-token logits of a prefill through K2/K3 over the same tokens."""
+    the last-token logits of a prefill through K2/K3 over the same tokens
+    (``cfg``'s model, weights from seed 0)."""
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     model = Model(cfg32, device=DEV,
                   generator=torch.Generator(DEV).manual_seed(0))
@@ -639,7 +709,7 @@ def prefill_matches_decode(cfg, gen) -> None:
             err = float((logits - want).abs().max())
             ok = torch.allclose(logits, want, rtol=PREFILL_DECODE_TOL,
                                 atol=PREFILL_DECODE_TOL)
-            say("serve", f"(a) float32 decode step {step} (position "
+            say(phase, f"(a) float32 decode step {step} (position "
                 f"{SERVE_A_PROMPT - 1 + step}) vs prefill of "
                 f"{SERVE_A_PROMPT + step} tokens: "
                 f"max_abs_err={err:.3e}, logits std {float(want.std()):.3e}"
@@ -759,6 +829,50 @@ def serve_traffic(phase: str, cfg):
     return buckets, warm
 
 
+def serve_buckets(phase: str, engine, buckets, cfg, card: str = "") -> list:
+    """(b) ``buckets`` through ``engine`` (``cfg``'s model, bf16): each
+    bucket's prefill and decode steps launch K2 once a layer, all
+    ``sm90``, and K3 once a layer where ``cfg`` has SSM layers, all in the
+    prefill, and no other kernel; every completion holds in-vocabulary
+    tokens.  Prints each bucket's rates and peak; returns each bucket's
+    (B * padded length, B, padded length)."""
+    L = cfg.num_layers
+    want = dict.fromkeys(launch_counts(), 0)
+    want["flash_attention/sm90"] = 0 if cfg.is_attention_free else L
+    want["ssd_chunk"] = L if cfg.uses_ssm else 0
+    shapes = []
+    for gi, bucket in enumerate(buckets):
+        if not bucket:
+            continue
+        before = launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        done = engine.generate(bucket)
+        peak = torch.cuda.max_memory_allocated()
+        per = {k: v - before[k] for k, v in launch_counts().items()}
+        check(per == want, f"({phase}) bucket {gi}: a prefill and "
+              f"{SERVE_MAX_NEW - 1} decode steps launched {per}, not {want}")
+        for c in done:
+            check(len(c.tokens) == SERVE_MAX_NEW and bool(
+                ((c.tokens >= 0) & (c.tokens < cfg.vocab_size)).all()),
+                f"({phase}) completion {c.uid}: {c.tokens}")
+        B = len(bucket)
+        plen = max(len(r.tokens) for r in bucket)
+        real = sum(len(r.tokens) for r in bucket)
+        pre, dec = done[0].prefill_s, done[0].decode_s
+        say(phase, f"(b) bucket {gi}: {B} requests, prompts padded to "
+            f"{plen} ({real} real tokens); prefill {pre:.4f} s = "
+            f"{B * plen / pre:.1f} tok/s ({real / pre:.1f} real tok/s); "
+            f"decode {SERVE_MAX_NEW - 1} steps {dec:.4f} s = "
+            f"{B * (SERVE_MAX_NEW - 1) / dec:.1f} tok/s "
+            f"({dec / (SERVE_MAX_NEW - 1) * 1e3:.2f} ms/step); peak "
+            f"max_memory_allocated {peak / 2**30:.3f} GiB; K2 "
+            f"+{per['flash_attention/sm90']} (sm90), K3 +{per['ssd_chunk']}"
+            f"; first completion {done[0].tokens.tolist()}"
+            + (f"; {card}" if card else ""))
+        shapes.append((B * plen, B, plen))
+    return shapes
+
+
 def serve(gen) -> tuple[dict, dict, dict]:
     """Serve phase: (a) the float32 check, (b) eight requests in bfloat16
     through ``PoasDispatcher`` and ``ServingEngine`` with K2/K3 launches
@@ -787,41 +901,8 @@ def serve(gen) -> tuple[dict, dict, dict]:
     buckets, warm = serve_traffic("serve", cfg)
     engine.generate(warm)                              # warm-up, not counted
 
-    reset_k2_counts()
-    ssd_chunk.launches = 0
-    shapes = []
-    for gi, bucket in enumerate(buckets):
-        if not bucket:
-            continue
-        f0, s0 = flash_attention.launches, ssd_chunk.launches
-        sm0 = flash_attention.launches_sm90
-        torch.cuda.reset_peak_memory_stats()
-        done = engine.generate(bucket)
-        peak = torch.cuda.max_memory_allocated()
-        df, dss = flash_attention.launches - f0, ssd_chunk.launches - s0
-        dsm = flash_attention.launches_sm90 - sm0
-        check(df == cfg.num_layers and dss == cfg.num_layers,
-              f"bucket {gi}: one prefill launched K2 {df} and K3 {dss} "
-              f"times, not {cfg.num_layers} each")
-        check(dsm == df, f"bucket {gi}: {df - dsm} of {df} bf16 K2 launches "
-              f"did not take the sm90 route")
-        for c in done:
-            check(len(c.tokens) == SERVE_MAX_NEW and bool(
-                ((c.tokens >= 0) & (c.tokens < cfg.vocab_size)).all()),
-                f"completion {c.uid}: {c.tokens}")
-        B = len(bucket)
-        plen = max(len(r.tokens) for r in bucket)
-        real = sum(len(r.tokens) for r in bucket)
-        pre, dec = done[0].prefill_s, done[0].decode_s
-        say("serve", f"(b) bucket {gi}: {B} requests, prompts padded to "
-            f"{plen} ({real} real tokens); prefill {pre:.4f} s = "
-            f"{B * plen / pre:.1f} tok/s ({real / pre:.1f} real tok/s); "
-            f"decode {SERVE_MAX_NEW - 1} steps {dec:.4f} s = "
-            f"{B * (SERVE_MAX_NEW - 1) / dec:.1f} tok/s "
-            f"({dec / (SERVE_MAX_NEW - 1) * 1e3:.2f} ms/step); peak "
-            f"max_memory_allocated {peak / 2**30:.3f} GiB; K2 +{df}, K3 "
-            f"+{dss}; first completion {done[0].tokens.tolist()}")
-        shapes.append((B * plen, B, plen))
+    reset_launches()
+    shapes = serve_buckets("serve", engine, buckets, cfg)
     launches = {"flash_attention/sm90": flash_attention.launches_sm90,
                 "flash_attention/simt": simt_a,
                 "ssd_chunk": ssd_chunk.launches}
@@ -854,18 +935,18 @@ def serve(gen) -> tuple[dict, dict, dict]:
     return {"sm90": k2, "simt": k2_simt}, k3, launches
 
 
-def sdpa_bwd_ms(q, k, v, do, window: int) -> float:
+def sdpa_bwd_ms(q, k, v, do, window: int, causal: bool = True,
+                q_offset: int = 0) -> float:
     """Device time of the backward alone of one
     ``scaled_dot_product_attention`` call on the same tensors: ``is_causal``
-    at window 0, a bool band mask with ``enable_gqa`` otherwise."""
-    S, Dk = q.shape[1], q.shape[3]
+    at window 0 (offset 0, Sq = Skv), a bool band mask with ``enable_gqa``
+    otherwise."""
+    S, Skv, Dk = q.shape[1], k.shape[1], q.shape[3]
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
     kw = dict(scale=1.0 / math.sqrt(Dk), enable_gqa=True)
-    if window > 0:
-        pos = torch.arange(S, device=DEV)
-        kw["attn_mask"] = ((pos[:, None] >= pos[None, :])
-                           & (pos[None, :] > pos[:, None] - window))
+    if window > 0 or q_offset or Skv != S or not causal:
+        kw["attn_mask"] = band_mask(S, Skv, causal, window, q_offset)
     else:
         kw["is_causal"] = True
     out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, **kw)
@@ -904,25 +985,29 @@ def k2b_counts() -> tuple[int, int]:
 
 def flash_bwd_row(label, gen, B, S, H, KH, Dk, Dv, window, dtype,
                   twice: bool = False, phase: str = "train",
-                  part: str = "(a)") -> dict:
+                  part: str = "(a)", causal: bool = True, q_offset: int = 0,
+                  skv: int | None = None) -> dict:
     """K2-bwd against its plain backward on the same card tensors (q, k, v,
     dO random; o and lse from the plain forward), then kernel, plain
     version and sdpa's backward timed.  Fails if the launch did not take
     ``route_bwd``'s route.  On ``sm90`` the band's "want" rounds P and dS
     to bf16 where the kernel does, and each output is also held at
     relative norm ``K2B_NORM`` against the float32 plain backward.
-    ``twice``: a second call must give bit-equal gradients.  Bound: the
-    five products over the band's pairs, 2 * pairs * (3 Dk + 2 Dv) per
-    head, and the bytes of q, k, v, o, dO, lse read and dq, dk, dv
-    written."""
+    ``twice``: a second call must give bit-equal gradients.  ``q_offset``:
+    query row i at position ``q_offset + i`` over ``skv`` keys (default
+    S).  Bound: the five products over the band's pairs, 2 * pairs * (3 Dk
+    + 2 Dv) per head, and the bytes of q, k, v, o, dO, lse read and dq,
+    dk, dv written."""
     name = DTYPE_NAME[dtype]
+    skv = S if skv is None else skv
     q, k, v, do = (torch.randn(shape, generator=gen, device=DEV).to(dtype)
-                   for shape in ((B, S, H, Dk), (B, S, KH, Dk),
-                                 (B, S, KH, Dv), (B, S, H, Dv)))
-    o, lse = flash_attention_ref(q, k, v, window=window, return_lse=True)
+                   for shape in ((B, S, H, Dk), (B, skv, KH, Dk),
+                                 (B, skv, KH, Dv), (B, S, H, Dv)))
+    mask = dict(causal=causal, window=window, q_offset=q_offset)
+    o, lse = flash_attention_ref(q, k, v, return_lse=True, **mask)
     kind = route_bwd(dtype, Dk, Dv)
     before = k2b_counts()
-    got = flash_attention_bwd(q, k, v, o, do, lse, window=window)
+    got = flash_attention_bwd(q, k, v, o, do, lse, **mask)
     torch.cuda.synchronize()
     ran = [r for r, a, b in zip(("sm90", "simt"), k2b_counts(), before)
            if a > b]
@@ -934,8 +1019,8 @@ def flash_bwd_row(label, gen, B, S, H, KH, Dk, Dv, window, dtype,
               f"did not take the tensor-core route")
     rounded = kind == "sm90"
     want = flash_attention_bwd_ref(
-        q, k, v, o, do, lse, window=window,
-        round_to=torch.bfloat16 if rounded else None)
+        q, k, v, o, do, lse, round_to=torch.bfloat16 if rounded else None,
+        **mask)
     err, bad, tol = k2b_violations(got, want, name)
     row = {"label": label, "dtype": name, "route": kind, "max_abs_err": err,
            "violations": bad, "tol": tol}
@@ -943,25 +1028,27 @@ def flash_bwd_row(label, gen, B, S, H, KH, Dk, Dv, window, dtype,
     if rounded:
         norms = rel_norms(got, flash_attention_bwd_ref(
             q.float(), k.float(), v.float(), o.float(), do.float(), lse,
-            window=window))
+            **mask))
         row["norms"] = norms
         extra = (f"; vs the float32 plain backward ||d||/||want|| dq, dk, "
                  f"dv = {', '.join(f'{x:.3e}' for x in norms)} (<= "
                  f"{K2B_NORM})")
     if twice:
-        again = flash_attention_bwd(q, k, v, o, do, lse, window=window)
+        again = flash_attention_bwd(q, k, v, o, do, lse, **mask)
         row["bit_equal"] = all(torch.equal(a, b) for a, b in zip(got, again))
         extra += f"; second run bit-equal {row['bit_equal']}"
         del again
     del got, want
     row["kernel_ms"] = cuda_ms(lambda: flash_attention_bwd(
-        q, k, v, o, do, lse, window=window))
+        q, k, v, o, do, lse, **mask))
     row["plain_ms"] = cuda_ms(lambda: flash_attention_bwd_ref(
-        q, k, v, o, do, lse, window=window))
-    row["library_ms"] = sdpa_bwd_ms(q, k, v, do, window)
+        q, k, v, o, do, lse, **mask))
+    row["library_ms"] = sdpa_bwd_ms(q, k, v, do, window, causal, q_offset)
     size = q.element_size()
-    ops = 2.0 * B * H * band_pairs(S, S, True, window) * (3 * Dk + 2 * Dv)
-    nbytes = (size * (B * S * H * 2 * (Dk + Dv) + B * S * KH * 2 * (Dk + Dv))
+    ops = 2.0 * B * H * band_pairs(S, skv, causal, window, q_offset) * (
+        3 * Dk + 2 * Dv)
+    nbytes = (size * (B * S * H * 2 * (Dk + Dv)
+                      + B * skv * KH * 2 * (Dk + Dv))
               + 4 * B * H * S)   # q, o, dO, dq; k, v, dk, dv; lse
     row["peak"] = name
     row["bound_ms"], row["bound_by"] = roofline(ops, nbytes, name)
@@ -969,13 +1056,17 @@ def flash_bwd_row(label, gen, B, S, H, KH, Dk, Dv, window, dtype,
     row["tc_bound_ms"], _ = roofline(ops, nbytes, "bfloat16")
     smem = (f", {bwd_sm90_smem_bytes(Dk, Dv) / 1024:.0f} KiB dynamic shared "
             f"memory (dK/dV)" if rounded else "")
+    offset = (f" q_offset {q_offset} Skv {skv}" if q_offset or skv != S
+              else "")
     say(phase, f"{part} K2-bwd {label} B{B} S{S} H{H}/{KH} Dk{Dk} Dv{Dv} "
-        f"window {window} {name} route {kind}{smem}: vs plain"
+        f"window {window}{'' if causal else ' noncausal'}{offset} {name} "
+        f"route {kind}{smem}: vs plain"
         f"{' (P, dS rounded to bf16)' if rounded else ''} max_abs_err="
         f"{err:.3e} violations={bad} ({tol}){extra}; kernel_ms="
         f"{row['kernel_ms']:.4f} plain_ms={row['plain_ms']:.4f} "
         f"library_ms={row['library_ms']:.4f} (sdpa backward alone, "
-        f"{'is_causal' if window == 0 else 'bool mask'}, enable_gqa) "
+        f"{'bool mask' if window or offset or not causal else 'is_causal'}"
+        f", enable_gqa) "
         + bound_text(row) + f"; at the f32 FMA rate "
         f"{row['fma_bound_ms']:.4f} ms, at bf16 tensor-core peak "
         f"{row['tc_bound_ms']:.4f} ms")
@@ -1374,6 +1465,14 @@ def step_launches(cfg) -> dict:
             "ssd_chunk": fwd * ssm, "ssd_chunk_bwd": ssm}
 
 
+def attention_dims(cfg) -> tuple[int, int]:
+    """K2's head dims (Dk, Dv) in ``cfg``'s layers: MLA's nope + rope
+    query/key dims and its value dim, else the head dim twice."""
+    if cfg.attention == "mla":
+        return cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim
+    return cfg.head_dim, cfg.head_dim
+
+
 def model_flop(cfg, n_params: int, batch: int, seq: int,
                windows) -> tuple[float, float]:
     """(6·N·T, attention) model FLOP of one training step: N the active
@@ -1382,7 +1481,7 @@ def model_flop(cfg, n_params: int, batch: int, seq: int,
     if cfg.uses_moe:
         n_params -= (cfg.num_layers // cfg.moe_every) * (
             cfg.num_experts - cfg.experts_per_token) * 3 * cfg.d_model * cfg.d_ff
-    attn = 6.0 * batch * cfg.num_heads * 2 * cfg.head_dim * sum(
+    attn = 6.0 * batch * cfg.num_heads * sum(attention_dims(cfg)) * sum(
         band_pairs(seq, seq, True, w) for w in windows)
     return 6.0 * n_params * batch * seq, attn
 
@@ -1509,6 +1608,13 @@ def train(gen) -> tuple[dict, dict, dict]:
                 ("test-head-dim-160", 1, 130, 8, 2, 160, 160, 0),
                 ("test-head-dim-40-window", 2, 200, 4, 2, 40, 40, 16)):
             flash_bwd_row(label, gen, B, S, H, KH, Dk, Dv, window, dt)
+    # K2-bwd with q_offset on both routes; sm90 bit-equal on rerun.
+    for label, B, S, H, KH, Dk, Dv, window, causal, off, skv in \
+            K2_OFFSET_ROWS:
+        for dt in (f32, bf16):
+            flash_bwd_row(label, gen, B, S, H, KH, Dk, Dv, window, dt,
+                          twice=dt == bf16, causal=causal, q_offset=off,
+                          skv=skv)
     for label, shape, dt in (
             ("test", (1, 2, 16, 4, 1, 16, 16), f32),
             ("test-grouped", (2, 3, 32, 4, 2, 32, 16), f32),
@@ -2233,7 +2339,23 @@ def built(build, tensors) -> tuple:
             other[_site(b)] = other.get(_site(b), 0) + b["size"]
     return out, {"grown": grown, "blocks": len(own),
                  "requested": sum(b["requested_size"] for b in own),
-                 "charged": sum(b["size"] for b in own), "other": other}
+                 "charged": sum(b["size"] for b in own), "other": other,
+                 "sizes": [b["requested_size"] for b in own]}
+
+
+def allocator_charge(size: int) -> int:
+    """Bytes PyTorch's caching allocator charges a request of ``size``
+    bytes from a new segment: rounded up to 512 bytes; from 10 MiB up
+    the segment is rounded up to 2 MiB and the block keeps a remainder of
+    at most 1 MiB (it is not split off).  Blocks cut from a 20 MiB segment
+    of smaller requests, whose last block may keep such a remainder too,
+    are taken at 512 bytes."""
+    r = max(512, -(-size // 512) * 512)
+    if r >= 10 * 2**20:
+        segment = -(-r // 2**21) * 2**21
+        if segment - r <= 2**20:
+            return segment
+    return r
 
 
 def dryrun_hold(label: str, cfg, shape, step, reading: dict,
@@ -2247,7 +2369,8 @@ def dryrun_hold(label: str, cfg, shape, step, reading: dict,
     its state), equal the bytes the built tensors' blocks asked the caching
     allocator for (``reading``, from ``built``); ``memory_allocated`` grew
     by what the allocator charged those blocks and nothing else, and the
-    predicted arguments are within ``DRYRUN_ARG_TOL`` of that growth.  The
+    predicted arguments plus the rounding ``allocator_charge`` gives
+    those blocks are within ``DRYRUN_ARG_TOL`` of that growth.  The
     predicted peak is held against ``max_memory_allocated`` over the step,
     net of what the process holds besides the state (cuBLAS workspaces,
     earlier phases' tensors).  The roofline at the H100's data-sheet peaks
@@ -2273,7 +2396,10 @@ def dryrun_hold(label: str, cfg, shape, step, reading: dict,
     state = mem["argument_bytes"] - batch
     other = sum(reading["other"].values())
     rounding = reading["charged"] - reading["requested"]
-    arg_err = abs(mem["argument_bytes"] - reading["grown"]) / reading["grown"]
+    modelled = sum(map(allocator_charge, reading["sizes"])) - reading[
+        "requested"]
+    arg_err = abs(mem["argument_bytes"] + modelled - reading["grown"]) / \
+        reading["grown"]
     peak_err = abs(mem["peak_bytes"] - peak) / peak
     say("dryrun", f"(a) {label}: traced on fake cuda tensors in "
         f"{trace_s:.1f} s; FLOPs predicted {rec['flops_per_device']:.6e}, "
@@ -2290,9 +2416,10 @@ def dryrun_hold(label: str, cfg, shape, step, reading: dict,
         f"(the allocator's rounding {rounding} B, "
         f"{rounding / reading['requested'] * 100:.3f} %); other blocks the "
         f"build left {other} B {sorted(reading['other'].items())[:8]}; "
-        f"memory_allocated grew by {reading['grown']} B; predicted "
-        f"arguments against that growth {arg_err * 100:.3f} % (gate "
-        f"{DRYRUN_ARG_TOL * 100:.0f} %)")
+        f"memory_allocated grew by {reading['grown']} B; the rounding "
+        f"allocator_charge gives those blocks {modelled} B; predicted "
+        f"arguments plus that against the growth {arg_err * 100:.3f} % "
+        f"(gate {DRYRUN_ARG_TOL * 100:.0f} %)")
     say("dryrun", f"(a) {label}: peak predicted "
         f"{mem['peak_bytes'] / 2**30:.3f} GiB, max_memory_allocated "
         f"net of the {held / 2**30:.3f} GiB held besides "
@@ -2551,12 +2678,14 @@ def train_breakdown(phase: str, part: str, job, state, batch) -> None:
 
 
 def plain_k2_bwd(q, k, v, o, do, lse, *, causal: bool = True,
-                 window: int = 0, scale: float | None = None):
+                 window: int = 0, scale: float | None = None,
+                 q_offset: int = 0):
     """K2-bwd's plain version in its place, one sequence at a time, P and
     dS rounded to bf16 where the ``sm90`` kernel rounds them."""
     parts = [flash_attention_bwd_ref(
         *(x[i:i + 1] for x in (q, k, v, o, do, lse)), causal=causal,
-        window=window, scale=scale, round_to=torch.bfloat16)
+        window=window, scale=scale, round_to=torch.bfloat16,
+        q_offset=q_offset)
         for i in range(q.shape[0])]
     return tuple(torch.cat(g) for g in zip(*parts))
 
@@ -2573,10 +2702,11 @@ def leaf_rel(host: torch.Tensor, card: torch.Tensor) -> float:
     return math.sqrt(num / den) if den else math.sqrt(num)
 
 
-def grads_held(job, batch) -> dict:
+def grads_held(job, batch, plain: bool = True) -> dict:
     """``job``'s loss and gradients from its state on ``batch`` three times
-    (no optimizer step between): twice through K2-bwd, bit-equal; then
-    with K2-bwd's plain version in its place (``plain_k2_bwd``): the
+    (no optimizer step between; twice without ``plain``): twice through
+    K2-bwd, bit-equal; then with K2-bwd's plain version in its place
+    (``plain_k2_bwd``): the
     forward, so the routing, is the same, and each gradient leaf may
     differ only by what K2-bwd's band lets through the rest of the
     backward, held at relative norm ``K2B_NORM``.  The first run's
@@ -2587,7 +2717,8 @@ def grads_held(job, batch) -> dict:
     k2_module = importlib.import_module("repro_torch.kernels.flash_attention")
     kernel_bwd = k2_module.flash_attention_bwd
     out: dict = {}
-    for run, bwd in enumerate((kernel_bwd, kernel_bwd, plain_k2_bwd)):
+    runs = (kernel_bwd, kernel_bwd) + ((plain_k2_bwd,) if plain else ())
+    for run, bwd in enumerate(runs):
         for p in model.parameters():
             p.grad = None
         k2_module.flash_attention_bwd = bwd
@@ -2812,9 +2943,7 @@ def sdpa_attention(q, k, v, *, causal: bool = True, window: int = 0,
         q, k.repeat_interleave(G, 2), v.repeat_interleave(G, 2)))
     kw: dict = {"scale": scale}
     if window > 0:
-        pos = torch.arange(q.shape[1], device=q.device)
-        kw["attn_mask"] = ((pos[:, None] >= pos[None, :])
-                           & (pos[None, :] > pos[:, None] - window))
+        kw["attn_mask"] = band_mask(q.shape[1], k.shape[1], causal, window)
     else:
         kw["is_causal"] = causal
     return torch.nn.functional.scaled_dot_product_attention(
@@ -2929,6 +3058,257 @@ def moe_train_phase(gen, card: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: minicpm3-4B (MLA) served and trained at full width
+# ---------------------------------------------------------------------------
+
+
+def mla_gate(cfg, card: str) -> dict:
+    """(a) float32, full width cut to ``MLA_GATE_LAYERS`` layers, one
+    ``GATE_TOKENS`` sequence of ``SyntheticLM``: the prefill's last-token
+    logits and the loss with every parameter gradient on the card (K2 and
+    K2-bwd ``simt``) against the same weights moved to the host (the plain
+    versions), at phase 8 (a)'s and phase 7 (b)'s gates; then the same
+    cut's prefill against its absorbed-matmul decode over the latent cache
+    (``prefill_matches_decode``).  Returns the launches of the card's
+    prefill and step, counted from 0."""
+    cut = dataclasses.replace(cfg, num_layers=MLA_GATE_LAYERS,
+                              dtype="float32", remat="none")
+    t0 = time.perf_counter()
+    batch = SyntheticLM(DataConfig(vocab_size=cut.vocab_size,
+                                   seq_len=GATE_TOKENS, global_batch=1,
+                                   seed=0)).batch(0)
+    card_m = Model(cut, device=DEV,
+                   generator=torch.Generator(DEV).manual_seed(0))
+    host_m = Model(cut, device="meta")
+    host_m.load_state_dict({k: v.cpu() for k, v in
+                            card_m.state_dict().items()}, assign=True)
+    logits, losses, grads = {}, {}, {}
+    reset_launches()
+    for where, model in (("card", card_m), ("host", host_m)):
+        on = {k: torch.as_tensor(v).to(model.device)
+              for k, v in batch.items()}
+        with torch.inference_mode():
+            logits[where] = model.prefill(
+                {"tokens": on["tokens"]})[0][0].cpu()
+        model.requires_grad_(True)
+        loss = model.loss(on)
+        loss.backward()
+        losses[where] = float(loss.detach())
+        grads[where] = {n: p.grad.detach().double().cpu()
+                        for n, p in model.named_parameters()}
+        if where == "card":
+            torch.cuda.synchronize()
+            launches = launch_counts()
+    L = cut.num_layers
+    check(launches == {"flash_attention/sm90": 0,
+                       "flash_attention/simt": 2 * L,
+                       "flash_attention_bwd/sm90": 0,
+                       "flash_attention_bwd/simt": L, "ssd_chunk": 0,
+                       "ssd_chunk_bwd": 0},
+          f"(a) the card's float32 prefill and step launched {launches}, "
+          f"not K2 simt {2 * L} and K2-bwd simt {L}")
+    err = float((logits["card"] - logits["host"]).abs().max())
+    ok = torch.allclose(logits["card"], logits["host"],
+                        rtol=PREFILL_DECODE_TOL, atol=PREFILL_DECODE_TOL)
+    g_c, g_h = grads["card"], grads["host"]
+    rel = {n: float((g_c[n] - g_h[n]).norm() / g_h[n].norm().clamp(
+        min=1e-30)) for n in g_h}
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(losses["card"] - losses["host"]) / abs(losses["host"])
+    mla = max((n for n in rel if ".attn." in n), key=rel.get)
+    say("mla", f"(a) float32 gate, {cut.name} cut to {L} layers, 1 x "
+        f"{GATE_TOKENS} tokens (SyntheticLM seed 0): last-token logits card "
+        f"vs host max_abs_err={err:.3e}, logits std "
+        f"{float(logits['host'].std()):.3e}, allclose(rtol=atol="
+        f"{PREFILL_DECODE_TOL})={ok}; loss card {losses['card']:.6f} vs host "
+        f"{losses['host']:.6f} (rel {loss_rel:.2e} <= {GATE_LOSS_RTOL}); "
+        f"{len(rel)} gradient leaves, worst ||g_card - g_host|| / ||g_host||"
+        f" = {rel[worst]:.3e} ({worst}) <= {GATE_LEAF_RTOL}, worst MLA leaf "
+        f"{rel[mla]:.3e} ({mla}); {time.perf_counter() - t0:.1f} s; {card}")
+    check(bool(torch.isfinite(logits["card"]).all()) and ok,
+          "(a) the card's float32 prefill disagrees with the host's")
+    check(math.isfinite(losses["card"]) and loss_rel <= GATE_LOSS_RTOL,
+          "(a) the card's loss disagrees with the host's")
+    check(rel[worst] <= GATE_LEAF_RTOL, f"(a) gradient of {worst} "
+          f"disagrees: {rel[worst]}")
+    del card_m, host_m, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = flash_attention.launches_simt
+    prefill_matches_decode(cut, None, "mla")
+    n = flash_attention.launches_simt - before
+    check(n == 5 * L, f"(a) five float32 prefills launched K2 simt {n} "
+          f"times, not {5 * L}")
+    launches["flash_attention/simt"] += n
+    return launches
+
+
+def mla_serve(cfg, card: str) -> tuple[dict, tuple]:
+    """(b) bf16 at full width and depth: phase 6 (b)'s traffic through
+    ``PoasDispatcher`` and ``ServingEngine``, each prefill launching K2
+    once a layer (all ``sm90``, Dk 96 / Dv 64) and the decode steps none,
+    completions in vocabulary; prefill and decode rates, peak memory; the
+    larger bucket traced.  Returns the launches and the larger bucket's
+    (B, S)."""
+    t0 = time.perf_counter()
+    model = Model(cfg, device=DEV,
+                  generator=torch.Generator(DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    Dk, Dv = attention_dims(cfg)
+    say("mla", f"(b) {cfg.name} bf16 at full width and depth: "
+        f"{cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} "
+        f"heads, q rank {cfg.q_lora_rank}, kv rank {cfg.kv_lora_rank}, "
+        f"K2 at Dk {Dk} / Dv {Dv}, vocab {cfg.vocab_size}; "
+        f"{n_params / 1e9:.4f} B params, {wbytes / 1e9:.3f} GB of weights "
+        f"(seed 0), built in {time.perf_counter() - t0:.1f} s; {card}")
+    engine = ServingEngine(model)
+    buckets, warm = serve_traffic("mla", cfg)
+    engine.generate(warm)                              # warm-up, not counted
+    reset_launches()
+    shapes = serve_buckets("mla", engine, buckets, cfg, card)
+    launches = launch_counts()
+    big = max(buckets, key=len)
+    profile_serve("mla", model, big, part="(b)")
+    del model, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, max(shapes)[1:]
+
+
+def mla_train(cfg, card: str) -> dict:
+    """(c) bf16 at full width, remat "full", AdamW with bf16 states,
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens, through ``launch.train``'s
+    objects, at the largest depth whose dry-run peak (``launch.dryrun``'s
+    ``run_cell`` on fake cuda tensors) stays under ``MLA_TRAIN_PEAK``:
+    ``MLA_TRAIN_STEPS`` steps with each kernel's launches held per step,
+    ms/step, tokens/s, model TFLOP/s, peak; one step traced; the dry run
+    held against a step as phase 10 (a) holds its cells; the loss and
+    gradients taken twice from one state, bit-equal.  Returns the steps'
+    launches."""
+    shape = ShapeSpec("train", "train", TRAIN_SEQ, TRAIN_BATCH)
+    L = cfg.num_layers
+    while True:
+        cut = dataclasses.replace(cfg, num_layers=L)
+        rec = dryrun.run_cell(cut.name, "train", None, False, shape=shape,
+                              device=DEV, cfg=cut)
+        check(rec.get("status") == "ok", f"(c) the dry run gave {rec}")
+        peak = rec["memory"]["peak_bytes"]
+        say("mla", f"(c) dry run of {cut.name} at {L} of {cfg.num_layers} "
+            f"layers, batch {TRAIN_BATCH} x {TRAIN_SEQ}: arguments "
+            f"{rec['memory']['argument_bytes'] / 2**30:.3f} GiB, peak "
+            f"{peak / 2**30:.3f} GiB (limit {MLA_TRAIN_PEAK / 2**30:.0f} "
+            f"GiB), {rec['flops_per_device']:.4e} FLOP; traced in "
+            f"{rec['trace_s']} s")
+        if peak <= MLA_TRAIN_PEAK or L == 1:
+            break
+        L = max(1, min(L - 1, int(L * MLA_TRAIN_PEAK / peak)))
+    say("mla", f"(c) depth cut: {L} of {cfg.num_layers} layers "
+        f"({'none' if L == cfg.num_layers else 'cut'}); full width")
+    args = train_cli.parse_args([
+        "--arch", cfg.name, "--batch", str(TRAIN_BATCH), "--seq",
+        str(TRAIN_SEQ), "--steps", str(MLA_TRAIN_STEPS), "--device", DEV])
+    t0 = time.perf_counter()
+    job, reading = built(lambda: train_cli.build(args, cut),
+                         lambda job: tree_flatten(job.state)[0])
+    n_params = sum(p.numel() for p in job.model.parameters())
+    say("mla", f"(c) {cut.name} bf16 at {L} layers, remat {cut.remat}, "
+        f"AdamW (state {job.opt.state_dtype}): {n_params / 1e9:.4f} B "
+        f"params (seed {args.seed}), batch {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens of SyntheticLM; built in {time.perf_counter() - t0:.1f} s; "
+        f"{card}")
+    reset_launches()
+    state, data, losses, times, peak = take_steps(
+        "mla", "(c)", job, MLA_TRAIN_STEPS, step_launches(cut))
+    launches = launch_counts()
+    step_s = float(np.mean(times))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    dense, attn = model_flop(cut, n_params, TRAIN_BATCH, TRAIN_SEQ,
+                             job.model.windows)
+    flops = dense + attn
+    say("mla", f"(c) steps 2-{MLA_TRAIN_STEPS}: {step_s * 1e3:.2f} ms/step "
+        f"({', '.join(f'{t * 1e3:.2f}' for t in times)}), "
+        f"{tokens / step_s:.1f} training tokens/s, model "
+        f"{flops / step_s / 1e12:.2f} TFLOP/s (6*N*T {dense:.4e} + "
+        f"attention {attn:.4e} = 6*B*H*(Dk+Dv)*band pairs over the layers; "
+        f"{flops / step_s / PEAK['bfloat16'][0] * 100:.1f} % of the 989 "
+        f"TFLOP/s bf16 peak); peak max_memory_allocated "
+        f"{peak / 2**30:.3f} GiB; launches {launches}; {card}")
+    profile_step(job, state, next(data), "mla", "(c)")
+    batch = next(data)
+    dryrun_hold(f"{cut.name} at {L} layers, training step", cut, shape,
+                lambda: job.step_fn(state, batch), reading, step_s,
+                "step time", rec=rec)
+    held = grads_held(job, next(data), plain=False)
+    say("mla", f"(c) loss and {n_params / 1e9:.4f} B gradients taken twice "
+        f"from one state on one batch: bit-equal={held['twice']} (loss "
+        f"{held['loss']:.6f}); {card}")
+    check(held["twice"], "(c) two runs of the step's loss and gradients "
+          "differ")
+    del job, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def sdpa_backends(q, k, v) -> str:
+    """Which of sdpa's CUDA backends take ``q``, ``k``, ``v`` (B, S, H, D)
+    with ``is_causal``: one call under each, its refusal's first line
+    where it refuses."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    out = []
+    for b in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+              SDPBackend.CUDNN_ATTENTION):
+        try:
+            with sdpa_kernel([b]):
+                torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True)
+            torch.cuda.synchronize()
+            out.append(f"{b.name} takes it")
+        except RuntimeError as e:
+            out.append(f"{b.name} refuses ({str(e).splitlines()[0][:80]})")
+    return "; ".join(out)
+
+
+def mla_phase(gen, card: str) -> dict:
+    """Phase 12: (a) minicpm3-4B's float32 gate at 2 layers, (b) bf16
+    serving at full width and depth, (c) bf16 training at full width, (d)
+    K2 at (b)'s larger prefill and K2-bwd at (c)'s step, at Dk 96 / Dv 64,
+    against their plain versions.  Returns each kernel's launches over
+    (a)-(c)."""
+    cfg = get_config(MLA_ARCH)
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = mla_gate(cfg, card)
+    served, (B, S) = mla_serve(cfg, card)
+    trained = mla_train(cfg, card)
+    for part in (served, trained):
+        for name, n in part.items():
+            total[name] += n
+    H = cfg.num_heads
+    Dk, Dv = attention_dims(cfg)
+    bf16 = torch.bfloat16
+    k2 = flash_row("mla-serve-path", gen, B, S, H, H, Dk, Dv, 0, bf16,
+                   phase="mla")
+    k2b = flash_bwd_row("mla-train-path", gen, TRAIN_BATCH, TRAIN_SEQ, H, H,
+                        Dk, Dv, 0, bf16, twice=True, phase="mla", part="(d)")
+    check(k2["route"] == "sm90" and k2b["route"] == "sm90",
+          "(d) K2 or K2-bwd at Dk 96 / Dv 64 did not run on sm90")
+    q, k, v = (torch.randn((B, S, H, d), generator=gen, device=DEV).to(bf16)
+               for d in (Dk, Dk, Dv))
+    say("mla", f"(d) sdpa at B{B} S{S} H{H} Dk {Dk} Dv {Dv} bf16, "
+        f"is_causal: {sdpa_backends(q, k, v)}; {card}")
+    del q, k, v
+    torch.cuda.empty_cache()
+    say("mla", f"main path launches {total}; done in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3032,6 +3412,12 @@ def main() -> None:
         row = flash_row(label, gen, B, S, H, KH, Dk, Dv, window, bf16)
         check(row["route"] == "simt", f"K2 {label}: bf16 at Dk {Dk}, Dv {Dv} "
               f"ran {row['route']}, not the CUDA-core route")
+    # K2 with q_offset on both routes (float32 -> simt, bf16 -> sm90).
+    for label, B, S, H, KH, Dk, Dv, window, causal, off, skv in \
+            K2_OFFSET_ROWS:
+        for dt in (f32, bf16):
+            flash_row(label, gen, B, S, H, KH, Dk, Dv, window, dt,
+                      causal=causal, q_offset=off, skv=skv)
     # K3 at the shapes of tests/test_kernels_ssd.py, a ragged Q, and the
     # chunk shapes of hymba-1.5B and mamba2-2.7b at ssm_chunk 256.
     for label, shape, dt in (
@@ -3189,6 +3575,12 @@ def main() -> None:
         launches_of = (train_launches if "bwd" in name else serve_launches)
         launches_of[name] = launches_of.get(name, 0) + n
     say("moe-train", f"total {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 12. mla: minicpm3-4B (MLA) served and trained at full width -----
+    for name, n in mla_phase(gen, card).items():
+        launches_of = (train_launches if "bwd" in name else serve_launches)
+        launches_of[name] = launches_of.get(name, 0) + n
+    say("mla", f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = [{"name": "matmul", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/matmul.cu",

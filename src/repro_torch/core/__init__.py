@@ -21,7 +21,9 @@ from .bus import (BusEvent, BusTopology, ClockState, GraphSimContext,
                   engine_finish_times, graph_finish_times)
 from .device_model import (CopyModel, DeviceProfile, LinearTimeModel, NO_COPY,
                            RooflineTimeModel, paper_mach1, paper_mach2,
-                           priority_order, with_pipeline)
+                           priority_order, tpu_group, with_pipeline,
+                           TPU_PEAK_FLOPS, TPU_HBM_BW, TPU_ICI_BW,
+                           TPU_VMEM_BYTES)
 from .predict import (Profiler, cuda_kernel_runner, fit_linear,
                       host_cpu_runner, load_profiles, relative_error, rmse,
                       save_profiles, simulated_runner)
@@ -56,7 +58,8 @@ __all__ = [
     "engine_finish_times",
     "CopyModel", "DeviceProfile", "LinearTimeModel", "NO_COPY",
     "RooflineTimeModel", "paper_mach1", "paper_mach2", "priority_order",
-    "with_pipeline",
+    "tpu_group", "with_pipeline", "TPU_PEAK_FLOPS", "TPU_HBM_BW",
+    "TPU_ICI_BW", "TPU_VMEM_BYTES",
     "Profiler", "cuda_kernel_runner", "fit_linear", "host_cpu_runner",
     "load_profiles", "relative_error", "rmse", "save_profiles",
     "simulated_runner",

@@ -3,9 +3,9 @@
 The paper models each device's GEMM execution time as a *linear* function of
 the operation count ``ops = m*n*k`` (paper §4.1.1), plus a bandwidth-based
 copy-time model (paper Eq. 4).  We keep exactly that structure, generalized so
-the same machinery drives the paper's CPU/GPU/XPU case study.  The
-reference's TPU device-group profile (``tpu_group``) waits for the
-distributed layer of this package.
+the same machinery drives the paper's CPU/GPU/XPU case study and the
+reference's planning model of a TPU device group (``tpu_group``), which is
+kept so that plans made with it match the reference's.
 """
 from __future__ import annotations
 
@@ -231,3 +231,31 @@ def paper_mach2() -> list[DeviceProfile]:
                       CopyModel(pcie3, dtype_size=2), align_m=8, align_k=8),
     ]
 
+
+# The reference's planning model of one TPU chip, copied as it stands so
+# that a plan over ``tpu_group`` profiles is the reference's plan, byte for
+# byte.  These are inputs to planning, not measurements of any device this
+# package runs on.
+TPU_PEAK_FLOPS = 197e12
+TPU_HBM_BW = 819e9
+TPU_ICI_BW = 50e9
+TPU_VMEM_BYTES = 128 * 1024 * 1024
+
+
+def tpu_group(name: str, chips: int, *, derate: float = 1.0,
+              feed_bw: float = TPU_ICI_BW,
+              overhead_s: float = 5e-5) -> DeviceProfile:
+    """A pod-slice of ``chips`` TPU chips as one schedulable POAS device.
+
+    ``derate`` < 1 models stragglers / older generations / thermal throttle.
+    """
+    peak_ops = chips * TPU_PEAK_FLOPS * derate / 2.0
+    return DeviceProfile(
+        name, "tpu-group",
+        RooflineTimeModel(peak_ops_per_s=peak_ops,
+                          hbm_bytes_per_s=chips * TPU_HBM_BW * derate,
+                          bytes_per_op=0.0, overhead_s=overhead_s),
+        CopyModel(feed_bw * chips, dtype_size=2),
+        align_m=8, align_k=128,
+        cache_bytes=TPU_VMEM_BYTES,
+    )

@@ -7,6 +7,11 @@
 // before both products; masks are causal (q_pos >= k_pos), sliding window
 // (k_pos > q_pos - window, window 0 = full) and padding (k_pos < Skv);
 // query head h reads KV head h // (H / KH); the output is in q's dtype.
+// Query row i sits at position q_offset + i (q_offset >= 0, the absolute
+// position of q[0] in chunked prefill, as the reference model stack's
+// flash_attention takes it); keys sit at 0..Skv-1.  A row that keeps no key
+// is written as 0: masked scores are dropped, so its l stays 0 and
+// acc / max(l, 1e-30) is 0 (the reference gives it a mean of V, C0d).
 //
 // Route: the wrapper sends float32 here (IEEE f32, which the 2e-5 gate
 // needs and TF32 cannot meet) and bf16 only at head dims that are not
@@ -100,7 +105,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  float* __restrict__ lse, int64_t sq,
                  int64_t skv, int64_t heads, int64_t kv_heads, int dk, int dv,
                  Strides qs, Strides ks, Strides vs, Strides os, int causal,
-                 int64_t window, float scale) {
+                 int64_t window, int64_t q_offset, float scale) {
   extern __shared__ float smem[];
   const int ldk = dk + 1;        // odd row pitch: conflict-free K reads
   constexpr int LDP = BK + 1;
@@ -132,12 +137,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < DVT; ++j) acc[i][j] = 0.f;
   }
 
-  // The KV band this q-tile can see; tiles outside it are skipped.
-  const int64_t q_last = (q0 + BQ < sq ? q0 + BQ : sq) - 1;
+  // The KV band this q-tile can see (query positions qa0..qa_last);
+  // tiles outside it are skipped.
+  const int64_t qa0 = q_offset + q0;
+  const int64_t qa_last = q_offset + (q0 + BQ < sq ? q0 + BQ : sq) - 1;
   int64_t kv_end = skv;
-  if (causal && q_last + 1 < kv_end) kv_end = q_last + 1;
+  if (causal && qa_last + 1 < kv_end) kv_end = qa_last + 1;
   int64_t kv_begin = 0;
-  if (window > 0 && q0 - window + 1 > 0) kv_begin = q0 - window + 1;
+  if (window > 0 && qa0 - window + 1 > 0) kv_begin = qa0 - window + 1;
   kv_begin -= kv_begin % BK;
 
   for (int64_t k0 = kv_begin; k0 < kv_end; k0 += BK) {
@@ -171,7 +178,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
     for (int i = 0; i < RT; ++i) {
-      const int64_t qp = q0 + ty * RT + i;
+      const int64_t qp = qa0 + ty * RT + i;
       float mx = NEG_INF;
 #pragma unroll
       for (int j = 0; j < CT; ++j) {
@@ -235,7 +242,8 @@ int launch_dvt(const void* q, const void* k, const void* v, void* o,
                float* lse, int64_t batch, int64_t sq, int64_t skv,
                int64_t heads, int64_t kv_heads, int dk, int dv, Strides qs,
                Strides ks, Strides vs, Strides os, int causal,
-               int64_t window, float scale, cudaStream_t stream) {
+               int64_t window, int64_t q_offset, float scale,
+               cudaStream_t stream) {
   const size_t smem = sizeof(float) *
       (static_cast<size_t>(BQ + BK) * (dk + 1) + BK * dv + BQ * (BK + 1));
   cudaError_t err = cudaFuncSetAttribute(
@@ -248,7 +256,7 @@ int launch_dvt(const void* q, const void* k, const void* v, void* o,
   flash_fwd_kernel<T, DVT><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, sq, skv, heads,
-      kv_heads, dk, dv, qs, ks, vs, os, causal, window, scale);
+      kv_heads, dk, dv, qs, ks, vs, os, causal, window, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -256,7 +264,8 @@ template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int64_t batch, int64_t sq, int64_t skv, int64_t heads,
            int64_t kv_heads, int64_t dk, int64_t dv, const int64_t* st,
-           int64_t causal, int64_t window, float scale, void* stream) {
+           int64_t causal, int64_t window, float scale, int64_t q_offset,
+           void* stream) {
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
       vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
   auto s = static_cast<cudaStream_t>(stream);
@@ -265,12 +274,15 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   float* l = static_cast<float*>(lse);
   if (dv <= 64)
     return launch_dvt<T, 4>(q, k, v, o, l, batch, sq, skv, heads, kv_heads,
-                            ik, iv, qs, ks, vs, os, c, window, scale, s);
+                            ik, iv, qs, ks, vs, os, c, window, q_offset,
+                            scale, s);
   if (dv <= 128)
     return launch_dvt<T, 8>(q, k, v, o, l, batch, sq, skv, heads, kv_heads,
-                            ik, iv, qs, ks, vs, os, c, window, scale, s);
+                            ik, iv, qs, ks, vs, os, c, window, q_offset,
+                            scale, s);
   return launch_dvt<T, 16>(q, k, v, o, l, batch, sq, skv, heads, kv_heads,
-                           ik, iv, qs, ks, vs, os, c, window, scale, s);
+                           ik, iv, qs, ks, vs, os, c, window, q_offset,
+                           scale, s);
 }
 
 }  // namespace
@@ -279,17 +291,17 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
 // v (B, Skv, KH, Dv), o (B, Sq, H, Dv), each with unit stride on its last
 // dim; lse (B, H, Sq) f32, contiguous, or null (not written); `strides`
 // holds 12 element strides: (batch, seq, head) of q, k, v, o in that
-// order.  The caller checks 1 <= Dk, Dv <= 256 and H % KH == 0.  The
-// launch is queued on `stream` and not synchronised; the return value is
-// cudaGetLastError().
+// order; q_offset >= 0 is the position of query row 0.  The caller checks
+// 1 <= Dk, Dv <= 256 and H % KH == 0.  The launch is queued on `stream`
+// and not synchronised; the return value is cudaGetLastError().
 extern "C" int poas_flash_f32(const void* q, const void* k, const void* v,
                               void* o, void* lse, int64_t batch, int64_t sq,
                               int64_t skv, int64_t heads, int64_t kv_heads,
                               int64_t dk, int64_t dv, const int64_t* strides,
                               int64_t causal, int64_t window, float scale,
-                              void* stream) {
+                              int64_t q_offset, void* stream) {
   return launch<float>(q, k, v, o, lse, batch, sq, skv, heads, kv_heads, dk,
-                       dv, strides, causal, window, scale, stream);
+                       dv, strides, causal, window, scale, q_offset, stream);
 }
 
 extern "C" int poas_flash_bf16(const void* q, const void* k, const void* v,
@@ -297,8 +309,8 @@ extern "C" int poas_flash_bf16(const void* q, const void* k, const void* v,
                                int64_t skv, int64_t heads, int64_t kv_heads,
                                int64_t dk, int64_t dv, const int64_t* strides,
                                int64_t causal, int64_t window, float scale,
-                               void* stream) {
+                               int64_t q_offset, void* stream) {
   return launch<__nv_bfloat16>(q, k, v, o, lse, batch, sq, skv, heads,
                                kv_heads, dk, dv, strides, causal, window,
-                               scale, stream);
+                               scale, q_offset, stream);
 }

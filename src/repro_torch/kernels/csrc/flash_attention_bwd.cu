@@ -10,9 +10,9 @@
 // output o and its gradient dO (B, Sq, H, Dv), and each row's log-sum-exp
 // of its scaled scores, lse (B, H, Sq) f32, written by the forward kernels.
 // Masks as the forward: causal (q_pos >= k_pos), window (k_pos > q_pos -
-// window, 0 = full), padding (k_pos < Skv); query head h reads KV head
-// h // (H / KH).  Outputs dq, dk, dv in f32, contiguous; the wrapper rounds
-// them to the inputs' dtypes.
+// window, 0 = full), padding (k_pos < Skv), query row i at position
+// q_offset + i; query head h reads KV head h // (H / KH).  Outputs dq,
+// dk, dv in f32, contiguous; the wrapper rounds them to the inputs' dtypes.
 //
 //   P = exp(S * scale - lse) on kept pairs, dV = P^T dO, dP = dO V^T,
 //   D = rowsum(dO o O), dS = P o (dP - D), dQ = scale dS K, dK = scale dS^T Q
@@ -76,11 +76,14 @@ struct Shape {
   int causal;
   int64_t window;
   float scale;
+  int64_t q_offset;   // position of query row 0
 };
 
+// Query row qp (from 0) sits at position q_offset + qp.
 __device__ __forceinline__ bool kept(int64_t qp, int64_t kp, const Shape& sh) {
-  return qp < sh.sq && kp < sh.skv && (!sh.causal || kp <= qp) &&
-         (sh.window <= 0 || kp > qp - sh.window);
+  const int64_t qa = sh.q_offset + qp;
+  return qp < sh.sq && kp < sh.skv && (!sh.causal || kp <= qa) &&
+         (sh.window <= 0 || kp > qa - sh.window);
 }
 
 // Rows [r0, r0 + 64) and columns [c0, c0 + 64) of one (batch, head) slice
@@ -192,13 +195,14 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < CT; ++j) acc_k[c][i][j] = acc_v[c][i][j] = 0.f;
 
-  // The query band of this key tile; tiles outside it are skipped.
+  // The query rows of this key tile's band (row i at position q_offset +
+  // i); tiles outside it are skipped.
   const int64_t k_last = (k0 + BT < sh.skv ? k0 + BT : sh.skv) - 1;
-  int64_t q_begin = sh.causal ? k0 : 0;
+  int64_t q_begin = sh.causal && k0 > sh.q_offset ? k0 - sh.q_offset : 0;
   q_begin -= q_begin % BT;
   int64_t q_end = sh.sq;
-  if (sh.window > 0 && k_last + sh.window < q_end)
-    q_end = k_last + sh.window;
+  if (sh.window > 0 && k_last + sh.window - sh.q_offset < q_end)
+    q_end = k_last + sh.window - sh.q_offset;
 
   for (int64_t g = 0; g < group; ++g) {
     const int64_t h = kh * group + g;
@@ -332,12 +336,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < CT; ++j) acc[c][i][j] = 0.f;
 
-  // The key band of this query tile; tiles outside it are skipped.
-  const int64_t q_last = (q0 + BT < sh.sq ? q0 + BT : sh.sq) - 1;
+  // The key band of this query tile (positions qa0..qa_last); tiles
+  // outside it are skipped.
+  const int64_t qa0 = sh.q_offset + q0;
+  const int64_t qa_last = sh.q_offset + (q0 + BT < sh.sq ? q0 + BT : sh.sq) - 1;
   int64_t kv_end = sh.skv;
-  if (sh.causal && q_last + 1 < kv_end) kv_end = q_last + 1;
+  if (sh.causal && qa_last + 1 < kv_end) kv_end = qa_last + 1;
   int64_t kv_begin = 0;
-  if (sh.window > 0 && q0 - sh.window + 1 > 0) kv_begin = q0 - sh.window + 1;
+  if (sh.window > 0 && qa0 - sh.window + 1 > 0) kv_begin = qa0 - sh.window + 1;
   kv_begin -= kv_begin % BT;
 
   for (int64_t k0 = kv_begin; k0 < kv_end; k0 += BT) {
@@ -444,12 +450,12 @@ int launch(const void* q, const void* k, const void* v, const void* o,
            void* D, int64_t batch, int64_t sq, int64_t skv, int64_t heads,
            int64_t kv_heads, int64_t dk_dim, int64_t dv_dim,
            const int64_t* st, int64_t causal, int64_t window, float scale,
-           void* stream) {
+           int64_t q_offset, void* stream) {
   if (dk_dim < 1 || dk_dim > 256 || dv_dim < 1 || dv_dim > 256)
     return static_cast<int>(cudaErrorInvalidValue);
   const Shape sh{sq, skv, heads, kv_heads, static_cast<int>(dk_dim),
                  static_cast<int>(dv_dim), static_cast<int>(causal), window,
-                 scale};
+                 scale, q_offset};
   const int64_t wide = dk_dim > dv_dim ? dk_dim : dv_dim;
   auto s = static_cast<cudaStream_t>(stream);
   auto cq = static_cast<const T*>(q);
@@ -485,10 +491,11 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 // its last dim; lse (B, H, Sq) f32 contiguous; dq (B, Sq, H, Dk), dk
 // (B, Skv, KH, Dk), dv (B, Skv, KH, Dv) f32 contiguous outputs (every
 // element written); D (B, H, Sq) f32 scratch.  `strides` holds 15 element
-// strides: (batch, seq, head) of q, k, v, o, dout in that order.  The
-// caller checks H % KH == 0.  Three kernels are queued on `stream` and not
-// synchronised; the return value is the first launch error, or
-// cudaErrorInvalidValue for head dims outside 1..256.
+// strides: (batch, seq, head) of q, k, v, o, dout in that order; q_offset
+// >= 0 is the position of query row 0.  The caller checks H % KH == 0.
+// Three kernels are queued on `stream` and not synchronised; the return
+// value is the first launch error, or cudaErrorInvalidValue for head dims
+// outside 1..256.
 extern "C" int poas_flash_bwd_f32(const void* q, const void* k,
                                   const void* v, const void* o,
                                   const void* dout, const void* lse,
@@ -498,10 +505,10 @@ extern "C" int poas_flash_bwd_f32(const void* q, const void* k,
                                   int64_t dk_dim, int64_t dv_dim,
                                   const int64_t* strides, int64_t causal,
                                   int64_t window, float scale,
-                                  void* stream) {
+                                  int64_t q_offset, void* stream) {
   return launch<float>(q, k, v, o, dout, lse, dq, dk, dv, D, batch, sq, skv,
                        heads, kv_heads, dk_dim, dv_dim, strides, causal,
-                       window, scale, stream);
+                       window, scale, q_offset, stream);
 }
 
 extern "C" int poas_flash_bwd_bf16(const void* q, const void* k,
@@ -513,8 +520,9 @@ extern "C" int poas_flash_bwd_bf16(const void* q, const void* k,
                                    int64_t dk_dim, int64_t dv_dim,
                                    const int64_t* strides, int64_t causal,
                                    int64_t window, float scale,
-                                   void* stream) {
+                                   int64_t q_offset, void* stream) {
   return launch<__nv_bfloat16>(q, k, v, o, dout, lse, dq, dk, dv, D, batch,
                                sq, skv, heads, kv_heads, dk_dim, dv_dim,
-                               strides, causal, window, scale, stream);
+                               strides, causal, window, scale, q_offset,
+                               stream);
 }

@@ -10,8 +10,9 @@
 // output o and its gradient dO (B, Sq, H, Dv), all bf16, and each row's
 // log-sum-exp of its scaled scores, lse (B, H, Sq) f32, written by the
 // forward kernels.  Masks as the forward: causal (q_pos >= k_pos), window
-// (k_pos > q_pos - window, 0 = full), padding (k_pos < Skv, q_pos < Sq);
-// query head h reads KV head h // (H / KH).  Outputs dq, dk, dv in bf16,
+// (k_pos > q_pos - window, 0 = full), padding (k_pos < Skv, q_pos < Sq),
+// query row i at position q_offset + i; query head h reads KV head
+// h // (H / KH).  Outputs dq, dk, dv in bf16,
 // contiguous, written straight from the f32 accumulators.
 //
 //   P = exp(S * scale - lse) on kept pairs, dV = P^T dO, dP = dO V^T,
@@ -97,6 +98,7 @@ struct Shape {
   int causal;
   int64_t window;
   float scale;
+  int64_t q_offset;   // position of query row 0
 };
 
 // 2^x on the SFU, denormal results flushed to 0.
@@ -111,17 +113,20 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
+// Query row qp (from 0) sits at position q_offset + qp.
 __device__ __forceinline__ bool kept(int64_t qp, int64_t kp, const Shape& sh) {
-  return qp < sh.sq && kp < sh.skv && (!sh.causal || kp <= qp) &&
-         (sh.window <= 0 || kp > qp - sh.window);
+  const int64_t qa = sh.q_offset + qp;
+  return qp < sh.sq && kp < sh.skv && (!sh.causal || kp <= qa) &&
+         (sh.window <= 0 || kp > qa - sh.window);
 }
 
-// True when some pair of the (q0.., k0..) 64 x 64 tile is masked.
+// True when some pair of the (rows q0.., keys k0..) 64 x 64 tile is masked.
 __device__ __forceinline__ bool edge_tile(int64_t q0, int64_t k0,
                                           const Shape& sh) {
+  const int64_t qa0 = sh.q_offset + q0;
   return q0 + BT > sh.sq || k0 + BT > sh.skv ||
-         (sh.causal && k0 + BT - 1 > q0) ||
-         (sh.window > 0 && k0 <= q0 + BT - 1 - sh.window);
+         (sh.causal && k0 + BT - 1 > qa0) ||
+         (sh.window > 0 && k0 <= qa0 + BT - 1 - sh.window);
 }
 
 // 64 rows x d columns (d a multiple of 8) of a strided bf16 tensor into
@@ -276,12 +281,14 @@ flash_bwd_sm90_dkdv(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int64_t kh = blockIdx.y, b = blockIdx.z;
   const int64_t group = sh.heads / sh.kv_heads;
 
-  // The query band of this key tile; tiles outside it are skipped.
+  // The query rows of this key tile's band (row i at position q_offset +
+  // i); tiles outside it are skipped.
   const int64_t k_last = (k0 + BT < sh.skv ? k0 + BT : sh.skv) - 1;
-  int64_t q_begin = sh.causal ? k0 : 0;
+  int64_t q_begin = sh.causal && k0 > sh.q_offset ? k0 - sh.q_offset : 0;
   q_begin -= q_begin % BT;
   int64_t q_end = sh.sq;
-  if (sh.window > 0 && k_last + sh.window < q_end) q_end = k_last + sh.window;
+  if (sh.window > 0 && k_last + sh.window - sh.q_offset < q_end)
+    q_end = k_last + sh.window - sh.q_offset;
   const int nqt = q_end > q_begin
       ? static_cast<int>((q_end - q_begin + BT - 1) / BT) : 0;
   const int n_it = static_cast<int>(group) * nqt;
@@ -415,12 +422,14 @@ flash_bwd_sm90_dq(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + b * ks.b + kh * ks.h;
   const bf16* vb = v + b * vs.b + kh * vs.h;
 
-  // The key band of this query tile; tiles outside it are skipped.
-  const int64_t q_last = (q0 + BT < sh.sq ? q0 + BT : sh.sq) - 1;
+  // The key band of this query tile (positions qa0..qa_last); tiles
+  // outside it are skipped.
+  const int64_t qa0 = sh.q_offset + q0;
+  const int64_t qa_last = sh.q_offset + (q0 + BT < sh.sq ? q0 + BT : sh.sq) - 1;
   int64_t kv_end = sh.skv;
-  if (sh.causal && q_last + 1 < kv_end) kv_end = q_last + 1;
+  if (sh.causal && qa_last + 1 < kv_end) kv_end = qa_last + 1;
   int64_t kv_begin = 0;
-  if (sh.window > 0 && q0 - sh.window + 1 > 0) kv_begin = q0 - sh.window + 1;
+  if (sh.window > 0 && qa0 - sh.window + 1 > 0) kv_begin = qa0 - sh.window + 1;
   kv_begin -= kv_begin % BT;
   const int n_tiles = kv_end > kv_begin
       ? static_cast<int>((kv_end - kv_begin + BT - 1) / BT) : 0;
@@ -585,10 +594,11 @@ extern "C" int poas_flash_bwd_sm90_smem(int64_t dk, int64_t dv) {
 // contiguous; dq (B, Sq, H, Dk), dk (B, Skv, KH, Dk), dv (B, Skv, KH, Dv)
 // bf16 contiguous outputs (every element written); D (B, H, Sq) f32
 // scratch.  `strides` holds 15 element strides: (batch, seq, head) of q,
-// k, v, o, dout in that order.  The caller checks H % KH == 0.  Three
-// kernels are queued on `stream` and not synchronised; the return value is
-// the first launch error, or cudaErrorInvalidValue for head dims other
-// than 16, 32, ..., 128 or unaligned operands (nothing launched).
+// k, v, o, dout in that order; q_offset >= 0 is the position of query row
+// 0.  The caller checks H % KH == 0.  Three kernels are queued on
+// `stream` and not synchronised; the return value is the first launch
+// error, or cudaErrorInvalidValue for head dims other than 16, 32, ...,
+// 128 or unaligned operands (nothing launched).
 extern "C" int poas_flash_bwd_sm90_bf16(const void* q, const void* k,
                                         const void* v, const void* o,
                                         const void* dout, const void* lse,
@@ -599,7 +609,8 @@ extern "C" int poas_flash_bwd_sm90_bf16(const void* q, const void* k,
                                         int64_t dv_dim,
                                         const int64_t* strides,
                                         int64_t causal, int64_t window,
-                                        float scale, void* stream) {
+                                        float scale, int64_t q_offset,
+                                        void* stream) {
   if (dk_dim < 16 || dk_dim > 128 || dk_dim % 16 || dv_dim < 16 ||
       dv_dim > 128 || dv_dim % 16)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -609,7 +620,7 @@ extern "C" int poas_flash_bwd_sm90_bf16(const void* q, const void* k,
       return static_cast<int>(cudaErrorInvalidValue);
   const Shape sh{sq, skv, heads, kv_heads, static_cast<int>(dk_dim),
                  static_cast<int>(dv_dim), static_cast<int>(causal), window,
-                 scale};
+                 scale, q_offset};
   auto s = static_cast<cudaStream_t>(stream);
   auto cq = static_cast<const bf16*>(q);
   auto ck = static_cast<const bf16*>(k);

@@ -6,7 +6,11 @@
 // KV axis carries a running f32 (m, l, acc); masks are causal
 // (q_pos >= k_pos), sliding window (k_pos > q_pos - window, window 0 = full)
 // and padding (k_pos < Skv); query head h reads KV head h // (H / KH); the
-// output is in q's dtype.  This source takes the bf16 inputs whose head dims
+// output is in q's dtype.  Query row i sits at position q_offset + i (the
+// absolute position of q[0] in chunked prefill, as the reference model
+// stack's flash_attention takes it), keys at 0..Skv-1; a row that keeps no
+// key is written as 0 (its l stays 0; the reference gives it a mean of V,
+// C0d).  This source takes the bf16 inputs whose head dims
 // Dk, Dv are multiples of 16 up to 256; csrc/flash_attention.cu (IEEE f32 on
 // the CUDA cores) takes float32 and every other bf16 shape.  The wrapper's
 // route() says which, by that rule and nothing else.
@@ -254,7 +258,7 @@ flash_sm90_kernel(const __nv_bfloat16* __restrict__ q,
                   int64_t sq, int64_t skv,
                   int64_t heads, int64_t kv_heads, int dk, int dv,
                   Strides qs, Strides ks, Strides vs, Strides os, int causal,
-                  int64_t window, float scale) {
+                  int64_t window, int64_t q_offset, float scale) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t q_smem = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const int dkb = (dk + 63) / 64;
@@ -264,6 +268,7 @@ flash_sm90_kernel(const __nv_bfloat16* __restrict__ q,
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   // Launch the latest query tiles (the longest causal rows) first.
   const int64_t q0 = static_cast<int64_t>(gridDim.x - 1 - blockIdx.x) * BQ;
+  const int64_t qa0 = q_offset + q0;   // position of the tile's row 0
   const int64_t h = blockIdx.y, b = blockIdx.z;
   const int64_t kh = h / (heads / kv_heads);
   const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
@@ -271,11 +276,11 @@ flash_sm90_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* vb = v + b * vs.b + kh * vs.h;
 
   // The KV band this q-tile can see; tiles outside it are skipped.
-  const int64_t q_last = (q0 + BQ < sq ? q0 + BQ : sq) - 1;
+  const int64_t qa_last = q_offset + (q0 + BQ < sq ? q0 + BQ : sq) - 1;
   int64_t kv_end = skv;
-  if (causal && q_last + 1 < kv_end) kv_end = q_last + 1;
+  if (causal && qa_last + 1 < kv_end) kv_end = qa_last + 1;
   int64_t kv_begin = 0;
-  if (window > 0 && q0 - window + 1 > 0) kv_begin = q0 - window + 1;
+  if (window > 0 && qa0 - window + 1 > 0) kv_begin = qa0 - window + 1;
   kv_begin -= kv_begin % BK;
   const int n_tiles = kv_end > kv_begin
       ? static_cast<int>((kv_end - kv_begin + BK - 1) / BK) : 0;
@@ -329,13 +334,13 @@ flash_sm90_kernel(const __nv_bfloat16* __restrict__ q,
     wg_wait0();
     fence_regs(s);
 
-    const bool edge = k0 + BK > skv || (causal && k0 + BK - 1 > q0) ||
-                      (window > 0 && k0 <= q0 + BQ - 1 - window);
+    const bool edge = k0 + BK > skv || (causal && k0 + BK - 1 > qa0) ||
+                      (window > 0 && k0 <= qa0 + BQ - 1 - window);
     if (edge)
-      softmax_tile<true>(s, m, l, corr, sl2, q0 + row, k0 + cq, skv, causal,
+      softmax_tile<true>(s, m, l, corr, sl2, qa0 + row, k0 + cq, skv, causal,
                          window);
     else
-      softmax_tile<false>(s, m, l, corr, sl2, q0 + row, k0 + cq, skv, causal,
+      softmax_tile<false>(s, m, l, corr, sl2, qa0 + row, k0 + cq, skv, causal,
                           window);
 
     uint32_t pa[4][4];   // P as the A operand, 16 keys a step
@@ -407,7 +412,8 @@ int launch_cfg(const void* q, const void* k, const void* v, void* o,
                float* lse, int64_t batch, int64_t sq, int64_t skv,
                int64_t heads, int64_t kv_heads, int dk, int dv, Strides qs,
                Strides ks, Strides vs, Strides os, int causal,
-               int64_t window, float scale, cudaStream_t stream) {
+               int64_t window, int64_t q_offset, float scale,
+               cudaStream_t stream) {
   const size_t smem = smem_bytes(dk, dv);
   cudaError_t err = cudaFuncSetAttribute(
       flash_sm90_kernel<DVB>,
@@ -421,7 +427,7 @@ int launch_cfg(const void* q, const void* k, const void* v, void* o,
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
       lse, sq, skv, heads, kv_heads, dk, dv, qs, ks, vs, os, causal, window,
-      scale);
+      q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -438,9 +444,10 @@ extern "C" int poas_flash_sm90_smem(int64_t dk, int64_t dv) {
 // last dim, 16-byte aligned base and (batch, seq, head) strides that are
 // multiples of 8 elements; lse (B, H, Sq) f32, contiguous, or null (not
 // written); `strides` holds those 12 element strides of q, k, v, o in that
-// order.  The caller checks H % KH == 0.  The launch is queued on
-// `stream` and not synchronised; the return value is cudaGetLastError(), or
-// cudaErrorInvalidValue for head dims other than 16, 32, ..., 256.
+// order; q_offset >= 0 is the position of query row 0.  The caller checks
+// H % KH == 0.  The launch is queued on `stream` and not synchronised; the
+// return value is cudaGetLastError(), or cudaErrorInvalidValue for head dims
+// other than 16, 32, ..., 256.
 extern "C" int poas_flash_sm90_bf16(const void* q, const void* k,
                                     const void* v, void* o, void* lse,
                                     int64_t batch, int64_t sq, int64_t skv,
@@ -448,7 +455,7 @@ extern "C" int poas_flash_sm90_bf16(const void* q, const void* k,
                                     int64_t dk, int64_t dv,
                                     const int64_t* st, int64_t causal,
                                     int64_t window, float scale,
-                                    void* stream) {
+                                    int64_t q_offset, void* stream) {
   if (dk < 16 || dk > 256 || dk % 16 || dv < 16 || dv > 256 || dv % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
@@ -460,15 +467,19 @@ extern "C" int poas_flash_sm90_bf16(const void* q, const void* k,
   switch ((dv + 63) / 64) {
     case 1:
       return launch_cfg<1>(q, k, v, o, l, batch, sq, skv, heads, kv_heads, ik,
-                           iv, qs, ks, vs, os, c, window, scale, s);
+                           iv, qs, ks, vs, os, c, window, q_offset, scale,
+                           s);
     case 2:
       return launch_cfg<2>(q, k, v, o, l, batch, sq, skv, heads, kv_heads, ik,
-                           iv, qs, ks, vs, os, c, window, scale, s);
+                           iv, qs, ks, vs, os, c, window, q_offset, scale,
+                           s);
     case 3:
       return launch_cfg<3>(q, k, v, o, l, batch, sq, skv, heads, kv_heads, ik,
-                           iv, qs, ks, vs, os, c, window, scale, s);
+                           iv, qs, ks, vs, os, c, window, q_offset, scale,
+                           s);
     default:
       return launch_cfg<4>(q, k, v, o, l, batch, sq, skv, heads, kv_heads, ik,
-                           iv, qs, ks, vs, os, c, window, scale, s);
+                           iv, qs, ks, vs, os, c, window, q_offset, scale,
+                           s);
   }
 }

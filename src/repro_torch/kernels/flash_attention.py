@@ -33,6 +33,13 @@ the reference model's ``flash_attention`` (``src/repro/models/layers.py:90``),
 which the reference differentiates with ``jax.value_and_grad``; the Pallas
 kernel has no backward.
 
+Query row i sits at position ``q_offset + i`` (0 by default; the
+reference model stack's ``q_offset``, the absolute position of q[0] in
+chunked prefill) and keys at 0..Skv-1, in every entry and both plain
+versions.  A row that keeps no key is 0 on both routes and in the plain
+versions; the reference model stack gives it a mean of V instead (ROADMAP
+C0d).
+
 Each entry is an operator (``_nvcc.kernel_op``):
 ``torch.ops.repro_torch.flash_attention`` (o),
 ``flash_attention_lse`` (o and the rows' log-sum-exp) and
@@ -65,20 +72,21 @@ MAX_HEAD_DIM_BWD_SM90 = 128
 _ENTRY = {torch.float32: "poas_flash_f32",
           torch.bfloat16: "poas_flash_bf16"}
 _ENTRY_SM90 = "poas_flash_sm90_bf16"
-# q, k, v, o, lse (null: not written), then shapes, strides, mask, scale.
+# q, k, v, o, lse (null: not written), then shapes, strides, mask, scale,
+# q_offset, stream.
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 7
              + [ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int64] * 2
-             + [ctypes.c_float, ctypes.c_void_p])
+             + [ctypes.c_float, ctypes.c_int64, ctypes.c_void_p])
 _ENTRIES = {n: _ARGTYPES for n in _ENTRY.values()}
 _ENTRIES_SM90 = {_ENTRY_SM90: _ARGTYPES,
                  "poas_flash_sm90_smem": [ctypes.c_int64] * 2}
 _ENTRY_BWD = {torch.float32: "poas_flash_bwd_f32",
               torch.bfloat16: "poas_flash_bwd_bf16"}
 # q, k, v, o, do, lse, dq, dk, dv, D (scratch), shapes, strides of
-# q, k, v, o, do, mask, scale.
+# q, k, v, o, do, mask, scale, q_offset, stream.
 _ARGTYPES_BWD = ([ctypes.c_void_p] * 10 + [ctypes.c_int64] * 7
                  + [ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int64] * 2
-                 + [ctypes.c_float, ctypes.c_void_p])
+                 + [ctypes.c_float, ctypes.c_int64, ctypes.c_void_p])
 _ENTRIES_BWD = {n: _ARGTYPES_BWD for n in _ENTRY_BWD.values()}
 # The same arguments; dq, dk, dv in bf16.
 _ENTRY_BWD_SM90 = "poas_flash_bwd_sm90_bf16"
@@ -151,7 +159,10 @@ def _aligned16(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           q_offset: int) -> None:
+    if q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q, k, v must be 4-D (B, S, H, D)")
     B, _, H, Dk = q.shape
@@ -177,13 +188,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    scale: float | None = None) -> torch.Tensor:
+                    scale: float | None = None,
+                    q_offset: int = 0) -> torch.Tensor:
     """Softmax attention with f32 accumulation; (B, Sq, H, Dv) in q's dtype.
 
     q: (B, Sq, H, Dk); k: (B, Skv, KH, Dk); v: (B, Skv, KH, Dv), float32 or
     bfloat16, unit stride on the last dim (other strides are read as they
     are).  GQA: query head h reads KV head h // (H / KH).  ``window`` > 0
     keeps the last ``window`` keys of each query; 0 is full attention.
+    ``q_offset`` >= 0 is the absolute position of q[0] (query row i sits at
+    ``q_offset + i``, keys at 0..Skv-1); a row that keeps no key is 0.
     CPU tensors run the plain version; CUDA tensors launch the kernel that
     ``route`` names on the current stream without synchronising, and raise
     if it cannot be built or launched.  When autograd records the call
@@ -191,24 +205,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kept for the backward, ``flash_attention_bwd``; otherwise nothing extra
     is written or saved.
     """
-    _check(q, k, v)
-    window = int(window)
+    window, q_offset = int(window), int(q_offset)
+    _check(q, k, v, q_offset)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _FlashAttention.apply(q, k, v, causal, window, scale)
+        return _FlashAttention.apply(q, k, v, causal, window, scale,
+                                     q_offset)
     return torch.ops.repro_torch.flash_attention(q, k, v, causal, window,
-                                                 scale)
+                                                 scale, q_offset)
 
 
-def _forward(q, k, v, causal: bool, window: int, scale, with_lse: bool):
+def _forward(q, k, v, causal: bool, window: int, scale, with_lse: bool,
+             q_offset: int = 0):
     """(o, lse or None): the plain version on the CPU, the route's kernel on
     the card; lse (B, H, Sq) float32 when ``with_lse``."""
     if q.device.type == "cpu":
         if with_lse:
             return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       scale=scale, return_lse=True)
+                                       scale=scale, return_lse=True,
+                                       q_offset=q_offset)
         return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   scale=scale), None
+                                   scale=scale, q_offset=q_offset), None
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     B, Sq, H, Dk = q.shape
@@ -234,7 +251,7 @@ def _forward(q, k, v, causal: bool, window: int, scale, with_lse: bool):
                                       for s in x.stride()[:3]))
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             0 if lse is None else lse.data_ptr(), B, Sq, Skv, H, KH, Dk, Dv,
-            strides, int(causal), window, scale)
+            strides, int(causal), window, scale, q_offset)
     with torch.cuda.device(q.device):
         err = entry(*args, torch.cuda.current_stream(q.device).cuda_stream)
     _nvcc.check(err, f"flash_attention ({kind})")
@@ -259,26 +276,27 @@ class _FlashAttention(torch.autograd.Function):
     log-sum-exp; the backward is ``flash_attention_bwd``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, scale):
-        o, lse = torch.ops.repro_torch.flash_attention_lse(q, k, v, causal,
-                                                           window, scale)
+    def forward(ctx, q, k, v, causal, window, scale, q_offset):
+        o, lse = torch.ops.repro_torch.flash_attention_lse(
+            q, k, v, causal, window, scale, q_offset)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.mask = (causal, window, scale)
+        ctx.mask = (causal, window, scale, q_offset)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        causal, window, scale = ctx.mask
+        causal, window, scale, q_offset = ctx.mask
         dq, dk, dv = flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
-                                         window=window, scale=scale)
-        return dq, dk, dv, None, None, None
+                                         window=window, scale=scale,
+                                         q_offset=q_offset)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
-                        scale: float | None = None):
+                        scale: float | None = None, q_offset: int = 0):
     """Gradients (dq, dk, dv) of ``flash_attention`` in q's, k's and v's
     dtypes, from its inputs, its output ``o``, the output's gradient ``do``
     and the rows' log-sum-exp ``lse`` (B, H, Sq) float32.  CPU tensors run
@@ -286,8 +304,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``route_bwd`` names on the current stream, or raise: ``sm90`` writes
     bf16 gradients straight from its accumulators, ``simt`` writes float32
     ones that are rounded to the inputs' dtypes here."""
-    _check(q, k, v)
-    window = int(window)
+    window, q_offset = int(window), int(q_offset)
+    _check(q, k, v, q_offset)
     B, Sq, H, Dk = q.shape
     if tuple(o.shape) != (B, Sq, H, v.shape[3]) or do.shape != o.shape:
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} and do "
@@ -296,19 +314,22 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "
                          f"{lse.dtype} is not ({B}, {H}, {Sq}) float32")
     return torch.ops.repro_torch.flash_attention_bwd(q, k, v, o, do, lse,
-                                                     causal, window, scale)
+                                                     causal, window, scale,
+                                                     q_offset)
 
 
 def _backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
-              causal: bool, window: int, scale: Optional[float]
+              causal: bool, window: int, scale: Optional[float],
+              q_offset: int = 0
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv): the plain backward on the CPU, the route's kernel on
     the card (the operator ``flash_attention_bwd``)."""
     B, Sq, H, Dk = q.shape
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
-                                       window=window, scale=scale)
+                                       window=window, scale=scale,
+                                       q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device "
                          f"{q.device}")
@@ -346,7 +367,7 @@ def _backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), scratch.data_ptr(), B, Sq, Skv, H, KH, Dk, Dv,
-            strides, int(causal), window, scale)
+            strides, int(causal), window, scale, q_offset)
     with torch.cuda.device(q.device):
         err = entry(*args, torch.cuda.current_stream(q.device).cuda_stream)
     _nvcc.check(err, f"flash_attention_bwd ({kind})")
@@ -377,33 +398,35 @@ def reset_counts() -> None:
             fn.launches = fn.launches_sm90 = fn.launches_simt = 0
 
 
-def band_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+def band_pairs(sq: int, skv: int, causal: bool, window: int,
+               q_offset: int = 0) -> int:
     """(query, key) pairs the mask keeps: key kept iff ``k_pos <= q_pos``
-    (causal) and ``k_pos > q_pos - window`` (window > 0), positions from
-    0 for queries and keys alike, as ``ref._band``."""
-    q = np.arange(sq, dtype=np.int64)
+    (causal) and ``k_pos > q_pos - window`` (window > 0), query row i at
+    ``q_pos = q_offset + i`` and keys at 0..Skv-1, as ``ref._band``."""
+    q = q_offset + np.arange(sq, dtype=np.int64)
     hi = np.minimum(q, skv - 1) if causal else np.full(sq, skv - 1)
     lo = np.maximum(0, q - window + 1) if window > 0 else np.zeros(sq, int)
     return int(np.maximum(0, hi - lo + 1).sum())
 
 
 def attention_flops(q_shape, k_shape, v_shape, causal: bool, window: int,
-                    *_) -> int:
+                    scale=None, q_offset: int = 0) -> int:
     """K2's operations: S = QKᵀ and O = PV over the kept pairs, 2 (Dk + Dv)
     a pair per query head."""
     B, Sq, H, Dk = q_shape
     return (2 * B * H * (Dk + v_shape[3])
-            * band_pairs(Sq, k_shape[1], causal, window))
+            * band_pairs(Sq, k_shape[1], causal, window, q_offset))
 
 
 def attention_bwd_flops(q_shape, k_shape, v_shape, o_shape, do_shape,
-                        lse_shape, causal: bool, window: int, *_) -> int:
+                        lse_shape, causal: bool, window: int, scale=None,
+                        q_offset: int = 0) -> int:
     """K2-bwd's operations: the dK/dV pass's S, dP, dV, dK and the dQ
     pass's S, dP, dQ over the kept pairs, 2 (4 Dk + 3 Dv) a pair per query
     head."""
     B, Sq, H, Dk = q_shape
     return (2 * B * H * (4 * Dk + 3 * v_shape[3])
-            * band_pairs(Sq, k_shape[1], causal, window))
+            * band_pairs(Sq, k_shape[1], causal, window, q_offset))
 
 
 def _score_bytes(matrices: int):
@@ -417,15 +440,16 @@ def _score_bytes(matrices: int):
 
 
 def _op_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                causal: bool, window: int,
-                scale: Optional[float]) -> torch.Tensor:
-    return _forward(q, k, v, causal, window, scale, False)[0]
+                causal: bool, window: int, scale: Optional[float],
+                q_offset: int = 0) -> torch.Tensor:
+    return _forward(q, k, v, causal, window, scale, False, q_offset)[0]
 
 
 def _op_forward_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool, window: int, scale: Optional[float]
+                    causal: bool, window: int, scale: Optional[float],
+                    q_offset: int = 0
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    return _forward(q, k, v, causal, window, scale, True)
+    return _forward(q, k, v, causal, window, scale, True, q_offset)
 
 
 def _fake_o(q, k, v, *_):

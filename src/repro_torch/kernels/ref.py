@@ -29,11 +29,12 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor,
     return (a.float() @ b.float()).to(out_dtype)
 
 
-def _band(sq: int, skv: int, causal: bool, window: int,
-          device) -> torch.Tensor:
+def _band(sq: int, skv: int, causal: bool, window: int, device,
+          q_offset: int = 0) -> torch.Tensor:
     """(Sq, Skv) bool: key kept for query iff ``k_pos <= q_pos`` (causal)
-    and ``k_pos > q_pos - window`` (window > 0)."""
-    qp = torch.arange(sq, device=device)[:, None]
+    and ``k_pos > q_pos - window`` (window > 0); query row i sits at
+    ``q_pos = q_offset + i``, keys at 0..Skv-1."""
+    qp = q_offset + torch.arange(sq, device=device)[:, None]
     kp = torch.arange(skv, device=device)[None, :]
     mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
     if causal:
@@ -45,15 +46,18 @@ def _band(sq: int, skv: int, causal: bool, window: int,
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
-                        scale: float | None = None, return_lse: bool = False):
+                        scale: float | None = None, return_lse: bool = False,
+                        q_offset: int = 0):
     """Masked softmax attention with GQA head grouping, in float32.
 
     q: (B, Sq, H, Dk); k: (B, Skv, KH, Dk); v: (B, Skv, KH, Dv); returns
     (B, Sq, H, Dv) in q's dtype, and with ``return_lse`` also each row's
     log-sum-exp of its scaled scores, (B, H, Sq) in float32.  Query head h
-    reads KV head h // (H/KH).  A key is kept iff ``k_pos <= q_pos``
-    (causal) and ``k_pos > q_pos - window`` (window > 0); masked scores are
-    set to -1e30 before the softmax.
+    reads KV head h // (H/KH).  Query row i sits at position ``q_offset +
+    i``, keys at 0..Skv-1.  A key is kept iff ``k_pos <= q_pos`` (causal)
+    and ``k_pos > q_pos - window`` (window > 0); masked scores are set to
+    -1e30 before the softmax.  A row that keeps no key is 0 (its lse
+    -1e30), as the kernels write it.
     """
     B, Sq, H, Dk = q.shape
     Skv, KH = k.shape[1], k.shape[2]
@@ -64,8 +68,9 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kx = k.to(wide).repeat_interleave(G, dim=2)
     vx = v.to(wide).repeat_interleave(G, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", q.to(wide), kx) * scale
-    s = s.masked_fill(~_band(Sq, Skv, causal, window, q.device), NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    band = _band(Sq, Skv, causal, window, q.device, q_offset)
+    s = s.masked_fill(~band, NEG_INF)
+    p = torch.softmax(s, dim=-1).masked_fill(~band.any(-1)[:, None], 0.0)
     o = torch.einsum("bhqk,bkhd->bqhd", p, vx).to(q.dtype)
     if return_lse:
         return o, torch.logsumexp(s, dim=-1)
@@ -82,13 +87,16 @@ def _group_sum(x: torch.Tensor, groups: int, dim: int) -> torch.Tensor:
 
 def flash_attention_bwd_ref(q, k, v, o, do, lse, *, causal: bool = True,
                             window: int = 0, scale: float | None = None,
-                            round_to: torch.dtype | None = None):
+                            round_to: torch.dtype | None = None,
+                            q_offset: int = 0):
     """Gradients (dq, dk, dv) of ``flash_attention_ref`` given its output
     ``o``, the output's gradient ``do`` and the rows' log-sum-exp ``lse``
     (B, H, Sq), in float32, returned in q's, k's and v's dtypes:
     P = exp(S*scale - lse) on kept pairs, dV = P^T dO, dP = dO V^T,
     D = rowsum(dO o O), dS = P o (dP - D), dQ = scale dS K,
     dK = scale dS^T Q; dK and dV summed over each KV head's query heads.
+    Query row i sits at position ``q_offset + i``; a row that keeps no key
+    has P = 0, so it adds nothing to any gradient and its dq is 0.
 
     ``round_to`` (e.g. ``torch.bfloat16``) rounds P to that dtype before
     dV = P^T dO and dS before dQ and dK, where a tensor-core backward
@@ -104,7 +112,7 @@ def flash_attention_bwd_ref(q, k, v, o, do, lse, *, causal: bool = True,
     kx = k.to(wide).repeat_interleave(G, dim=2)
     vx = v.to(wide).repeat_interleave(G, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", qw, kx) * scale
-    kept = _band(Sq, Skv, causal, window, q.device)
+    kept = _band(Sq, Skv, causal, window, q.device, q_offset)
     p = torch.exp(torch.where(kept, s - lse.to(wide)[..., None],
                               -torch.inf))
     def operand(x):
