@@ -169,13 +169,35 @@ failed check exits non-zero):
              ``sm90`` launches a prefill and none in decode, rates, peak,
              the larger bucket traced; (c) bf16 training at full width
              through ``launch.train``'s objects at the largest depth whose
-             dry-run peak stays under 72 GiB, batch 4 x 2048, remat
+             dry-run peak stays under 66 GiB, batch 4 x 2048, remat
              "full": launches per step, ms/step, tokens/s, model TFLOP/s,
              peak, a traced step, the dry run held as phase 10 (a) holds
              its cells, loss and gradients twice from one state,
              bit-equal; (d) K2 at (b)'s larger prefill and K2-bwd at (c)'s
              step against their plain versions, timed beside their bounds
              and sdpa, and which of sdpa's backends take Dk != Dv.
+13. zoo    — the six configurations no earlier phase runs as models:
+             mamba2-2.7B (attention-free, 80 SSM heads at state 128),
+             stablelm-12b (32/8 heads of 160), musicgen-medium (24/24
+             heads of 64, audio stub), internvl2-26b (48/8 of 128, vision
+             stub), qwen2-72b (QKV bias) and deepseek-67b, weights from a
+             seed; each through the helpers phase 12 uses: (a) a float32
+             gate at full width against the same weights on the host (2
+             layers and 1100 tokens; 1 layer and 512 tokens at d_model
+             8192), prefill against decode, launches per route as
+             ``route``/``route_bwd`` name them; (b) bf16 serving at full
+             width and the largest depth whose weights stay under 64 GiB
+             (a cut for qwen2-72b and deepseek-67b only), phase 6 (b)'s
+             traffic (a stub frontend's bucket shapes as seeded
+             embeddings through ``Model`` itself, which the reference's
+             serving refuses), one K2 or K3 launch a layer a prefill, none
+             in decode, finite logits, rates and peak, mamba2 and
+             stablelm traced; (c) for the first four, bf16 training at the
+             depth the dry run fits under 66 GiB, launches per step,
+             bit-equal reruns, the dry run held; (d) K2 (``sm90``) at
+             stablelm's prefill and K2-bwd (``simt``, bf16) at its step,
+             K3 at mamba2's prefill and K3-bwd at its step, against their
+             plain versions, beside their bounds and sdpa.
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or run outside the
@@ -185,6 +207,7 @@ prints no result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import importlib
 import json
@@ -241,8 +264,9 @@ from repro_torch.kernels.ref import (  # noqa: E402
 from repro_torch.kernels.ssd_chunk import build as build_k3  # noqa: E402
 from repro_torch.kernels.ssd_chunk import entry as k3_entry  # noqa: E402
 from repro_torch.kernels.ssd_chunk import (  # noqa: E402
-    build_bwd as build_k3_bwd, bwd_heads_per_slice, bwd_kernel_figures,
-    bwd_scratch_floats, bwd_smem_bytes, kernel_smem_bytes as k3_kernel_smem,
+    SMEM_LIMIT as k3_smem_limit, build_bwd as build_k3_bwd,
+    bwd_heads_per_slice, bwd_kernel_figures, bwd_scratch_floats,
+    bwd_smem_bytes, kernel_smem_bytes as k3_kernel_smem,
     smem_bytes as k3_smem)
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
@@ -252,8 +276,9 @@ from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
 from repro_torch.models import Model, moe  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models.transformer import chunked_xent  # noqa: E402
-from repro_torch.serving.engine import (PoasDispatcher,  # noqa: E402
-                                        Request, ServingEngine)
+from repro_torch.serving.engine import (Completion,  # noqa: E402
+                                        PoasDispatcher, Request,
+                                        ServingEngine)
 from repro_torch.training.optim import AdamW, cosine_schedule  # noqa: E402
 from repro_torch.training.step import (init_state,  # noqa: E402
                                        make_train_step)
@@ -363,11 +388,27 @@ K2_OFFSET_ROWS = (
     ("offset-empty-rows", 1, 130, 4, 2, 64, 64, 64, True, 300, 350),
     ("offset-noncausal-window", 1, 100, 4, 4, 32, 32, 30, False, 45, 150),
 )
-# Phase 12: minicpm3-4B (MLA).  (a) float32 at 2 layers, also run on the
-# host; (c) the largest depth whose dry-run peak stays under the limit
-# (the full 62 layers are predicted at ~34 GiB at 4 x 2048).
+# Phase 12: minicpm3-4B (MLA), (a) float32 at 2 layers, also run on the
+# host.  Phases 12 and 13: (b) served at the largest depth whose bf16
+# weights stay under SERVE_WEIGHTS (the rest of the card's 79.2 GiB holds
+# the caches, 2.1 GB at qwen2-72b's cut, and the prefill's activations);
+# (c) trained at the largest depth whose dry-run peak stays under
+# TRAIN_PEAK (minicpm3's 62 layers are predicted at ~34 GiB at 4 x 2048).
+# The rest of the card is the caching allocator's: stablelm-12b at 29
+# layers (dry-run peak 71.53 GiB) took four steps at a peak of 71.79 GiB,
+# then ran out of memory on a 1.91 GiB block with 7.19 GiB free in the
+# allocator's cached blocks (NVIDIA H100 80GB HBM3, 700.00 W).
 MLA_ARCH, MLA_GATE_LAYERS = "minicpm3-4b", 2
-MLA_TRAIN_PEAK, MLA_TRAIN_STEPS = 72 * 2**30, 4
+SERVE_WEIGHTS, TRAIN_PEAK = 64 * 2**30, 66 * 2**30
+# Phase 13: the six configurations no earlier phase runs, in this order;
+# all are served, the first four trained (as the reference trains them).
+# ZOO_TRACED's serving is traced, and stablelm-12b's step (K2-bwd's share
+# at head dim 160).  Above d_model ZOO_WIDE (qwen2-72b, deepseek-67b: 8192,
+# vocab up to 152064) the float32 gate takes 1 layer and MOE_GATE_TOKENS,
+# else 2 layers and GATE_TOKENS.
+ZOO = ("mamba2-2_7b", "stablelm-12b", "musicgen-medium", "internvl2-26b",
+       "qwen2-72b", "deepseek-67b")
+ZOO_TRAINED, ZOO_TRACED, ZOO_WIDE = ZOO[:4], ZOO[:2], 6144
 MEASURED: dict = {}       # phase 6's prefill busy s, phase 7's step times
                           # and its traced step's (busy, wall) s
 
@@ -535,9 +576,11 @@ def flash_row(label, gen, B, S, H, KH, Dk, Dv, window, dtype,
     return row
 
 
-def ssd_row(label, gen, b, nc, Q, nh, G, hp, ds, dtype) -> dict:
+def ssd_row(label, gen, b, nc, Q, nh, G, hp, ds, dtype,
+            phase: str = "kernel") -> dict:
     """K3 against its plain version on the same card tensors, then kernel
-    and plain version timed (no single PyTorch call computes it)."""
+    and plain version timed (no single PyTorch call computes it).  The
+    wrapper's shared-memory figure must be the kernel's."""
     name = DTYPE_NAME[dtype]
 
     def rnd(*shape):
@@ -575,9 +618,11 @@ def ssd_row(label, gen, b, nc, Q, nh, G, hp, ds, dtype) -> dict:
     smem = k3_kernel_smem(hp, ds)
     check(smem == k3_smem(hp, ds), f"K3 {label}: the wrapper reckons "
           f"{k3_smem(hp, ds)} bytes of shared memory, the kernel {smem}")
-    say("kernel", f"K3 {label} b{b} NC{nc} Q{Q} nh{nh} G{G} hp{hp} ds{ds} "
+    say(phase, f"K3 {label} b{b} NC{nc} Q{Q} nh{nh} G{G} hp{hp} ds{ds} "
         f"{name} entry {row['entry']} (3xTF32 wgmma{widened}, "
-        f"{smem / 1024:.0f} KiB dynamic shared memory): vs plain "
+        f"{smem / 1024:.0f} KiB dynamic shared memory: the kernel's "
+        f"kernel_smem_bytes {smem} B, the wrapper's smem_bytes "
+        f"{k3_smem(hp, ds)} B of {k3_smem_limit} B a block): vs plain "
         f"max_abs_err={row['max_abs_err']:.3e} violations="
         f"{row['violations']} (rtol=atol={tol}); kernel_ms="
         f"{row['kernel_ms']:.4f} plain_ms={row['plain_ms']:.4f} "
@@ -683,29 +728,46 @@ def check_rows(c, a, b, rows, label: str) -> float:
     return err
 
 
-def prefill_matches_decode(cfg, gen, phase: str = "serve") -> None:
+def inputs_key(cfg) -> str:
+    """The batch key of ``cfg``'s inputs: embeddings for a stub frontend
+    (``Model.embed_inputs``), else token ids."""
+    return "embeds" if cfg.frontend != "none" else "tokens"
+
+
+def prefill_matches_decode(cfg, phase: str = "serve") -> None:
     """Serve phase (a): in float32, decode through plain torch must give
-    the last-token logits of a prefill through K2/K3 over the same tokens
-    (``cfg``'s model, weights from seed 0)."""
+    the last-token logits of a prefill through K2/K3 over the same inputs
+    (``cfg``'s model, weights from seed 0): the greedy tokens fed back, or
+    for a stub frontend seeded embeddings (as ``SyntheticLM`` makes them)."""
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     model = Model(cfg32, device=DEV,
                   generator=torch.Generator(DEV).manual_seed(0))
-    prompt = np.random.default_rng(1).integers(1, cfg.vocab_size,
-                                               SERVE_A_PROMPT)
-    fed: list[int] = []
+    key = inputs_key(cfg)
+    rng = np.random.default_rng(1)
+    if key == "embeds":
+        seq = (rng.standard_normal((SERVE_A_PROMPT + 4, cfg.d_model))
+               .astype(np.float32) * 0.02)
+        prompt = seq[:SERVE_A_PROMPT]
+    else:
+        prompt = rng.integers(1, cfg.vocab_size, SERVE_A_PROMPT)
+    fed: list = []
 
-    def prefill(tokens):
-        return model.prefill({"tokens": torch.as_tensor(
-            np.asarray(tokens)[None], device=DEV)})
+    def prefill(x):
+        return model.prefill({key: torch.as_tensor(np.asarray(x)[None],
+                                                   device=DEV)})
 
     with torch.inference_mode():
         logits, cache = prefill(prompt)
         cache = model.extend_cache(cache, 4)
         for step in range(1, 5):
-            tok = logits.argmax(-1)
-            fed.append(int(tok[0]))
-            logits, cache = model.decode_step(cache, {"tokens": tok[:, None]})
-            want, _ = prefill(np.concatenate([prompt, fed]))
+            if key == "embeds":
+                fed.append(seq[SERVE_A_PROMPT + step - 1])
+                x = torch.as_tensor(fed[-1][None, None], device=DEV)
+            else:
+                x = logits.argmax(-1)[:, None]
+                fed.append(int(x[0, 0]))
+            logits, cache = model.decode_step(cache, {key: x})
+            want, _ = prefill(np.concatenate([prompt, np.asarray(fed)]))
             err = float((logits - want).abs().max())
             ok = torch.allclose(logits, want, rtol=PREFILL_DECODE_TOL,
                                 atol=PREFILL_DECODE_TOL)
@@ -764,40 +826,78 @@ def bucket_tokens(bucket) -> torch.Tensor:
     return torch.from_numpy(prompts).to(DEV)
 
 
+def seeded_embeds(rng, B: int, S: int, d: int) -> torch.Tensor:
+    """(B, S, d) float32 embeddings on the card, as ``SyntheticLM`` makes a
+    stub frontend's: standard normal times 0.02 from ``rng``."""
+    return torch.from_numpy(rng.standard_normal((B, S, d), dtype=np.float32)
+                            * 0.02).to(DEV)
+
+
+def events_s(fn) -> float:
+    """Seconds between two CUDA events around one call of ``fn``."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3
+
+
 def profile_serve(phase: str, model, bucket, breakdown=None,
-                  part: str = "(c)") -> float:
+                  part: str = "(c)", trace: bool = True) -> float:
     """Where a bucket's time goes on the card: one prefill and three decode
     steps under ``torch.profiler``; device-busy share of the host wall time
     and the kernels that take the most device time, then
-    ``breakdown(phase, label, traced's result, part)`` of each trace.  The
-    prefill's and the decode steps' logits must be finite.  Measurement
-    only."""
-    tokens = bucket_tokens(bucket)
+    ``breakdown(phase, label, traced's result, part)`` of each trace.
+    Without ``trace``, the same prefill and steps timed by CUDA events.  A
+    stub frontend's model is fed seeded embeddings.  The prefill's and the
+    decode steps' logits must be finite.  Returns the prefill's device busy
+    seconds (its CUDA-event seconds without ``trace``).  Measurement only."""
+    key = inputs_key(model.cfg)
+    rng = np.random.default_rng(3)
+    if key == "embeds":
+        plen = max(len(r.tokens) for r in bucket)
+        prompt = seeded_embeds(rng, len(bucket), plen, model.cfg.d_model)
+    else:
+        prompt = bucket_tokens(bucket)
+    B, S = prompt.shape[:2]
     with torch.inference_mode():
         out = {}
 
         def prefill():
-            out["logits"], out["cache"] = model.prefill({"tokens": tokens})
+            out["logits"], out["cache"] = model.prefill({key: prompt})
 
-        label = f"prefill of {tokens.shape[0]} x {tokens.shape[1]}"
-        result = traced(phase, label, prefill, 1, part)
-        busy = result[2] if result else float("nan")
-        if breakdown and result:
-            breakdown(phase, label, result, part)
+        label = f"prefill of {B} x {S}"
+        if trace:
+            result = traced(phase, label, prefill, 1, part)
+            busy = result[2] if result else float("nan")
+            if breakdown and result:
+                breakdown(phase, label, result, part)
+        else:
+            busy = events_s(prefill)
+            say(phase, f"{part} {label}: {busy:.4f} s between CUDA events "
+                f"({B * S / busy:.1f} tok/s)")
         check(bool(torch.isfinite(out["logits"]).all()),
               f"({phase}) prefill logits are not finite")
         cache = model.extend_cache(out["cache"], 4)
-        tok = out["logits"].argmax(-1)[:, None]
-        _, cache = model.decode_step(cache, {"tokens": tok})   # warm
+        x = (out["logits"].argmax(-1)[:, None] if key == "tokens"
+             else seeded_embeds(rng, B, 1, model.cfg.d_model))
+        _, cache = model.decode_step(cache, {key: x})   # warm
 
         def decode():
             c = cache
             for _ in range(3):
-                out["logits"], c = model.decode_step(c, {"tokens": tok})
+                out["logits"], c = model.decode_step(c, {key: x})
 
-        result = traced(phase, "3 decode steps", decode, 3, part)
-        if breakdown and result:
-            breakdown(phase, "3 decode steps", result, part)
+        if trace:
+            result = traced(phase, "3 decode steps", decode, 3, part)
+            if breakdown and result:
+                breakdown(phase, "3 decode steps", result, part)
+        else:
+            say(phase, f"{part} 3 decode steps: {events_s(decode) / 3e-3:.2f}"
+                f" ms a step between CUDA events")
         check(bool(torch.isfinite(out["logits"]).all()),
               f"({phase}) decode logits are not finite")
     return busy
@@ -829,24 +929,23 @@ def serve_traffic(phase: str, cfg):
     return buckets, warm
 
 
-def serve_buckets(phase: str, engine, buckets, cfg, card: str = "") -> list:
-    """(b) ``buckets`` through ``engine`` (``cfg``'s model, bf16): each
-    bucket's prefill and decode steps launch K2 once a layer, all
-    ``sm90``, and K3 once a layer where ``cfg`` has SSM layers, all in the
-    prefill, and no other kernel; every completion holds in-vocabulary
-    tokens.  Prints each bucket's rates and peak; returns each bucket's
-    (B * padded length, B, padded length)."""
-    L = cfg.num_layers
-    want = dict.fromkeys(launch_counts(), 0)
-    want["flash_attention/sm90"] = 0 if cfg.is_attention_free else L
-    want["ssd_chunk"] = L if cfg.uses_ssm else 0
+def serve_buckets(phase: str, generate, buckets, cfg, card: str = "") -> list:
+    """(b) ``buckets`` through ``generate`` (``ServingEngine.generate`` of
+    ``cfg``'s model in bf16, or ``embed_generate``): each bucket's prefill
+    and decode steps launch K2 once a layer with attention, on the route
+    ``route`` names, and K3 once a layer where ``cfg`` has SSM layers, all
+    in the prefill, and no other kernel; every completion holds
+    in-vocabulary tokens.  Prints each bucket's rates and peak; returns
+    each bucket's (B * padded length, B, padded length)."""
+    want = kernel_launches(cfg, torch.bfloat16, 1, 0)
+    k2 = f"flash_attention/{route(torch.bfloat16, *attention_dims(cfg))}"
     shapes = []
     for gi, bucket in enumerate(buckets):
         if not bucket:
             continue
         before = launch_counts()
         torch.cuda.reset_peak_memory_stats()
-        done = engine.generate(bucket)
+        done = generate(bucket)
         peak = torch.cuda.max_memory_allocated()
         per = {k: v - before[k] for k, v in launch_counts().items()}
         check(per == want, f"({phase}) bucket {gi}: a prefill and "
@@ -866,7 +965,7 @@ def serve_buckets(phase: str, engine, buckets, cfg, card: str = "") -> list:
             f"{B * (SERVE_MAX_NEW - 1) / dec:.1f} tok/s "
             f"({dec / (SERVE_MAX_NEW - 1) * 1e3:.2f} ms/step); peak "
             f"max_memory_allocated {peak / 2**30:.3f} GiB; K2 "
-            f"+{per['flash_attention/sm90']} (sm90), K3 +{per['ssd_chunk']}"
+            f"+{per[k2]} ({k2.split('/')[1]}), K3 +{per['ssd_chunk']}"
             f"; first completion {done[0].tokens.tolist()}"
             + (f"; {card}" if card else ""))
         shapes.append((B * plen, B, plen))
@@ -887,7 +986,7 @@ def serve(gen) -> tuple[dict, dict, dict]:
         f"(ArchConfig.param_count), weights from seed 0")
     t0 = time.perf_counter()
     reset_k2_counts()
-    prefill_matches_decode(cfg, gen)
+    prefill_matches_decode(cfg)
     sm90_a, simt_a = k2_counts()
     say("serve", f"(a) done in {time.perf_counter() - t0:.1f} s; K2 launches "
         f"sm90 {sm90_a}, simt {simt_a}")
@@ -902,7 +1001,7 @@ def serve(gen) -> tuple[dict, dict, dict]:
     engine.generate(warm)                              # warm-up, not counted
 
     reset_launches()
-    shapes = serve_buckets("serve", engine, buckets, cfg)
+    shapes = serve_buckets("serve", engine.generate, buckets, cfg)
     launches = {"flash_attention/sm90": flash_attention.launches_sm90,
                 "flash_attention/simt": simt_a,
                 "ssd_chunk": ssd_chunk.launches}
@@ -1080,7 +1179,8 @@ def flash_bwd_row(label, gen, B, S, H, KH, Dk, Dv, window, dtype,
 
 
 def ssd_bwd_row(label, gen, b, nc, Q, nh, G, hp, ds, dtype,
-                twice: bool = False) -> dict:
+                twice: bool = False, phase: str = "train",
+                part: str = "(a)") -> dict:
     """K3-bwd against its plain backward on the same card tensors, then
     kernel and plain version timed (no single PyTorch call computes it).
     The wrapper's shared-memory and scratch figures must be the kernel's;
@@ -1145,10 +1245,13 @@ def ssd_bwd_row(label, gen, b, nc, Q, nh, G, hp, ds, dtype,
               + 4 * (2 * b * nc * Q * nh + b * nc * nh * ds * hp))
     row["bound_ms"], row["bound_by"] = roofline(ops, nbytes, "tf32x3")
     row["fma_bound_ms"], _ = roofline(ops, nbytes, "float32")
-    say("train", f"(a) K3-bwd {label} b{b} NC{nc} Q{Q} nh{nh} G{G} hp{hp} "
+    say(phase, f"{part} K3-bwd {label} b{b} NC{nc} Q{Q} nh{nh} G{G} hp{hp} "
         f"ds{ds} {name} (3xTF32 wgmma; {hs} heads a slice, "
         f"{mine[0] / 1024:.0f} KiB dynamic shared memory, {mine[1]} scratch "
-        f"floats): vs plain max_abs_err={err:.3e} violations={bad} "
+        f"floats; (shared memory B, scratch floats): the kernel's "
+        f"bwd_kernel_figures {tuple(theirs)}, the wrapper's bwd_smem_bytes "
+        f"and bwd_scratch_floats {mine}): vs plain max_abs_err={err:.3e} "
+        f"violations={bad} "
         f"(rtol=atol={tol}){extra}; "
         f"kernel_ms={row['kernel_ms']:.4f} plain_ms={row['plain_ms']:.4f} "
         f"library_ms=— (no single PyTorch call) " + bound_text(row)
@@ -1334,6 +1437,14 @@ def launch_counts() -> dict:
             "ssd_chunk_bwd": ssd_chunk_bwd.launches}
 
 
+def add_launches(total: dict, *parts: dict) -> dict:
+    """``total`` with each kernel's launches in ``parts`` added."""
+    for part in parts:
+        for name, n in part.items():
+            total[name] += n
+    return total
+
+
 def profile_step(job, state, batch, phase: str = "train",
                  part: str = "(c)") -> tuple[float, float]:
     """One training step under ``torch.profiler``: device-busy share of
@@ -1452,17 +1563,28 @@ def take_steps(phase: str, part: str, job, steps: int, want: dict,
     return state, data, losses, times, torch.cuda.max_memory_allocated()
 
 
+def kernel_launches(cfg, dtype, forward: int, backward: int) -> dict:
+    """Each kernel's launches over ``forward`` forward and ``backward``
+    backward passes of ``cfg``'s layers in ``dtype``: K2 on the route
+    ``route`` names and K2-bwd on ``route_bwd``'s once a layer with
+    attention, K3 and K3-bwd once a layer with an SSM."""
+    Dk, Dv = attention_dims(cfg)
+    attn = 0 if cfg.is_attention_free else cfg.num_layers
+    ssm = cfg.num_layers if cfg.uses_ssm else 0
+    out = dict.fromkeys(launch_counts(), 0)
+    out[f"flash_attention/{route(dtype, Dk, Dv)}"] += forward * attn
+    out[f"flash_attention_bwd/{route_bwd(dtype, Dk, Dv)}"] += backward * attn
+    out["ssd_chunk"] = forward * ssm
+    out["ssd_chunk_bwd"] = backward * ssm
+    return out
+
+
 def step_launches(cfg) -> dict:
-    """The kernel launches of one bf16 training step of ``cfg``: K2 and K3
-    once a layer forward, again in remat's recompute, and their backwards
-    once a layer."""
+    """The kernel launches of one training step of ``cfg`` in its dtype:
+    K2 and K3 once a layer forward, again in remat's recompute, and their
+    backwards once a layer, each on the route its rule names."""
     fwd = 1 if cfg.remat == "none" else 2     # forward, then recompute
-    L = cfg.num_layers
-    attn = 0 if cfg.is_attention_free else L
-    ssm = L if cfg.uses_ssm else 0
-    return {"flash_attention/sm90": fwd * attn, "flash_attention/simt": 0,
-            "flash_attention_bwd/sm90": attn, "flash_attention_bwd/simt": 0,
-            "ssd_chunk": fwd * ssm, "ssd_chunk_bwd": ssm}
+    return kernel_launches(cfg, getattr(torch, cfg.dtype), fwd, 1)
 
 
 def attention_dims(cfg) -> tuple[int, int]:
@@ -2728,7 +2850,8 @@ def grads_held(job, batch, plain: bool = True) -> dict:
         finally:
             k2_module.flash_attention_bwd = kernel_bwd
         loss = loss.detach()
-        grads = {n: p.grad for n, p in model.named_parameters()}
+        grads = {n: p.grad for n, p in model.named_parameters()
+                 if p.grad is not None}    # a stub frontend's token table
         if run == 0:
             out["loss"], host = loss, {n: g.cpu() for n, g in grads.items()}
         elif run == 1:
@@ -3048,203 +3171,299 @@ def moe_train_phase(gen, card: str) -> dict:
     torch.cuda.empty_cache()
     total = moe_train_gate(cfg, card)
     b, loss_full, batch_n = moe_train_path(gen, cfg, card)
-    parts = [b, dots_hymba(card), dots_dbrx(cfg, loss_full, batch_n, card),
-             llama4_serve(card)]
-    for part in parts:
-        for name, n in part.items():
-            total[name] += n
+    add_launches(total, b, dots_hymba(card),
+                 dots_dbrx(cfg, loss_full, batch_n, card), llama4_serve(card))
     say("moe-train", f"main path launches {total}; done in "
         f"{time.perf_counter() - t0:.1f} s")
     return total
 
 
 # ---------------------------------------------------------------------------
-# Phase 12: minicpm3-4B (MLA) served and trained at full width
+# Phases 12 and 13: one configuration gated, served and trained on the card
 # ---------------------------------------------------------------------------
 
 
-def mla_gate(cfg, card: str) -> dict:
-    """(a) float32, full width cut to ``MLA_GATE_LAYERS`` layers, one
-    ``GATE_TOKENS`` sequence of ``SyntheticLM``: the prefill's last-token
-    logits and the loss with every parameter gradient on the card (K2 and
-    K2-bwd ``simt``) against the same weights moved to the host (the plain
-    versions), at phase 8 (a)'s and phase 7 (b)'s gates; then the same
-    cut's prefill against its absorbed-matmul decode over the latent cache
-    (``prefill_matches_decode``).  Returns the launches of the card's
-    prefill and step, counted from 0."""
-    cut = dataclasses.replace(cfg, num_layers=MLA_GATE_LAYERS,
-                              dtype="float32", remat="none")
+def model_gate(cfg, phase: str, card: str, layers: int, tokens: int) -> dict:
+    """(a) float32, full width cut to ``layers`` layers, one ``tokens``-long
+    sequence of ``SyntheticLM`` (seed 0; embeddings for a stub frontend):
+    the prefill's last-token logits and the loss with every parameter
+    gradient on the card (K2 and K2-bwd ``simt``, K3 and K3-bwd) against
+    the same weights moved to the host (the plain versions), at phase 8
+    (a)'s and phase 7 (b)'s gates, every card gradient finite; then the
+    same cut's prefill against its decode (``prefill_matches_decode``).
+    Launches per route as ``route`` and ``route_bwd`` name them.  Returns
+    the launches of the card's prefills and step, counted from 0."""
+    cut = dataclasses.replace(cfg, num_layers=layers, dtype="float32",
+                              remat="none")
     t0 = time.perf_counter()
-    batch = SyntheticLM(DataConfig(vocab_size=cut.vocab_size,
-                                   seq_len=GATE_TOKENS, global_batch=1,
-                                   seed=0)).batch(0)
+    need = 2 * 4 * cut.param_count()          # float32 weights and grads
+    avail = host_available()
+    check(avail > 1.2 * need, f"(a) the host has {avail / 1e9:.1f} GB "
+          f"available, the gate needs {need / 1e9:.1f} GB and more")
+    key = inputs_key(cut)
+    batch = SyntheticLM(DataConfig(
+        vocab_size=cut.vocab_size, seq_len=tokens, global_batch=1, seed=0,
+        embed_dim=cut.d_model if key == "embeds" else 0)).batch(0)
     card_m = Model(cut, device=DEV,
                    generator=torch.Generator(DEV).manual_seed(0))
     host_m = Model(cut, device="meta")
     host_m.load_state_dict({k: v.cpu() for k, v in
                             card_m.state_dict().items()}, assign=True)
-    logits, losses, grads = {}, {}, {}
+    logits, losses = {}, {}
     reset_launches()
     for where, model in (("card", card_m), ("host", host_m)):
         on = {k: torch.as_tensor(v).to(model.device)
               for k, v in batch.items()}
         with torch.inference_mode():
-            logits[where] = model.prefill(
-                {"tokens": on["tokens"]})[0][0].cpu()
+            logits[where] = model.prefill({key: on[key]})[0][0].cpu()
         model.requires_grad_(True)
         loss = model.loss(on)
         loss.backward()
         losses[where] = float(loss.detach())
-        grads[where] = {n: p.grad.detach().double().cpu()
-                        for n, p in model.named_parameters()}
         if where == "card":
             torch.cuda.synchronize()
             launches = launch_counts()
-    L = cut.num_layers
-    check(launches == {"flash_attention/sm90": 0,
-                       "flash_attention/simt": 2 * L,
-                       "flash_attention_bwd/sm90": 0,
-                       "flash_attention_bwd/simt": L, "ssd_chunk": 0,
-                       "ssd_chunk_bwd": 0},
-          f"(a) the card's float32 prefill and step launched {launches}, "
-          f"not K2 simt {2 * L} and K2-bwd simt {L}")
+    want = kernel_launches(cut, torch.float32, 2, 1)
+    check(launches == want, f"(a) the card's float32 prefill and step "
+          f"launched {launches}, not {want}")
+    rel, finite = {}, True
+    for (name, pc), (_, ph) in zip(card_m.named_parameters(),
+                                   host_m.named_parameters()):
+        if ph.grad is None:      # a stub frontend's token table
+            check(pc.grad is None, f"(a) {name}: a gradient on the card only")
+            continue
+        finite &= bool(torch.isfinite(pc.grad).all())
+        rel[name] = leaf_rel(ph.grad, pc.grad)
+    worst = max(rel, key=rel.get)
+    mixer = max((n for n in rel if ".attn." in n or ".ssm." in n),
+                key=rel.get)
     err = float((logits["card"] - logits["host"]).abs().max())
     ok = torch.allclose(logits["card"], logits["host"],
                         rtol=PREFILL_DECODE_TOL, atol=PREFILL_DECODE_TOL)
-    g_c, g_h = grads["card"], grads["host"]
-    rel = {n: float((g_c[n] - g_h[n]).norm() / g_h[n].norm().clamp(
-        min=1e-30)) for n in g_h}
-    worst = max(rel, key=rel.get)
     loss_rel = abs(losses["card"] - losses["host"]) / abs(losses["host"])
-    mla = max((n for n in rel if ".attn." in n), key=rel.get)
-    say("mla", f"(a) float32 gate, {cut.name} cut to {L} layers, 1 x "
-        f"{GATE_TOKENS} tokens (SyntheticLM seed 0): last-token logits card "
-        f"vs host max_abs_err={err:.3e}, logits std "
+    say(phase, f"(a) float32 gate, {cut.name} cut to {layers} layers, 1 x "
+        f"{tokens} {key} (SyntheticLM seed 0): last-token logits card vs "
+        f"host max_abs_err={err:.3e}, logits std "
         f"{float(logits['host'].std()):.3e}, allclose(rtol=atol="
         f"{PREFILL_DECODE_TOL})={ok}; loss card {losses['card']:.6f} vs host "
         f"{losses['host']:.6f} (rel {loss_rel:.2e} <= {GATE_LOSS_RTOL}); "
-        f"{len(rel)} gradient leaves, worst ||g_card - g_host|| / ||g_host||"
-        f" = {rel[worst]:.3e} ({worst}) <= {GATE_LEAF_RTOL}, worst MLA leaf "
-        f"{rel[mla]:.3e} ({mla}); {time.perf_counter() - t0:.1f} s; {card}")
+        f"{len(rel)} gradient leaves, all finite on the card={finite}, worst "
+        f"||g_card - g_host|| / ||g_host|| = {rel[worst]:.3e} ({worst}) <= "
+        f"{GATE_LEAF_RTOL}, worst attention/SSM leaf {rel[mixer]:.3e} "
+        f"({mixer}); launches {launches}; host MemAvailable "
+        f"{avail / 1e9:.1f} GB; {time.perf_counter() - t0:.1f} s; {card}")
     check(bool(torch.isfinite(logits["card"]).all()) and ok,
           "(a) the card's float32 prefill disagrees with the host's")
     check(math.isfinite(losses["card"]) and loss_rel <= GATE_LOSS_RTOL,
           "(a) the card's loss disagrees with the host's")
+    check(finite, "(a) a gradient on the card is not finite")
     check(rel[worst] <= GATE_LEAF_RTOL, f"(a) gradient of {worst} "
           f"disagrees: {rel[worst]}")
-    del card_m, host_m, grads
+    del card_m, host_m
     gc.collect()
     torch.cuda.empty_cache()
-    before = flash_attention.launches_simt
-    prefill_matches_decode(cut, None, "mla")
-    n = flash_attention.launches_simt - before
-    check(n == 5 * L, f"(a) five float32 prefills launched K2 simt {n} "
-          f"times, not {5 * L}")
-    launches["flash_attention/simt"] += n
-    return launches
+    before = launch_counts()
+    prefill_matches_decode(cut, phase)
+    n = {k: v - before[k] for k, v in launch_counts().items()}
+    want = kernel_launches(cut, torch.float32, 5, 0)
+    check(n == want, f"(a) five float32 prefills launched {n}, not {want}")
+    say(phase, f"(a) done in {time.perf_counter() - t0:.1f} s")
+    return {k: v + n[k] for k, v in launches.items()}
 
 
-def mla_serve(cfg, card: str) -> tuple[dict, tuple]:
-    """(b) bf16 at full width and depth: phase 6 (b)'s traffic through
-    ``PoasDispatcher`` and ``ServingEngine``, each prefill launching K2
-    once a layer (all ``sm90``, Dk 96 / Dv 64) and the decode steps none,
-    completions in vocabulary; prefill and decode rates, peak memory; the
-    larger bucket traced.  Returns the launches and the larger bucket's
-    (B, S)."""
+def embed_generate(model, rng, requests) -> list:
+    """``ServingEngine.generate``'s loop for a stub frontend: the bucket's
+    padded prompt and one new position a decode step as seeded embeddings
+    (``seeded_embeds``, put on the card before the clock starts) in place
+    of token ids; the greedy ids are what the completions hold.  The
+    reference's serving refuses stub frontends, so this drives ``Model``
+    itself."""
+    plen = max(len(r.tokens) for r in requests)
+    max_new = max(r.max_new_tokens for r in requests)
+    x = seeded_embeds(rng, len(requests), plen + max_new - 1,
+                      model.cfg.d_model)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill({"embeds": x[:, :plen]})
+        cache = model.extend_cache(cache, max_new)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        outs = [logits.argmax(-1)]
+        t0 = time.perf_counter()
+        for i in range(plen, plen + max_new - 1):
+            logits, cache = model.decode_step(cache,
+                                              {"embeds": x[:, i:i + 1]})
+            outs.append(logits.argmax(-1))
+        torch.cuda.synchronize()
+        t_decode = time.perf_counter() - t0
+        check(bool(torch.isfinite(logits).all()), "a stub frontend's decode "
+              "logits are not finite")
+        gen = torch.stack(outs, dim=1).cpu().numpy()
+    return [Completion(r.uid, gen[i, :r.max_new_tokens], t_prefill, t_decode)
+            for i, r in enumerate(requests)]
+
+
+def serve_depth(cfg) -> int:
+    """The largest depth whose bf16 weights (``ArchConfig.param_count``)
+    stay under ``SERVE_WEIGHTS``."""
+    L = cfg.num_layers
+    while L > 1 and 2 * dataclasses.replace(
+            cfg, num_layers=L).param_count() > SERVE_WEIGHTS:
+        L -= 1
+    return L
+
+
+def model_serve(cfg, phase: str, card: str, trace: bool = True
+                ) -> tuple[dict, tuple]:
+    """(b) bf16 at full width and the largest depth ``serve_depth`` gives:
+    phase 6 (b)'s traffic through ``PoasDispatcher`` and ``ServingEngine``
+    (a stub frontend: its bucket shapes as seeded embeddings through
+    ``embed_generate``), each prefill launching K2 or K3 once a layer and
+    the decode steps none, completions in vocabulary; prefill and decode
+    rates, peak memory; the larger bucket traced (``trace``) or timed by
+    CUDA events.  Returns the launches and the larger bucket's (B, S)."""
     t0 = time.perf_counter()
-    model = Model(cfg, device=DEV,
+    L = serve_depth(cfg)
+    cut = dataclasses.replace(cfg, num_layers=L)
+    model = Model(cut, device=DEV,
                   generator=torch.Generator(DEV).manual_seed(0))
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    why = ("full depth" if L == cfg.num_layers else
+           f"cut: {L + 1} layers' bf16 weights would pass "
+           f"{SERVE_WEIGHTS / 2**30:.0f} GiB")
     Dk, Dv = attention_dims(cfg)
-    say("mla", f"(b) {cfg.name} bf16 at full width and depth: "
-        f"{cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} "
-        f"heads, q rank {cfg.q_lora_rank}, kv rank {cfg.kv_lora_rank}, "
-        f"K2 at Dk {Dk} / Dv {Dv}, vocab {cfg.vocab_size}; "
+    mixer = (f"{cfg.ssm_heads} SSM heads of {cfg.ssm_head_dim}, state "
+             f"{cfg.ssm_state}, chunk {cfg.ssm_chunk} (K3)"
+             if cfg.is_attention_free else
+             f"{cfg.num_heads}/{cfg.num_kv_heads} heads, K2 at Dk {Dk} / Dv "
+             f"{Dv} ({route(torch.bfloat16, Dk, Dv)})"
+             + (", QKV bias" if cfg.qkv_bias else ""))
+    say(phase, f"(b) {cfg.name} bf16 at full width, {L} of "
+        f"{cfg.num_layers} layers ({why}): d_model {cfg.d_model}, {mixer}, "
+        f"vocab {cfg.vocab_size}, inputs {inputs_key(cfg)}; "
         f"{n_params / 1e9:.4f} B params, {wbytes / 1e9:.3f} GB of weights "
         f"(seed 0), built in {time.perf_counter() - t0:.1f} s; {card}")
-    engine = ServingEngine(model)
-    buckets, warm = serve_traffic("mla", cfg)
-    engine.generate(warm)                              # warm-up, not counted
+    buckets, warm = serve_traffic(phase, cut)
+    if inputs_key(cut) == "embeds":
+        generate = functools.partial(embed_generate, model,
+                                     np.random.default_rng(2))
+    else:
+        generate = ServingEngine(model).generate
+    generate(warm)                                     # warm-up, not counted
     reset_launches()
-    shapes = serve_buckets("mla", engine, buckets, cfg, card)
+    shapes = serve_buckets(phase, generate, buckets, cut, card)
     launches = launch_counts()
-    big = max(buckets, key=len)
-    profile_serve("mla", model, big, part="(b)")
-    del model, engine
+    profile_serve(phase, model, max(buckets, key=len), part="(b)",
+                  trace=trace)
+    del model, generate
     gc.collect()
     torch.cuda.empty_cache()
+    say(phase, f"(b) done in {time.perf_counter() - t0:.1f} s")
     return launches, max(shapes)[1:]
 
 
-def mla_train(cfg, card: str) -> dict:
-    """(c) bf16 at full width, remat "full", AdamW with bf16 states,
-    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens, through ``launch.train``'s
-    objects, at the largest depth whose dry-run peak (``launch.dryrun``'s
-    ``run_cell`` on fake cuda tensors) stays under ``MLA_TRAIN_PEAK``:
-    ``MLA_TRAIN_STEPS`` steps with each kernel's launches held per step,
-    ms/step, tokens/s, model TFLOP/s, peak; one step traced; the dry run
-    held against a step as phase 10 (a) holds its cells; the loss and
-    gradients taken twice from one state, bit-equal.  Returns the steps'
-    launches."""
-    shape = ShapeSpec("train", "train", TRAIN_SEQ, TRAIN_BATCH)
-    L = cfg.num_layers
-    while True:
+def train_depth(cfg, phase: str, shape) -> tuple:
+    """The largest depth whose dry-run peak (``launch.dryrun``'s
+    ``run_cell`` on fake cuda tensors) stays under ``TRAIN_PEAK``.  A
+    layer adds its parameters' bf16 weights, gradients and two AdamW
+    moments (8 bytes a parameter) to the peak, so the full depth is traced
+    only where those bytes fit; else, and where its peak does not fit, the
+    depth that growth from the half depth's peak puts under the limit is
+    traced, and stepped down until its own peak fits.  Returns the cut and
+    its record."""
+    @functools.cache
+    def dry(L):
         cut = dataclasses.replace(cfg, num_layers=L)
         rec = dryrun.run_cell(cut.name, "train", None, False, shape=shape,
                               device=DEV, cfg=cut)
         check(rec.get("status") == "ok", f"(c) the dry run gave {rec}")
-        peak = rec["memory"]["peak_bytes"]
-        say("mla", f"(c) dry run of {cut.name} at {L} of {cfg.num_layers} "
-            f"layers, batch {TRAIN_BATCH} x {TRAIN_SEQ}: arguments "
+        say(phase, f"(c) dry run of {cut.name} at {L} of {cfg.num_layers} "
+            f"layers, batch {shape.batch} x {shape.seq}: arguments "
             f"{rec['memory']['argument_bytes'] / 2**30:.3f} GiB, peak "
-            f"{peak / 2**30:.3f} GiB (limit {MLA_TRAIN_PEAK / 2**30:.0f} "
-            f"GiB), {rec['flops_per_device']:.4e} FLOP; traced in "
-            f"{rec['trace_s']} s")
-        if peak <= MLA_TRAIN_PEAK or L == 1:
-            break
-        L = max(1, min(L - 1, int(L * MLA_TRAIN_PEAK / peak)))
-    say("mla", f"(c) depth cut: {L} of {cfg.num_layers} layers "
-        f"({'none' if L == cfg.num_layers else 'cut'}); full width")
+            f"{rec['memory']['peak_bytes'] / 2**30:.3f} GiB (limit "
+            f"{TRAIN_PEAK / 2**30:.0f} GiB), {rec['flops_per_device']:.4e} "
+            f"FLOP; traced in {rec['trace_s']} s")
+        return cut, rec
+
+    def peak(L):
+        return dry(L)[1]["memory"]["peak_bytes"]
+
+    def state_bytes(L):
+        return 8 * dataclasses.replace(cfg, num_layers=L).param_count()
+
+    full = L = cfg.num_layers
+    if state_bytes(full) > TRAIN_PEAK or peak(full) > TRAIN_PEAK:
+        half = max(1, full // 2)
+        per = (state_bytes(full) - state_bytes(half)) / (full - half)
+        L = max(1, min(full - 1,
+                       half + int((TRAIN_PEAK - peak(half)) // per)))
+        while L > 1 and peak(L) > TRAIN_PEAK:
+            L -= 1
+    why = ("not cut" if L == full else
+           f"cut: a layer adds {per / 2**30:.3f} GiB, so {L + 1} layers "
+           f"would peak at ~{(peak(L) + per) / 2**30:.3f} GiB")
+    say(phase, f"(c) depth {L} of {full} layers ({why}); full width")
+    return dry(L)
+
+
+def model_train(cfg, phase: str, card: str, trace: bool = True) -> dict:
+    """(c) bf16 at full width, remat "full", AdamW with bf16 states,
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens (embeddings for a stub
+    frontend), through ``launch.train``'s objects, at the depth
+    ``train_depth`` gives: ``TRAIN_STEPS`` steps with each kernel's
+    launches held per step (``step_launches``: K2-bwd on ``route_bwd``'s
+    route), ms/step, tokens/s, model TFLOP/s, peak; one step traced
+    (``trace``); the dry run held against a step as phase 10 (a) holds its
+    cells; the loss and gradients taken twice from one state, bit-equal.
+    Returns the steps' launches."""
+    t0 = time.perf_counter()
+    shape = ShapeSpec("train", "train", TRAIN_SEQ, TRAIN_BATCH)
+    cut, rec = train_depth(cfg, phase, shape)
+    L = cut.num_layers
     args = train_cli.parse_args([
         "--arch", cfg.name, "--batch", str(TRAIN_BATCH), "--seq",
-        str(TRAIN_SEQ), "--steps", str(MLA_TRAIN_STEPS), "--device", DEV])
-    t0 = time.perf_counter()
+        str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS), "--device", DEV])
+    t1 = time.perf_counter()
     job, reading = built(lambda: train_cli.build(args, cut),
                          lambda job: tree_flatten(job.state)[0])
     n_params = sum(p.numel() for p in job.model.parameters())
-    say("mla", f"(c) {cut.name} bf16 at {L} layers, remat {cut.remat}, "
+    say(phase, f"(c) {cut.name} bf16 at {L} layers, remat {cut.remat}, "
         f"AdamW (state {job.opt.state_dtype}): {n_params / 1e9:.4f} B "
         f"params (seed {args.seed}), batch {TRAIN_BATCH} x {TRAIN_SEQ} "
-        f"tokens of SyntheticLM; built in {time.perf_counter() - t0:.1f} s; "
-        f"{card}")
+        f"{inputs_key(cut)} of SyntheticLM; built in "
+        f"{time.perf_counter() - t1:.1f} s; {card}")
     reset_launches()
     state, data, losses, times, peak = take_steps(
-        "mla", "(c)", job, MLA_TRAIN_STEPS, step_launches(cut))
+        phase, "(c)", job, TRAIN_STEPS, step_launches(cut))
     launches = launch_counts()
     step_s = float(np.mean(times))
     tokens = TRAIN_BATCH * TRAIN_SEQ
     dense, attn = model_flop(cut, n_params, TRAIN_BATCH, TRAIN_SEQ,
                              job.model.windows)
     flops = dense + attn
-    say("mla", f"(c) steps 2-{MLA_TRAIN_STEPS}: {step_s * 1e3:.2f} ms/step "
+    say(phase, f"(c) steps 2-{TRAIN_STEPS}: {step_s * 1e3:.2f} ms/step "
         f"({', '.join(f'{t * 1e3:.2f}' for t in times)}), "
         f"{tokens / step_s:.1f} training tokens/s, model "
         f"{flops / step_s / 1e12:.2f} TFLOP/s (6*N*T {dense:.4e} + "
         f"attention {attn:.4e} = 6*B*H*(Dk+Dv)*band pairs over the layers; "
+        f"SSD's intra-chunk products not counted; "
         f"{flops / step_s / PEAK['bfloat16'][0] * 100:.1f} % of the 989 "
         f"TFLOP/s bf16 peak); peak max_memory_allocated "
         f"{peak / 2**30:.3f} GiB; launches {launches}; {card}")
-    profile_step(job, state, next(data), "mla", "(c)")
+    if trace:
+        profile_step(job, state, next(data), phase, "(c)")
     batch = next(data)
     dryrun_hold(f"{cut.name} at {L} layers, training step", cut, shape,
                 lambda: job.step_fn(state, batch), reading, step_s,
                 "step time", rec=rec)
     held = grads_held(job, next(data), plain=False)
-    say("mla", f"(c) loss and {n_params / 1e9:.4f} B gradients taken twice "
+    say(phase, f"(c) loss and {n_params / 1e9:.4f} B gradients taken twice "
         f"from one state on one batch: bit-equal={held['twice']} (loss "
-        f"{held['loss']:.6f}); {card}")
+        f"{held['loss']:.6f}); done in {time.perf_counter() - t0:.1f} s; "
+        f"{card}")
     check(held["twice"], "(c) two runs of the step's loss and gradients "
           "differ")
     del job, state
@@ -3265,7 +3484,8 @@ def sdpa_backends(q, k, v) -> str:
         try:
             with sdpa_kernel([b]):
                 torch.nn.functional.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True)
+                    qt, kt, vt, is_causal=True,
+                    enable_gqa=qt.shape[1] != kt.shape[1])
             torch.cuda.synchronize()
             out.append(f"{b.name} takes it")
         except RuntimeError as e:
@@ -3283,12 +3503,9 @@ def mla_phase(gen, card: str) -> dict:
     t0 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    total = mla_gate(cfg, card)
-    served, (B, S) = mla_serve(cfg, card)
-    trained = mla_train(cfg, card)
-    for part in (served, trained):
-        for name, n in part.items():
-            total[name] += n
+    total = model_gate(cfg, "mla", card, MLA_GATE_LAYERS, GATE_TOKENS)
+    served, (B, S) = model_serve(cfg, "mla", card)
+    add_launches(total, served, model_train(cfg, "mla", card))
     H = cfg.num_heads
     Dk, Dv = attention_dims(cfg)
     bf16 = torch.bfloat16
@@ -3305,6 +3522,78 @@ def mla_phase(gen, card: str) -> dict:
     del q, k, v
     torch.cuda.empty_cache()
     say("mla", f"main path launches {total}; done in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the other six configurations served, gated and trained
+# ---------------------------------------------------------------------------
+
+
+def zoo_phase(gen, card: str) -> dict:
+    """Phase 13: each of ``ZOO`` in turn: (a) its float32 gate (2 layers
+    and ``GATE_TOKENS``; 1 layer and ``MOE_GATE_TOKENS`` above d_model
+    ``ZOO_WIDE``), (b) bf16 serving (traced for ``ZOO_TRACED``), (c) bf16
+    training for ``ZOO_TRAINED``; then (d) the kernels at the shapes these
+    paths gave them that no earlier phase ran: K2 (``sm90``) at
+    stablelm-12b's prefill and K2-bwd (``simt``, bf16) at its step, head
+    dim 160; K3 at mamba2-2.7B's prefill and K3-bwd at its step, state
+    128.  Returns each kernel's launches over (a)-(c)."""
+    t0 = time.perf_counter()
+    total = dict.fromkeys(launch_counts(), 0)
+    shapes = {}
+    for arch in ZOO:
+        t1 = time.perf_counter()
+        cfg = get_config(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        wide = cfg.d_model > ZOO_WIDE
+        add_launches(total, model_gate(
+            cfg, "zoo", card, 1 if wide else 2,
+            MOE_GATE_TOKENS if wide else GATE_TOKENS))
+        served, shapes[arch] = model_serve(cfg, "zoo", card,
+                                           trace=arch in ZOO_TRACED)
+        add_launches(total, served)
+        if arch in ZOO_TRAINED:
+            add_launches(total, model_train(cfg, "zoo", card,
+                                            trace=arch == "stablelm-12b"))
+        say("zoo", f"{arch} done in {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    bf16 = torch.bfloat16
+    lm = get_config("stablelm-12b")
+    B, S = shapes[lm.name]
+    H, KH, D = lm.num_heads, lm.num_kv_heads, lm.head_dim
+    k2 = flash_row("stablelm-serve-path", gen, B, S, H, KH, D, D, 0, bf16,
+                   phase="zoo")
+    q, k, v = (torch.randn((B, S, h, D), generator=gen, device=DEV).to(bf16)
+               for h in (H, KH, KH))
+    say("zoo", f"(d) sdpa at B{B} S{S} H{H}/{KH} D {D} bf16, is_causal, "
+        f"enable_gqa: {sdpa_backends(q, k, v)}; {card}")
+    del q, k, v
+    k2b = flash_bwd_row("stablelm-train-path", gen, TRAIN_BATCH, TRAIN_SEQ,
+                        H, KH, D, D, 0, bf16, twice=True, phase="zoo",
+                        part="(d)")
+    check(k2["route"] == "sm90" and k2b["route"] == "simt",
+          f"(d) K2 / K2-bwd at head dim {D} ran {k2['route']} / "
+          f"{k2b['route']}, not sm90 / simt")
+    torch.cuda.empty_cache()
+    m2 = get_config("mamba2-2_7b")
+    B, S = shapes[m2.name]
+    Q = m2.ssm_chunk
+    k3 = ssd_row("mamba2-serve-path", gen, B, -(-S // Q), Q, m2.ssm_heads,
+                 m2.ssm_groups, m2.ssm_head_dim, m2.ssm_state, bf16,
+                 phase="zoo")
+    k3b = ssd_bwd_row("mamba2-train-path", gen, TRAIN_BATCH, TRAIN_SEQ // Q,
+                      Q, m2.ssm_heads, m2.ssm_groups, m2.ssm_head_dim,
+                      m2.ssm_state, torch.float32, twice=True, phase="zoo",
+                      part="(d)")
+    torch.cuda.empty_cache()
+    say("zoo", f"(d) K2 {k2['kernel_ms']:.4f} ms, K2-bwd "
+        f"{k2b['kernel_ms']:.4f} ms, K3 {k3['kernel_ms']:.4f} ms, K3-bwd "
+        f"{k3b['kernel_ms']:.4f} ms; done in {time.perf_counter() - t1:.1f}"
+        f" s")
+    say("zoo", f"main path launches {total}; done in "
         f"{time.perf_counter() - t0:.1f} s")
     return total
 
@@ -3581,6 +3870,12 @@ def main() -> None:
         launches_of = (train_launches if "bwd" in name else serve_launches)
         launches_of[name] = launches_of.get(name, 0) + n
     say("mla", f"total {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 13. zoo: the other six configurations at full width ------------
+    for name, n in zoo_phase(gen, card).items():
+        launches_of = (train_launches if "bwd" in name else serve_launches)
+        launches_of[name] = launches_of.get(name, 0) + n
+    say("zoo", f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = [{"name": "matmul", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/matmul.cu",

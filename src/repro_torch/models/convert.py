@@ -58,10 +58,12 @@ def layer_groups(cfg: ArchConfig) -> int:
 
 
 def params_from_reference(cfg: ArchConfig, tree: dict, *,
-                          device="cpu") -> Model:
+                          device="cuda") -> Model:
     """A ``Model`` of ``cfg`` on ``device`` holding the reference tree's
-    values (numpy arrays, or anything ``np.asarray`` takes).  Raises if a
-    leaf is missing or left over, or if a shape disagrees."""
+    values (numpy arrays, or anything ``np.asarray`` takes).  The default
+    device is the card, as ``Model``'s: without one it raises unless
+    ``device="cpu"`` is given.  Raises if a leaf is missing or left over,
+    or if a shape disagrees."""
     model = Model(cfg, device=device)
     g = layer_groups(cfg)
     groups = cfg.num_layers // g

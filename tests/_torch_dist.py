@@ -213,8 +213,8 @@ def model_ranks(rank: int, world: int, ref_path: str, out: str) -> None:
     from repro_torch.models.convert import params_from_reference
     ref = dict(np.load(ref_path))
     cfg = get_tiny_config("dbrx-132b")
-    model = shard_params(params_from_reference(cfg, nested(ref, "params/")),
-                         _mesh((2, 2)))
+    model = shard_params(params_from_reference(cfg, nested(ref, "params/"),
+                                               device="cpu"), _mesh((2, 2)))
     mesh = model.embed.device_mesh
     i = mesh.get_local_rank("data")
     bl = ref["tokens"].shape[0] // 2
@@ -258,8 +258,8 @@ def shard_ranks(rank: int, world: int, ref_path: str, out: str) -> None:
     ref = dict(np.load(ref_path))
     cfg = get_tiny_config("dbrx-132b")
     mesh = _mesh((2, 2))
-    model = shard_params(params_from_reference(cfg, nested(ref, "params/")),
-                         mesh)
+    model = shard_params(params_from_reference(cfg, nested(ref, "params/"),
+                                               device="cpu"), mesh)
     _save(out, "shards", rank, {
         "coord": tuple(mesh.get_coordinate()),
         "local": {n: p.to_local().clone() for n, p in

@@ -32,7 +32,7 @@ def _layer0(arch):
     cfg = ref_tiny_config(arch)
     params = jax.tree_util.tree_map(np.asarray,
                                     RefModel(cfg).init(jax.random.PRNGKey(0)))
-    port = params_from_reference(get_tiny_config(arch), params)
+    port = params_from_reference(get_tiny_config(arch), params, device="cpu")
     p = jax.tree_util.tree_map(lambda a: jnp.asarray(a[0]),
                                params["layers"]["attn"])
     return cfg, p, port.layers[0].attn

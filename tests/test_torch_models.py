@@ -39,7 +39,7 @@ def _pair(arch):
     ref = RefModel(cfg)
     params = ref.init(jax.random.PRNGKey(0))
     tree = jax.tree_util.tree_map(np.asarray, params)
-    port = params_from_reference(get_tiny_config(arch), tree)
+    port = params_from_reference(get_tiny_config(arch), tree, device="cpu")
     return cfg, ref, params, port
 
 
@@ -148,7 +148,7 @@ def test_llama4_groups_convert_row_for_row():
     tree = jax.tree_util.tree_map(
         np.asarray, RefModel(cfg).init(jax.random.PRNGKey(0)))
     port_cfg = dataclasses.replace(get_tiny_config(arch), num_layers=4)
-    port = params_from_reference(port_cfg, tree)
+    port = params_from_reference(port_cfg, tree, device="cpu")
     for j in range(2):
         for i in range(2):
             layer = port.layers[j * 2 + i]
@@ -163,15 +163,15 @@ def test_llama4_groups_convert_row_for_row():
     assert port.layers[0].cfg.shared_expert_ff == 0
     missing = {**tree, "layers": {"s0": tree["layers"]["s0"]}}
     with pytest.raises(RuntimeError, match="Missing"):
-        params_from_reference(port_cfg, missing)
+        params_from_reference(port_cfg, missing, device="cpu")
     extra = {**tree, "layers": {**tree["layers"],
                                 "s2": tree["layers"]["s0"]}}
     with pytest.raises(ValueError, match="s0..s1"):
-        params_from_reference(port_cfg, extra)
+        params_from_reference(port_cfg, extra, device="cpu")
     short = {**tree, "layers": jax.tree_util.tree_map(
         lambda a: a[:1], tree["layers"])}
     with pytest.raises(ValueError, match="leading axis"):
-        params_from_reference(port_cfg, short)
+        params_from_reference(port_cfg, short, device="cpu")
 
 
 def test_cuda_model_without_a_card_raises():
@@ -179,6 +179,20 @@ def test_cuda_model_without_a_card_raises():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="cuda"):
         Model(get_tiny_config("hymba-1_5b"))      # the default device
+
+
+def test_params_from_reference_defaults_to_the_card():
+    """Like ``Model``, the carrier of the reference's weights builds on the
+    card unless told otherwise: without one, the default raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    arch = "hymba-1_5b"
+    tree = jax.tree_util.tree_map(np.asarray, RefModel(
+        ref_tiny_config(arch)).init(jax.random.PRNGKey(0)))
+    with pytest.raises(RuntimeError, match="cuda"):
+        params_from_reference(get_tiny_config(arch), tree)
+    port = params_from_reference(get_tiny_config(arch), tree, device="cpu")
+    assert port.device == torch.device("cpu")
 
 
 def test_seeded_weights_are_reproducible():

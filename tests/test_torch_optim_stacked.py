@@ -65,7 +65,8 @@ def _step(arch, opt_name):
     ref_params = RefModel(cfg).init(jax.random.PRNGKey(0))
     port_cfg = get_tiny_config(arch)
     model = params_from_reference(
-        port_cfg, jax.tree_util.tree_map(np.asarray, ref_params))
+        port_cfg, jax.tree_util.tree_map(np.asarray, ref_params),
+        device="cpu")
     g = layer_groups(port_cfg)
     params = {k: p.detach().clone() for k, p in model.named_parameters()}
     rng = np.random.default_rng(3)

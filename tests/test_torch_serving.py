@@ -40,7 +40,8 @@ def _engines(arch):
     ref = RefModel(cfg)
     params = ref.init(jax.random.PRNGKey(0))
     port = params_from_reference(get_tiny_config(arch),
-                                 jax.tree_util.tree_map(np.asarray, params))
+                                 jax.tree_util.tree_map(np.asarray, params),
+                                 device="cpu")
     return (ref_engine.ServingEngine(ref, params),
             port_engine.ServingEngine(port), cfg)
 

@@ -50,7 +50,8 @@ def _pair(arch, **overrides):
     params = ref.init(jax.random.PRNGKey(0))
     tree = jax.tree_util.tree_map(np.asarray, params)
     port = params_from_reference(
-        dataclasses.replace(get_tiny_config(arch), **overrides), tree)
+        dataclasses.replace(get_tiny_config(arch), **overrides), tree,
+        device="cpu")
     return cfg, ref, params, port
 
 
