@@ -11,7 +11,9 @@ failed check exits non-zero):
              checkout (K1, K2 on both routes, K3, K2-bwd on both routes,
              K3-bwd; all but K2's forward sources include
              ``csrc/sm90_tf32x3.cuh``), one ``nvcc`` each, all started
-             together; ptxas's registers and spills for each kernel.
+             together; ptxas's registers and spills for each kernel (K2-bwd's
+             ``sm90`` instantiations, up to head dim 256, must spill 0
+             bytes) and any wgmma serialisation it reports.
 3. kernel  — every kernel against its plain PyTorch version on the card, at
              test shapes and at the main path's shapes, with times beside
              the card's bound and a PyTorch library call.  Every K1 and K3
@@ -53,8 +55,14 @@ failed check exits non-zero):
              plain backward; float32 rows run ``simt`` at 1e-4.  The
              training-shape rows run each kernel twice and require
              bit-equal gradients; phase 3's offset shapes run through
-             K2-bwd on both routes too, ``sm90`` twice, bit-equal.  K2's ``lse`` output on both routes
-             against the plain version's at the training shape, K2
+             K2-bwd on both routes too, ``sm90`` twice, bit-equal; bf16 at
+             head dims in (128, 256] runs ``sm90``'s two-warpgroup kernels
+             (144, 160 with GQA 32:8, 192/128, 256 with a window, ragged
+             rows and a ``q_offset`` whose last rows keep no key, their dq
+             exactly 0), twice, bit-equal, the shared memory the source
+             reckons equal to the wrapper's figure; one bf16 row at head
+             dim 40 keeps ``simt``'s bf16 entry.  K2's ``lse`` output on
+             both routes against the plain version's at the training shape, K2
              forward and K2-bwd chained through autograd there against
              the plain backward, and K2's forward timed with and without
              ``lse``; (b) a float32 gradient gate: at full width cut to 2
@@ -195,7 +203,8 @@ failed check exits non-zero):
              stablelm traced; (c) for the first four, bf16 training at the
              depth the dry run fits under 66 GiB, launches per step,
              bit-equal reruns, the dry run held; (d) K2 (``sm90``) at
-             stablelm's prefill and K2-bwd (``simt``, bf16) at its step,
+             stablelm's prefill and K2-bwd (``sm90``, head dim 160) at its
+             step, with ``simt``'s bf16 entry timed at that shape beside it,
              K3 at mamba2's prefill and K3-bwd at its step, against their
              plain versions, beside their bounds and sdpa.
 
@@ -252,10 +261,11 @@ from repro_torch.kernels import (flash_attention,  # noqa: E402
                                  ssd_chunk_bwd)
 from repro_torch.kernels.flash_attention import build as build_k2  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    _forward as k2_forward, band_pairs, build_bwd as build_k2_bwd,
-    build_bwd_sm90 as build_k2_bwd_sm90, bwd_sm90_smem_bytes,
-    build_sm90 as build_k2_sm90, reset_counts as reset_k2_counts, route,
-    route_bwd, sm90_smem_bytes)
+    MAX_HEAD_DIM, _forward as k2_forward, _launch_bwd as k2b_launch,
+    band_pairs, build_bwd as build_k2_bwd,
+    build_bwd_sm90 as build_k2_bwd_sm90, bwd_sm90_kernel_smem_bytes,
+    bwd_sm90_smem_bytes, build_sm90 as build_k2_sm90,
+    reset_counts as reset_k2_counts, route, route_bwd, sm90_smem_bytes)
 from repro_torch.kernels.matmul import build  # noqa: E402
 from repro_torch.kernels.matmul import entry as k1_entry  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
@@ -387,6 +397,17 @@ K2_OFFSET_ROWS = (
      1410),
     ("offset-empty-rows", 1, 130, 4, 2, 64, 64, 64, True, 300, 350),
     ("offset-noncausal-window", 1, 100, 4, 4, 32, 32, 30, False, 45, 150),
+)
+# Phase 7 (a): K2-bwd bf16 at head dims in (128, 256], the sm90 route's
+# two-warpgroup kernels (NB = 3 or 4 blocks of 64 columns); the last rows of
+# "wide-256-window-offset" keep no key (as "offset-empty-rows").
+# label, B, S, H, KH, Dk, Dv, window, q_offset, Skv
+K2B_WIDE_ROWS = (
+    ("wide-144", 1, 130, 8, 2, 144, 144, 0, 0, 130),
+    ("wide-160-gqa", 1, 333, 32, 8, 160, 160, 0, 0, 333),
+    ("wide-192-128", 2, 200, 4, 2, 192, 128, 0, 0, 200),
+    ("wide-256-window-offset", 1, 130, 4, 2, 256, 256, 64, 300, 350),
+    ("wide-256-window-ragged", 2, 77, 4, 2, 256, 256, 20, 0, 77),
 )
 # Phase 12: minicpm3-4B (MLA), (a) float32 at 2 layers, also run on the
 # host.  Phases 12 and 13: (b) served at the largest depth whose bf16
@@ -1113,9 +1134,15 @@ def flash_bwd_row(label, gen, B, S, H, KH, Dk, Dv, window, dtype,
     check(ran == [kind], f"K2-bwd {label}: launched on {ran}, route_bwd "
           f"says {kind}")
     if dtype == torch.bfloat16 and Dk % 16 == 0 and Dv % 16 == 0 \
-            and max(Dk, Dv) <= 128:
+            and max(Dk, Dv) <= MAX_HEAD_DIM:
         check(kind == "sm90", f"K2-bwd {label}: bf16 at Dk {Dk}, Dv {Dv} "
               f"did not take the tensor-core route")
+    # Query rows that keep no key: their dq is exactly 0.
+    empty = ~band_mask(S, skv, causal, window, q_offset).any(1)
+    row_empty = int(empty.sum())
+    check(row_empty == 0 or not bool(got[0][:, empty].any()),
+          f"K2-bwd {label}: dq of the {row_empty} rows that keep no key is "
+          f"not 0")
     rounded = kind == "sm90"
     want = flash_attention_bwd_ref(
         q, k, v, o, do, lse, round_to=torch.bfloat16 if rounded else None,
@@ -1153,8 +1180,16 @@ def flash_bwd_row(label, gen, B, S, H, KH, Dk, Dv, window, dtype,
     row["bound_ms"], row["bound_by"] = roofline(ops, nbytes, name)
     row["fma_bound_ms"], _ = roofline(ops, nbytes, "float32")
     row["tc_bound_ms"], _ = roofline(ops, nbytes, "bfloat16")
-    smem = (f", {bwd_sm90_smem_bytes(Dk, Dv) / 1024:.0f} KiB dynamic shared "
-            f"memory (dK/dV)" if rounded else "")
+    smem = ""
+    if rounded:
+        smem = bwd_sm90_kernel_smem_bytes(Dk, Dv)
+        check(smem == bwd_sm90_smem_bytes(Dk, Dv), f"K2-bwd {label}: the "
+              f"source reckons {smem} bytes of shared memory, the wrapper "
+              f"{bwd_sm90_smem_bytes(Dk, Dv)}")
+        smem = (f", {smem} B dynamic shared memory (the larger kernel; "
+                f"the wrapper's figure)")
+    if row_empty:
+        smem += f"; the {row_empty} rows that keep no key: dq 0"
     offset = (f" q_offset {q_offset} Skv {skv}" if q_offset or skv != S
               else "")
     say(phase, f"{part} K2-bwd {label} B{B} S{S} H{H}/{KH} Dk{Dk} Dv{Dv} "
@@ -1737,6 +1772,10 @@ def train(gen) -> tuple[dict, dict, dict]:
             flash_bwd_row(label, gen, B, S, H, KH, Dk, Dv, window, dt,
                           twice=dt == bf16, causal=causal, q_offset=off,
                           skv=skv)
+    # K2-bwd sm90 at head dims in (128, 256]: the two-warpgroup kernels.
+    for label, B, S, H, KH, Dk, Dv, window, off, skv in K2B_WIDE_ROWS:
+        flash_bwd_row(label, gen, B, S, H, KH, Dk, Dv, window, bf16,
+                      twice=True, q_offset=off, skv=skv)
     for label, shape, dt in (
             ("test", (1, 2, 16, 4, 1, 16, 16), f32),
             ("test-grouped", (2, 3, 32, 4, 2, 32, 16), f32),
@@ -3531,15 +3570,29 @@ def mla_phase(gen, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def simt_bwd_ms(gen, B: int, S: int, H: int, KH: int, D: int) -> float:
+    """Device time of K2-bwd's ``simt`` kernel (its bf16 entry) at a causal
+    bf16 shape that ``route_bwd`` sends to ``sm90``: the entry called
+    directly, on seeded q, k, v, dO and the plain forward's o and lse."""
+    bf16 = torch.bfloat16
+    q, k, v, do = (torch.randn(shape, generator=gen, device=DEV).to(bf16)
+                   for shape in ((B, S, H, D), (B, S, KH, D), (B, S, KH, D),
+                                 (B, S, H, D)))
+    o, lse = flash_attention_ref(q, k, v, return_lse=True)
+    return cuda_ms(lambda: k2b_launch("simt", q, k, v, o, do, lse, True, 0,
+                                      None))
+
+
 def zoo_phase(gen, card: str) -> dict:
     """Phase 13: each of ``ZOO`` in turn: (a) its float32 gate (2 layers
     and ``GATE_TOKENS``; 1 layer and ``MOE_GATE_TOKENS`` above d_model
     ``ZOO_WIDE``), (b) bf16 serving (traced for ``ZOO_TRACED``), (c) bf16
     training for ``ZOO_TRAINED``; then (d) the kernels at the shapes these
     paths gave them that no earlier phase ran: K2 (``sm90``) at
-    stablelm-12b's prefill and K2-bwd (``simt``, bf16) at its step, head
-    dim 160; K3 at mamba2-2.7B's prefill and K3-bwd at its step, state
-    128.  Returns each kernel's launches over (a)-(c)."""
+    stablelm-12b's prefill and K2-bwd (``sm90``'s two-warpgroup kernels)
+    at its step, head dim 160, with ``simt``'s bf16 entry timed at that
+    step beside it; K3 at mamba2-2.7B's prefill and K3-bwd at its step,
+    state 128.  Returns each kernel's launches over (a)-(c)."""
     t0 = time.perf_counter()
     total = dict.fromkeys(launch_counts(), 0)
     shapes = {}
@@ -3574,9 +3627,14 @@ def zoo_phase(gen, card: str) -> dict:
     k2b = flash_bwd_row("stablelm-train-path", gen, TRAIN_BATCH, TRAIN_SEQ,
                         H, KH, D, D, 0, bf16, twice=True, phase="zoo",
                         part="(d)")
-    check(k2["route"] == "sm90" and k2b["route"] == "simt",
+    check(k2["route"] == "sm90" and k2b["route"] == "sm90",
           f"(d) K2 / K2-bwd at head dim {D} ran {k2['route']} / "
-          f"{k2b['route']}, not sm90 / simt")
+          f"{k2b['route']}, not sm90 / sm90")
+    simt_ms = simt_bwd_ms(gen, TRAIN_BATCH, TRAIN_SEQ, H, KH, D)
+    say("zoo", f"(d) K2-bwd at the same shape through simt's bf16 entry "
+        f"(f32 on the CUDA cores, called directly): {simt_ms:.4f} ms, "
+        f"{simt_ms / k2b['kernel_ms']:.1f}x sm90's {k2b['kernel_ms']:.4f} "
+        f"ms; {card}")
     torch.cuda.empty_cache()
     m2 = get_config("mamba2-2_7b")
     B, S = shapes[m2.name]
@@ -3626,12 +3684,15 @@ def main() -> None:
                 build_k2_bwd_sm90, build_k3_bwd)
     with ThreadPoolExecutor(len(builders)) as pool:
         infos = list(pool.map(lambda f: f(), builders))
-    for info in infos:
+    for builder, info in zip(builders, infos):
         say("build", f"{info.path.relative_to(ROOT)} in {info.seconds:.1f} s")
         for line in info.log.splitlines():   # ptxas -v, one kernel each
             if ("Compiling entry" in line or "Used" in line
-                    or "spill" in line):
+                    or "spill" in line or "C7515" in line):
                 say("build", line.strip())
+            if builder is build_k2_bwd_sm90 and "spill" in line:
+                check("0 bytes spill stores, 0 bytes spill loads" in line,
+                      f"K2-bwd sm90: ptxas spills: {line.strip()}")
     say("build", f"all {len(builders)} in {time.perf_counter() - t0:.1f} s "
         f"wall")
 

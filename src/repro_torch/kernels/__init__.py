@@ -10,10 +10,12 @@
 * ``ssd_chunk``       — K3, the Mamba-2 SSD intra-chunk part
                         (``csrc/ssd_chunk.cu``): its products and the
                         chunk state through 3xTF32 on wgmma
-* ``flash_attention_bwd`` — K2's gradient: bf16 on the tensor cores
-                        (``csrc/flash_attention_bwd_sm90.cu``), f32 on the
-                        CUDA cores (``csrc/flash_attention_bwd.cu``), chosen
-                        by ``flash_attention.route_bwd``
+* ``flash_attention_bwd`` — K2's gradient: bf16 on the tensor cores at
+                        head dims up to 256, as the forward
+                        (``csrc/flash_attention_bwd_sm90.cu``: two
+                        warpgroups a block above 128), f32 on the CUDA
+                        cores (``csrc/flash_attention_bwd.cu``), chosen by
+                        ``flash_attention.route_bwd``
 * ``ssd_chunk_bwd``   — K3's gradient (``csrc/ssd_chunk_bwd.cu``): 3xTF32
                         on wgmma, C·Bᵀ, dC and dB once per group
   Both are the backward of the ``torch.autograd.Function`` that K2 and K3

@@ -19,10 +19,12 @@ Gradients: when autograd records the call, ``flash_attention`` runs as a
 ``torch.autograd.Function`` whose forward also writes each row's
 log-sum-exp (an optional output of both forward kernels, null on the
 serving path) and whose backward is ``flash_attention_bwd``.  It has two
-kernels too, and ``route_bwd(dtype, dk, dv)`` is their rule:
+kernels too, and ``route_bwd(dtype, dk, dv)`` is their rule, the same as
+``route``'s:
 
 * ``csrc/flash_attention_bwd_sm90.cu`` — bf16 on the tensor cores (every
-  product on wgmma; P and dS rounded to bf16 only as MMA operands); route
+  product on wgmma; P and dS rounded to bf16 only as MMA operands), one
+  warpgroup per dK/dV block up to head dim 128 and two above; route
   ``"sm90"``.
 * ``csrc/flash_attention_bwd.cu`` — f32 arithmetic on the CUDA cores, for
   float32 (whose 1e-4 gate bf16 operands cannot meet) and bf16 at other
@@ -66,9 +68,6 @@ SOURCE_SM90 = _nvcc.CSRC / "flash_attention_sm90.cu"
 SOURCE_BWD = _nvcc.CSRC / "flash_attention_bwd.cu"
 SOURCE_BWD_SM90 = _nvcc.CSRC / "flash_attention_bwd_sm90.cu"
 MAX_HEAD_DIM = 256       # both kernels' shared-memory budget at BQ = BK = 64
-# The sm90 backward holds dK and dV (or dQ) of a 64-row tile in registers
-# beside S and dP: two 64-column blocks of each at most.
-MAX_HEAD_DIM_BWD_SM90 = 128
 _ENTRY = {torch.float32: "poas_flash_f32",
           torch.bfloat16: "poas_flash_bf16"}
 _ENTRY_SM90 = "poas_flash_sm90_bf16"
@@ -117,8 +116,27 @@ def build_bwd_sm90() -> _nvcc.BuildInfo:
 
 
 def bwd_sm90_smem_bytes(dk: int, dv: int) -> int:
-    """Dynamic shared memory the sm90 backward's dK/dV kernel requests at
-    head dims ``dk``, ``dv``, as its source computes it (builds it)."""
+    """Dynamic shared memory the larger of the sm90 backward's two main
+    kernels requests at head dims ``dk``, ``dv``, by the rule its source
+    states: 1024 bytes of alignment and an 8 KiB bf16 block of 64 x 64 per
+    64-column block of the fixed tiles and of the two ring stages (K, V, Q,
+    dO), which the dK/dV kernel tops with its stages' lse and D.  Above two
+    blocks both dims take the larger count NB, the two-warpgroup dK/dV
+    kernel adds a 16 KiB f32 P exchange and at NB = 4 the two-warpgroup dQ
+    kernel, the larger there, adds two (P and dS)."""
+    dkb, dvb = -(-dk // 64), -(-dv // 64)
+    nb = max(dkb, dvb)
+    if nb == 4:
+        return 1024 + 8192 * 2 * nb * 3 + 2 * 64 * 64 * 4
+    if nb == 3:
+        dkb = dvb = nb
+    return (1024 + 8192 * (dkb + dvb) * 3 + 2 * 2 * 64 * 4
+            + (64 * 64 * 4 if nb == 3 else 0))
+
+
+def bwd_sm90_kernel_smem_bytes(dk: int, dv: int) -> int:
+    """``bwd_sm90_smem_bytes`` as the kernel's source computes it (builds
+    it)."""
     return _nvcc.load(SOURCE_BWD_SM90,
                       _ENTRIES_BWD_SM90).poas_flash_bwd_sm90_smem(dk, dv)
 
@@ -140,14 +158,12 @@ def route(dtype: torch.dtype, dk: int, dv: int) -> str:
 
 
 def route_bwd(dtype: torch.dtype, dk: int, dv: int) -> str:
-    """Which backward kernel a CUDA call runs: ``"sm90"`` (bf16 on the
-    tensor cores) for bfloat16 with Dk and Dv multiples of 16 up to 128,
-    else ``"simt"`` (f32 on the CUDA cores): float32, and bf16 at other
-    head dims."""
-    if dtype == torch.bfloat16 and all(
-            0 < d <= MAX_HEAD_DIM_BWD_SM90 and d % 16 == 0 for d in (dk, dv)):
-        return "sm90"
-    return "simt"
+    """Which backward kernel a CUDA call runs, by ``route``'s rule:
+    ``"sm90"`` (bf16 on the tensor cores; one warpgroup per dK/dV block up
+    to 128, two above) for bfloat16 with Dk and Dv multiples of 16 up to
+    256, else ``"simt"`` (f32 on the CUDA cores): float32, and bf16 at
+    other head dims."""
+    return route(dtype, dk, dv)
 
 
 def _aligned16(x: torch.Tensor) -> torch.Tensor:
@@ -333,6 +349,19 @@ def _backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device "
                          f"{q.device}")
+    return _launch_bwd(route_bwd(q.dtype, Dk, v.shape[3]), q, k, v, o, do,
+                       lse, causal, window, scale, q_offset)
+
+
+def _launch_bwd(kind: str, q: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor, o: torch.Tensor, do: torch.Tensor,
+                lse: torch.Tensor, causal: bool, window: int,
+                scale: Optional[float], q_offset: int = 0
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) from the backward kernel ``kind`` ("sm90" or "simt") on
+    CUDA tensors: ``_backward`` passes ``route_bwd``'s; a caller may name
+    ``"simt"`` at a shape the rule sends to ``sm90`` (to time the two)."""
+    B, Sq, H, Dk = q.shape
     Skv, KH, Dv = k.shape[1], k.shape[2], v.shape[3]
     o, do = o.to(q.dtype), do.to(q.dtype)
     if do.stride(3) != 1:
@@ -343,7 +372,6 @@ def _backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"grid")
     if scale is None:
         scale = 1.0 / math.sqrt(Dk)
-    kind = route_bwd(q.dtype, Dk, Dv)
     if kind == "sm90":   # built, or raises, before anything is allocated
         entry = getattr(_nvcc.load(SOURCE_BWD_SM90, _ENTRIES_BWD_SM90),
                         _ENTRY_BWD_SM90)

@@ -12,7 +12,11 @@ against their plain versions.  Here:
   own bf16 gradient differs from the float32 plain backward by 2-4e-3 (its
   flash rounds P to V's dtype before P V, src/repro/models/layers.py
   :143-146), and the emulation is no further off than that.
-* ``route_bwd`` at every head-dim pair ``chip_smoke.py`` phase 7 (a) runs.
+* ``route_bwd`` at every head-dim pair ``chip_smoke.py`` phase 7 (a) runs,
+  and over every pair of multiples of 16 up to 256 (``route``'s rule).
+* The sm90 source's shared memory per (Dk, Dv) by the wrapper's mirror of
+  its rule: within a block's 232,448 bytes at every pair the route takes,
+  and the figures the source states.
 * K3-bwd's algorithm in torch: every product as the kernel takes it
   through 3xTF32 (hi/lo split, three TF32 products), dCB summed over each
   head slice and the slices summed before dC = dCB B and dB = dCB^T C, held
@@ -60,20 +64,24 @@ def _violations(got, want, tol) -> int:
 
 # ---- K2-bwd: the bf16 rounding emulation ----------------------------------
 
-FLASH_BF16 = {   # B, S, H, KH, D, window
-    "gqa-window": (1, 256, 4, 1, 32, 64),
-    "gqa-window-ragged": (2, 77, 4, 2, 16, 20),
-    "mha-full-ragged": (1, 130, 2, 2, 32, 0),
+FLASH_BF16 = {   # B, S, H, KH, Dk, Dv, window
+    "gqa-window": (1, 256, 4, 1, 32, 32, 64),
+    "gqa-window-ragged": (2, 77, 4, 2, 16, 16, 20),
+    "mha-full-ragged": (1, 130, 2, 2, 32, 32, 0),
+    # head dims in (128, 256]: the sm90 route's two-warpgroup kernels
+    "gqa4-160": (1, 128, 8, 2, 160, 160, 0),
+    "dk192-dv128-window-ragged": (2, 77, 4, 2, 192, 128, 20),
+    "d256-window-ragged": (1, 130, 4, 2, 256, 256, 32),
 }
 
 
 def _bf16_inputs(case, seed):
     """q, k, v, dO as bf16 tensors, from numpy normals of a seed."""
-    B, S, H, KH, D, window = FLASH_BF16[case]
+    B, S, H, KH, Dk, Dv, window = FLASH_BF16[case]
     rng = np.random.default_rng(seed)
     xs = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
-          .bfloat16() for s in ((B, S, H, D), (B, S, KH, D), (B, S, KH, D),
-                                (B, S, H, D))]
+          .bfloat16() for s in ((B, S, H, Dk), (B, S, KH, Dk),
+                                (B, S, KH, Dv), (B, S, H, Dv))]
     return xs, window
 
 
@@ -131,16 +139,66 @@ def test_k2_round_to_none_is_the_plain_backward():
     (64, 64, "sm90"),       # hymba-1.5B, the training path
     (32, 32, "sm90"),
     (96, 64, "sm90"),       # MLA-like Dk != Dv
-    (160, 160, "simt"),     # stablelm's 160: past the sm90 kernel's 128
+    (160, 160, "sm90"),     # stablelm's 160: the two-warpgroup kernels
     (40, 40, "simt"),       # not a multiple of 16
-    (128, 128, "sm90"),     # the largest the sm90 kernel takes
+    (128, 128, "sm90"),     # the largest of the one-warpgroup kernels
     (16, 16, "sm90"),
-    (144, 144, "simt"),
+    (144, 144, "sm90"),
     (8, 8, "simt"),
+    (256, 256, "sm90"),     # the largest the sm90 kernels take
+    (192, 128, "sm90"),     # Dk != Dv above 128
+    (272, 272, "simt"),     # past MAX_HEAD_DIM
 ])
 def test_route_bwd(dk, dv, bf16_route):
     assert fa.route_bwd(torch.bfloat16, dk, dv) == bf16_route
     assert fa.route_bwd(torch.float32, dk, dv) == "simt"
+
+
+def test_route_bwd_is_the_forward_rule():
+    """bf16 with Dk and Dv multiples of 16 up to MAX_HEAD_DIM (256) take
+    sm90, any other bf16 head dim and float32 take simt: the forward's
+    ``route``, with no separate backward limit left."""
+    assert fa.MAX_HEAD_DIM == 256
+    assert not hasattr(fa, "MAX_HEAD_DIM_BWD_SM90")
+    for dk in range(1, 273):
+        for dv in (16, 40, 160, 256, 272):
+            want = ("sm90" if dk % 16 == 0 and dv % 16 == 0
+                    and dk <= 256 and dv <= 256 else "simt")
+            assert fa.route_bwd(torch.bfloat16, dk, dv) == want, (dk, dv)
+            assert fa.route_bwd(torch.bfloat16, dk, dv) == fa.route(
+                torch.bfloat16, dk, dv)
+            assert fa.route_bwd(torch.float32, dk, dv) == "simt"
+
+
+# ---- K2-bwd: the sm90 source's shared memory --------------------------------
+
+K2B_SOURCE = (_nvcc.CSRC / "flash_attention_bwd_sm90.cu").read_text()
+
+
+def test_k2_bwd_shared_memory_fits_a_block_at_every_sm90_pair():
+    pairs = [(dk, dv) for dk in range(16, 257, 16) for dv in range(16, 257, 16)]
+    assert len(pairs) == 256
+    for dk, dv in pairs:
+        assert fa.route_bwd(torch.bfloat16, dk, dv) == "sm90"
+        assert fa.bwd_sm90_smem_bytes(dk, dv) <= sc.SMEM_LIMIT, (dk, dv)
+    assert sc.SMEM_LIMIT == 232_448     # a block's shared memory on the H100
+    assert max(fa.bwd_sm90_smem_bytes(*p) for p in pairs) == 230_400
+
+
+@pytest.mark.parametrize("dk,dv,want", [
+    (64, 64, 51_200),       # hymba: K, V and two stages of Q, dO, lse, D
+    (96, 64, 75_776),       # MLA
+    (128, 128, 100_352),    # dbrx, llama4, internvl2: the dK/dV kernel
+    (160, 160, 165_888),    # stablelm: NB = 3, the two-warpgroup dK/dV
+    (192, 128, 165_888),    # both dims at the larger count
+    (144, 144, 165_888),
+    (256, 256, 230_400),    # NB = 4: the two-warpgroup dQ, P and dS tiles
+    (64, 256, 230_400),
+])
+def test_k2_bwd_shared_memory_is_the_source_figure(dk, dv, want):
+    assert fa.bwd_sm90_smem_bytes(dk, dv) == want
+    if want >= 100_352:
+        assert f"{want:,}" in K2B_SOURCE
 
 
 def test_cpu_backward_counts_no_launch_and_reset_zeroes_six():
