@@ -112,11 +112,27 @@ failed check exits non-zero):
              mesh ("data", "model") = (1, 2): dbrx-132B in float32 at full
              width cut to 1 layer, each rank holding 8 of the 16 experts,
              phase 8 (a)'s 512-token prefill against an unsharded run of
-             the same weights on the card at rtol/atol 1e-5, every kept
+             the same weights on the card, its largest distance at most
+             twice that of phase 8 (a)'s host float32 logits from the
+             card's (allclose at rtol = atol = 1e-5 printed), every kept
              (token, choice)'s (expert, slot) identical and each rank
              keeping only its own experts' pairs, K2 ``simt`` launches per
              rank, each rank's peak memory (no time: the two share the
-             card and gloo stages the sum through the host).
+             card and gloo stages the sum through the host); its attention
+             is tensor-parallel too (24/4 heads a rank); (c) the same two
+             ranks, attention and MLP tensor-parallel over "model":
+             qwen2-72b at full width (64/8 heads of 128, d_ff 29568, QKV
+             bias) cut to 1 layer, each rank 32/4 heads and 14784 MLP
+             columns; in float32 a 512-token prefill's logits against the
+             unsharded run on the card as in (b), the yardstick the host's
+             float32 prefill of the cut, a training step's loss
+             (1e-4) and each rank's gradient shards (1e-3) against the
+             unsharded step's slices, K2 and K2-bwd once a rank on
+             ``simt``; in bf16 the logits in K2's bf16 band, K2 and K2-bwd
+             once a rank on ``sm90``; the heads K2 saw, parameter bytes
+             held (equal to the dry run's) and prefill peak per rank
+             beside the dry run's prediction (mesh (1, 2), fake ``cuda``
+             tensors).
 10. dryrun — ``launch.dryrun`` and ``launch.hlo_costs`` against the card:
              (a) at world size 1 on fake ``cuda`` tensors, a prediction of
              phase 7 (c)'s training step (hymba-1.5B, bf16, 4 x 2048,
@@ -133,7 +149,13 @@ failed check exits non-zero):
              hymba-1.5B ``long_500k`` on the 16 x 16 mesh (fake process
              group of 256 ranks), records printed, and two tiny cells on
              the (2, 2, 2) mesh traced on fake ``cuda`` and fake ``cpu``
-             tensors with equal accounting.
+             tensors with equal accounting; stablelm-12b ``train_4k`` on
+             16 x 16 with attention and MLP tensor-parallel over "model":
+             its FLOPs a rank below the 6331 TFLOP it took with attention
+             and the MLP gathered on every rank (PERF.md section 6), split
+             into the tensor-parallel products, the K/V projections, the
+             loss head and K2 + K2-bwd, the products equal to the split's
+             from the shapes.
 11. moe-train — MoE training, remat "dots", llama4 served: (a) a float32
              gradient gate of dbrx-132B at full width cut to 1 layer, phase 8
              (a)'s 512-token prompt: the loss and every parameter gradient on
@@ -191,11 +213,11 @@ failed check exits non-zero):
              stub), qwen2-72b (QKV bias) and deepseek-67b, weights from a
              seed; each through the helpers phase 12 uses: (a) a float32
              gate at full width against the same weights on the host (2
-             layers and 1100 tokens; 1 layer and 512 tokens at d_model
-             8192), prefill against decode, launches per route as
-             ``route``/``route_bwd`` name them; (b) bf16 serving at full
-             width and the largest depth whose weights stay under 64 GiB
-             (a cut for qwen2-72b and deepseek-67b only), phase 6 (b)'s
+             layers and 1100 tokens; 1 layer above d_model 4096, and 512
+             tokens above 6144), prefill against decode, launches per
+             route as ``route``/``route_bwd`` name them; (b) bf16 serving
+             at full width and the largest depth whose weights stay under
+             64 GiB (a cut for qwen2-72b and deepseek-67b only), phase 6 (b)'s
              traffic (a stub frontend's bucket shapes as seeded
              embeddings through ``Model`` itself, which the reference's
              serving refuses), one K2 or K3 launch a layer a prefill, none
@@ -226,6 +248,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -348,10 +371,30 @@ RANGES = MOE_RANGES + ("transformer.layer", "train_step.optimizer")
 # Phase 9 (a): 4 of dbrx's 40 layers in bf16 (4 x 6.52 GB + 2.47 GB of
 # embedding and head, ~28.6 GB), served twice: no mesh, then the mesh.
 SHARD_LAYERS = 4
-# Phase 9 (b): the two ranks' float32 logits against the unsharded run:
-# only the order of the two partial outputs' f32 sum differs.
-SHARD_TOL = 1e-5
+# Phases 9 (b), (c): the two ranks' float32 logits against the unsharded
+# run on the card (``shard_close``).  With attention and the MLP
+# tensor-parallel the ranks sum their partial products over "model" (and
+# cuBLAS takes the halves in its own order), so the logits move as far as
+# any other float32 evaluation of the same cut moves them: dbrx at 1 layer
+# 3.374e-05 on the mesh, where the host's float32 prefill of the same
+# weights and prompt is 3.409e-05 from the card's (phase 8 (a)); qwen2-72b
+# 5.770e-05 against 5.794e-05 (NVIDIA H100 80GB HBM3, 700.00 W), past a
+# flat allclose(rtol=atol=SHARD_TOL), which is printed as a reading.  The
+# gate is the measured yardstick: the mesh's largest distance from the
+# unsharded run at most SHARD_SPREAD times the host's float32 run's on the
+# same prompt.
+SHARD_TOL, SHARD_SPREAD = 1e-5, 2.0
 SHARD_RANKS, SHARD_TIMEOUT = 2, 900   # (b): ranks on the one card; seconds
+# Phase 9 (c): qwen2-72b at full width (64/8 heads of 128, d_ff 29568, QKV
+# bias) cut to 1 layer, tensor-parallel over "model" on the same two ranks:
+# each rank's 32 query and 4 KV heads, 14784 MLP columns.  Float32: the
+# prefill logits against the unsharded run as in (b), the yardstick the
+# host's float32 prefill of the cut, run by the parent while the ranks
+# work (logits std 1.8); a training step's loss and gradient shards at
+# phase 7 (b)'s gates.  bf16:
+# the logits in K2's bf16 band (rtol, and atol as a share of the largest
+# logit).
+TP_ARCH, TP_TOKENS, TP_BF16_TOL = "qwen2-72b", 512, 2e-2
 # Phase 10 (a): the predicted arguments less the batch must equal the bytes
 # the built tensors requested; against memory_allocated's growth they
 # differ by the caching allocator's rounding of those blocks (512 bytes,
@@ -366,6 +409,10 @@ SHARD_RANKS, SHARD_TIMEOUT = 2, 900   # (b): ranks on the one card; seconds
 # their operators and the same rounding are not in the prediction.
 DRYRUN_ARG_TOL, DRYRUN_PEAK_TOL = 0.01, 0.15
 DRYRUN_TIMEOUT = 600      # (b): seconds for each host-only dry run
+# (b): the cell whose per-rank FLOPs split is printed, and its FLOPs a rank
+# when attention and the MLP were gathered and repeated on every rank of
+# "model" (the dry run's earlier record of this cell, PERF.md section 6)
+TP_DRYRUN_ARCH, TP_DRYRUN_GATHERED_TFLOP = "stablelm-12b", 6331
 DRYRUN_OUT = ROOT / "experiments" / "dryrun_torch_chip"
 # Phase 11 (b): 2 of dbrx's 40 layers in bf16 with their gradients and
 # AdamW's bf16 moments: 7.751 B parameters at 8 bytes, ~62 GB, and the f32
@@ -424,12 +471,15 @@ SERVE_WEIGHTS, TRAIN_PEAK = 64 * 2**30, 66 * 2**30
 # Phase 13: the six configurations no earlier phase runs, in this order;
 # all are served, the first four trained (as the reference trains them).
 # ZOO_TRACED's serving is traced, and stablelm-12b's step (K2-bwd's share
-# at head dim 160).  Above d_model ZOO_WIDE (qwen2-72b, deepseek-67b: 8192,
-# vocab up to 152064) the float32 gate takes 1 layer and MOE_GATE_TOKENS,
-# else 2 layers and GATE_TOKENS.
+# at head dim 160).  The float32 gate, on the host, takes 2 layers and
+# GATE_TOKENS; 1 layer above d_model ZOO_DEEP (stablelm-12b 5120,
+# internvl2-26b 6144: 2 layers took 22.2 and 26.8 s of a run until phase 9
+# (c) needed the time, NVIDIA H100 80GB HBM3, 700.00 W), and also
+# MOE_GATE_TOKENS above ZOO_WIDE (qwen2-72b and deepseek-67b, 8192).
 ZOO = ("mamba2-2_7b", "stablelm-12b", "musicgen-medium", "internvl2-26b",
        "qwen2-72b", "deepseek-67b")
-ZOO_TRAINED, ZOO_TRACED, ZOO_WIDE = ZOO[:4], ZOO[:2], 6144
+ZOO_TRAINED, ZOO_TRACED = ZOO[:4], ZOO[:2]
+ZOO_DEEP, ZOO_WIDE = 4096, 6144
 MEASURED: dict = {}       # phase 6's prefill busy s, phase 7's step times
                           # and its traced step's (busy, wall) s
 
@@ -1890,7 +1940,8 @@ def moe_gate(cfg, card: str) -> int:
     prefill on the card (K2 simt, the MoE on cuBLAS) against the same
     weights moved to the CPU (the plain versions); the last-token logits
     at ``PREFILL_DECODE_TOL`` and the (expert, slot) of every (token,
-    choice) identical.  Returns K2's simt launches."""
+    choice) identical.  The host's logits are kept for phase 9 (b)'s
+    gate.  Returns K2's simt launches."""
     cut = dataclasses.replace(cfg, num_layers=1, dtype="float32")
     prompt = torch.as_tensor(np.random.default_rng(1).integers(
         1, cfg.vocab_size, MOE_GATE_TOKENS)[None])
@@ -1910,6 +1961,7 @@ def moe_gate(cfg, card: str) -> int:
         slots[where] = kept_slots(model, seen["x"])
         times[where] = time.perf_counter() - t0
     hook.remove()
+    MEASURED["moe_host_logits"] = logits["cpu"]
     sm90, simt = k2_counts()
     check(sm90 == 0 and simt == 1, f"(a) the card's float32 prefill "
           f"launched K2 sm90 {sm90}, simt {simt} times, not 0 and 1")
@@ -2336,6 +2388,26 @@ def shard_world1(card: str) -> int:
     return ep["sm90"]
 
 
+def shard_close(got: torch.Tensor, want: torch.Tensor,
+                host: torch.Tensor) -> tuple[bool, str]:
+    """(b), (c): float32 logits of the mesh against the unsharded run's on
+    the card, held to ``SHARD_SPREAD`` times the largest distance of the
+    host's float32 logits of the same weights and prompt from that run;
+    the gate's text, with allclose at rtol = atol = ``SHARD_TOL`` beside
+    it as a reading.  The yardstick itself is held to phase 8 (a)'s gate
+    of the host against the card."""
+    check(torch.allclose(host, want, rtol=PREFILL_DECODE_TOL,
+                         atol=PREFILL_DECODE_TOL),
+          "the host's float32 logits disagree with the unsharded card run's")
+    err = float((got - want).abs().max())
+    spread = float((host - want).abs().max())
+    ok = err <= SHARD_SPREAD * spread
+    tight = torch.allclose(got, want, rtol=SHARD_TOL, atol=SHARD_TOL)
+    return ok, (f"<= {SHARD_SPREAD} x the host's float32 distance "
+                f"{spread:.3e}: {ok} (allclose(rtol=atol={SHARD_TOL}) "
+                f"{tight})")
+
+
 def shard_rank(rank: int, world: int, store: str, out: str) -> None:
     """(b) One rank on the one card over gloo: dbrx-132B float32 at full
     width cut to 1 layer; phase 8 (a)'s prompt prefilled unsharded, then
@@ -2405,8 +2477,8 @@ def shard_two_ranks(card: str) -> int:
     for r, res in enumerate(ranks):
         _, j = res["coord"]
         err = float((res["got"] - res["want"]).abs().max())
-        ok = torch.allclose(res["got"], res["want"], rtol=SHARD_TOL,
-                            atol=SHARD_TOL)
+        ok, tol = shard_close(res["got"], res["want"],
+                              MEASURED["moe_host_logits"][None])
         mine = {s for s in res["plain"][0]["slots"]
                 if j * num_local <= s[2] < (j + 1) * num_local}
         got = res["ep"][0]["slots"]
@@ -2418,8 +2490,8 @@ def shard_two_ranks(card: str) -> int:
             f"[{j * num_local}, {(j + 1) * num_local}) of {cfg.num_experts}; "
             f"holds {res['held'] / 1e9:.3f} GB of parameters; last-token "
             f"logits vs the unsharded float32 run max_abs_err={err:.3e} "
-            f"(std {float(res['want'].std()):.3e}), allclose(rtol=atol="
-            f"{SHARD_TOL})={ok}; kept {len(got)} pairs, all its own={own}, "
+            f"(std {float(res['want'].std()):.3e}) {tol}; kept "
+            f"{len(got)} pairs, all its own={own}, "
             f"identical to the unsharded run's={got == mine}; K2 launches "
             f"sm90 {sm90}, simt {n}; peak max_memory_allocated "
             f"{res['peak'] / 2**30:.3f} GiB; {card}")
@@ -2437,13 +2509,268 @@ def shard_two_ranks(card: str) -> int:
     return simt
 
 
+def tp_cut(dtype: str):
+    return dataclasses.replace(get_config(TP_ARCH), num_layers=1,
+                               dtype=dtype, remat="none")
+
+
+def tp_batch() -> dict:
+    """Phase 9 (c)'s prompt of ``TP_TOKENS`` ids and its next tokens."""
+    ids = np.random.default_rng(1).integers(1, get_config(TP_ARCH).vocab_size,
+                                            TP_TOKENS + 1)
+    t = torch.as_tensor(ids[None]).to(DEV)
+    return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+
+
+def tp_shapes():
+    """Shadows ``models.layers.flash_attention`` with a recording wrapper:
+    the (q, k) shapes of each K2 call, in a list."""
+    seen: list = []
+    inner = model_layers.flash_attention
+
+    def recording(q, k, v, **kw):
+        seen.append((tuple(q.shape), tuple(k.shape)))
+        return inner(q, k, v, **kw)
+    model_layers.flash_attention = recording
+    return seen, inner
+
+
+def tp_pass(rank: int, mesh, dtype: str) -> dict:
+    """(c) One rank, one dtype: the unsharded cut's prefill logits, loss
+    and gradient slices (the ranks in turn, so that one unsharded model
+    with its gradients is on the card at a time), then the same weights
+    placed on ``mesh``: prefill under ``use_mesh`` (parameter bytes held,
+    peak net of what the process holds besides), a loss and backward, K2
+    and K2-bwd launches by route and the heads K2 saw."""
+    from repro_torch.distributed.sharding import local_slice, param_shardings
+    cfg = tp_cut(dtype)
+    batch = tp_batch()
+    prompt = {"tokens": batch["tokens"]}
+    want = {}
+    for turn in range(SHARD_RANKS):
+        if turn == rank:
+            model = Model(cfg, device=DEV,
+                          generator=torch.Generator(DEV).manual_seed(0))
+            with torch.inference_mode():
+                want["logits"] = model.prefill(prompt)[0].float().cpu()
+            if dtype == "float32":      # no gate reads bf16's gradients
+                model.requires_grad_(True)
+                loss = model.loss(batch)
+                loss.backward()
+                want["loss"] = float(loss.detach())
+                places = param_shardings(model, mesh)
+                want["grads"] = {n: local_slice(p.grad, mesh,
+                                                places[n].placements).cpu()
+                                 for n, p in model.named_parameters()}
+                model.zero_grad(set_to_none=True)
+                model.requires_grad_(False)
+                del loss
+        dist.barrier()
+    shard_params(model, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = sum(p.to_local().numel() * p.to_local().element_size()
+               for p in model.parameters())
+    base = torch.cuda.memory_allocated()
+    reset_k2_counts()
+    torch.cuda.reset_peak_memory_stats()
+    seen, inner = tp_shapes()
+    try:
+        with use_mesh(mesh), torch.inference_mode():
+            got = model.prefill(prompt)[0].float().cpu()
+        torch.cuda.synchronize()
+        # the dry run's peak counts from the arguments on: the parameters
+        # and the batch (int32 ids there)
+        peak = torch.cuda.max_memory_allocated() - base + held + 4 * \
+            TP_TOKENS
+        prefill_k2 = k2_counts()
+        model.requires_grad_(True)
+        with use_mesh(mesh):
+            loss = model.loss(batch)
+            loss.backward()
+        torch.cuda.synchronize()
+    finally:
+        model_layers.flash_attention = inner
+    rel = {n: leaf_rel(want["grads"][n], p.grad.to_local())
+           for n, p in model.named_parameters() if "grads" in want}
+    return {"coord": tuple(mesh.get_coordinate()), "want": want["logits"],
+            "got": got, "want_loss": want.get("loss"),
+            "loss": float(loss.detach()), "rel": rel, "held": held,
+            "peak": peak, "prefill_k2": prefill_k2,
+            "step_k2": tuple(a - b for a, b in zip(k2_counts(), prefill_k2)),
+            "step_k2b": k2b_counts(), "shapes": seen}
+
+
+def tp_rank(rank: int, world: int, store: str, out: str) -> None:
+    """(c) One rank on the one card over gloo, mesh (1, 2): ``tp_pass`` in
+    float32, then in bf16."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_debug_mesh((1, SHARD_RANKS))
+        res = {}
+        for dtype in ("float32", "bfloat16"):
+            res[dtype] = tp_pass(rank, mesh, dtype)
+            gc.collect()
+            torch.cuda.empty_cache()
+        torch.save(res, Path(out) / f"tp{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_predict() -> dict:
+    """(c) The dry run's record of each rank's prefill of the cut, per
+    dtype: rank 0 of a fake group of ``SHARD_RANKS`` on fake cuda tensors,
+    mesh (1, 2)."""
+    recs = {}
+    dryrun._fake_group(SHARD_RANKS)
+    try:
+        mesh = make_debug_mesh((1, SHARD_RANKS))
+        for dtype in ("float32", "bfloat16"):
+            cfg = tp_cut(dtype)
+            recs[dtype] = dryrun.run_cell(
+                cfg.name, "prefill", mesh, False, device=DEV, cfg=cfg,
+                shape=ShapeSpec("prefill", "prefill", TP_TOKENS, 1))
+            check(recs[dtype]["status"] == "ok", f"(c) dry run: "
+                  f"{recs[dtype]}")
+    finally:
+        dist.destroy_process_group()
+    return recs
+
+
+def tp_step_gates(res: dict) -> tuple[float, str]:
+    """(c) float32: the step's loss against the unsharded one (relative)
+    and the gradient leaf whose shard is furthest from the unsharded's."""
+    return (abs(res["loss"] - res["want_loss"]) / abs(res["want_loss"]),
+            max(res["rel"], key=res["rel"].get))
+
+
+def tp_step_text(res: dict) -> str:
+    loss_rel, worst = tp_step_gates(res)
+    return (f"loss {res['loss']:.6f} vs {res['want_loss']:.6f} (rel "
+            f"{loss_rel:.2e}); {len(res['rel'])} gradient shards, worst "
+            f"||g_tp - g||/||g|| {res['rel'][worst]:.3e} ({worst}); ")
+
+
+def shard_tp(card: str) -> dict:
+    """(c) ``SHARD_RANKS`` spawned ranks on the one card over gloo, mesh
+    (1, 2): qwen2-72b at full width cut to 1 layer, attention and MLP
+    tensor-parallel; the gates on what each wrote.  Returns the ranks'
+    K2 and K2-bwd launches by route."""
+    cfg = get_config(TP_ARCH)
+    n = SHARD_RANKS
+    hl, kl = cfg.num_heads // n, cfg.num_kv_heads // n
+    pred = tp_predict()
+    # the float32 gate's yardstick: the cut's prefill on the host, its
+    # weights drawn on the card as the ranks draw them, run while they work
+    # (before them it took 8.6 s and (c) 115.6 s; beside them (c) took
+    # 107.6 s; NVIDIA H100 80GB HBM3, 700.00 W)
+    t0 = time.perf_counter()
+    host_m = Model(tp_cut("float32"), device=DEV,
+                   generator=torch.Generator(DEV).manual_seed(0)).to("cpu")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=tp_rank, args=(r, n, f"{tmp}/store", tmp))
+                 for r in range(n)]
+        for p in procs:
+            p.start()
+        with torch.inference_mode():
+            host = host_m.prefill({"tokens": tp_batch()["tokens"].cpu()})[0]
+        del host_m
+        say("shard", f"(c) the host's float32 prefill of the cut, weights "
+            f"drawn and moved: {time.perf_counter() - t0:.1f} s beside the "
+            f"ranks")
+        deadline = time.monotonic() + SHARD_TIMEOUT
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join()
+        check(not hung, f"(c) {len(hung)} ranks still ran after "
+              f"{SHARD_TIMEOUT} s")
+        codes = [p.exitcode for p in procs]
+        check(codes == [0] * n, f"(c) rank exit codes {codes}")
+        ranks = [torch.load(Path(tmp) / f"tp{r}.pt") for r in range(n)]
+    launches = {"flash_attention/sm90": 0, "flash_attention/simt": 0,
+                "flash_attention_bwd/sm90": 0, "flash_attention_bwd/simt": 0}
+    for dtype, route in (("float32", "simt"), ("bfloat16", "sm90")):
+        rec = pred[dtype]
+        batch_b = sum(t.numel() * t.element_size() for t in input_specs(
+            tp_cut(dtype), ShapeSpec("prefill", "prefill", TP_TOKENS, 1))[
+                "batch"].values())
+        for r, all_res in enumerate(ranks):
+            res = all_res[dtype]
+            err = float((res["got"] - res["want"]).abs().max())
+            if dtype == "float32":
+                ok, tol = shard_close(res["got"], res["want"], host)
+            else:
+                atol = TP_BF16_TOL * float(res["want"].abs().max())
+                ok = torch.allclose(res["got"], res["want"],
+                                    rtol=TP_BF16_TOL, atol=atol)
+                tol = (f"allclose(rtol={TP_BF16_TOL}, atol={TP_BF16_TOL} x "
+                       f"max|want|)={ok}")
+            pk2, sk2, sk2b = res["prefill_k2"], res["step_k2"], res["step_k2b"]
+            heads = {(q[2], k[2]) for q, k in res["shapes"]}
+            pred_held = rec["memory"]["argument_bytes"] - batch_b
+            peak_err = abs(rec["memory"]["peak_bytes"] - res["peak"]) / \
+                res["peak"]
+            say("shard", f"(c) {dtype} rank {r} at {res['coord']}: "
+                f"{cfg.name} cut to 1 layer, heads {hl}/{kl} of "
+                f"{cfg.num_heads}/{cfg.num_kv_heads}, MLP columns "
+                f"{cfg.d_ff // n} of {cfg.d_ff}; prefill of {TP_TOKENS} "
+                f"tokens: last-token logits vs the unsharded {dtype} run "
+                f"max_abs_err={err:.3e} (std "
+                f"{float(res['want'].std()):.3e}) {tol}; "
+                + (tp_step_text(res) if dtype == "float32" else
+                   f"the step's loss {res['loss']:.6f}; ")
+                + f"K2 heads (query, KV) seen {sorted(heads)}; K2 launches "
+                f"prefill sm90/simt {pk2}, step {sk2}; K2-bwd {sk2b}; "
+                f"parameters held {res['held']} B (dry run "
+                f"{pred_held} B); prefill peak "
+                f"{res['peak'] / 2**30:.3f} GiB (dry run "
+                f"{rec['memory']['peak_bytes'] / 2**30:.3f} GiB, error "
+                f"{peak_err * 100:.2f} %); {card}")
+            check(bool(torch.isfinite(res["got"]).all()),
+                  f"(c) {dtype} rank {r}: logits are not finite")
+            check(ok, f"(c) {dtype} rank {r}: the tensor-parallel prefill "
+                  f"disagrees")
+            check(heads == {(hl, kl)}, f"(c) {dtype} rank {r}: K2 saw "
+                  f"heads {heads}, not {(hl, kl)}")
+            want_k2 = (1, 0) if route == "sm90" else (0, 1)
+            check(pk2 == want_k2 and sk2 == want_k2 and sk2b == want_k2,
+                  f"(c) {dtype} rank {r}: K2 / K2-bwd launched {pk2}, "
+                  f"{sk2}, {sk2b}, not once each on {route}")
+            check(res["held"] == pred_held, f"(c) {dtype} rank {r}: holds "
+                  f"{res['held']} B of parameters, the dry run {pred_held}")
+            check(math.isfinite(res["loss"]), f"(c) {dtype} rank {r}: the "
+                  f"loss is not finite")
+            if dtype == "float32":
+                loss_rel, worst = tp_step_gates(res)
+                check(loss_rel <= GATE_LOSS_RTOL,
+                      f"(c) rank {r}: the tensor-parallel loss disagrees")
+                check(res["rel"][worst] <= GATE_LEAF_RTOL, f"(c) rank {r}: "
+                      f"gradient shard of {worst} disagrees")
+            launches[f"flash_attention/{route}"] += pk2[route == "simt"] + \
+                sk2[route == "simt"]
+            launches[f"flash_attention_bwd/{route}"] += sk2b[route == "simt"]
+    return launches
+
+
 def shard_phase(card: str) -> dict:
     """Phase 9: the sharded layer on the card."""
     t0 = time.perf_counter()
     sm90 = shard_world1(card)
     simt = shard_two_ranks(card)
+    launches = shard_tp(card)
+    launches["flash_attention/sm90"] += sm90
+    launches["flash_attention/simt"] += simt
     say("shard", f"done in {time.perf_counter() - t0:.1f} s")
-    return {"flash_attention/sm90": sm90, "flash_attention/simt": simt}
+    return launches
 
 
 
@@ -2606,6 +2933,34 @@ def dryrun_hold(label: str, cfg, shape, step, reading: dict,
     DRYRUN_HELD.append(label)
 
 
+def tp_split(rec: dict, cfg, shape, n: int) -> dict:
+    """A train cell's products per rank of a mesh whose "model" axis has
+    ``n`` ranks, from the shapes: the tensor-parallel ones (attention's q
+    and output projections and QKV bias-free products on H/n heads, the
+    dense MLP's d_ff/n columns), the K/V projections of the KV heads the
+    rank's query heads read (KH/n where n divides KH, else those heads
+    whole), and the loss head every rank repeats; each product 2·T·m·k
+    forward, again in remat "full"'s recompute (but the layer's last, the
+    MLP's ``wo``, where the recompute stops), twice in the backward.  K2
+    and K2-bwd come from ``rec``'s operators; ``products`` is ``rec``'s
+    sum over the rest, which must equal the three parts'."""
+    T = shape.batch * shape.seq // (rec["chips"] // n)
+    sh = model_layers.head_shard(cfg, n, 0)
+    d, hd, L = cfg.d_model, cfg.head_dim, cfg.num_layers
+    passes = 8 if cfg.remat == "full" else 6
+    tp = T * L * (passes * (2 * d * sh.hl * hd + 2 * d * cfg.d_ff // n)
+                  + 6 * d * cfg.d_ff // n)
+    kv = passes * T * L * 2 * d * (sh.kv1 - sh.kv0) * hd
+    head = 8 * T * d * cfg.vocab_size
+    ops = rec["flops_per_operator"]
+    return {"tensor-parallel products": tp, "K/V projections": kv,
+            "loss head": head,
+            "K2 + K2-bwd": sum(v for k, v in ops.items()
+                               if k.startswith("repro_torch.")),
+            "products": sum(v for k, v in ops.items()
+                            if not k.startswith("repro_torch."))}
+
+
 def dryrun_cli(args: list, out: Path) -> subprocess.Popen:
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     return subprocess.Popen(
@@ -2645,6 +3000,11 @@ def dryrun_phase(card: str) -> None:
     procs = {(name, dev): dryrun_cli(args + ["--device", dev],
                                      DRYRUN_OUT / f"{name}-{dev}")
              for name, (args, _) in runs.items() for dev in devices}
+    # stablelm-12b train_4k on 16 x 16: attention and MLP tensor-parallel
+    # over "model" = 16 (its 8 KV heads do not divide it)
+    procs["tp", "cuda"] = dryrun_cli(
+        ["--singlepod", "--arch", TP_DRYRUN_ARCH, "--shape", "train_4k",
+         "--device", "cuda"], DRYRUN_OUT / "tp-cuda")
     for (name, dev), proc in procs.items():
         try:
             log, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
@@ -2664,6 +3024,30 @@ def dryrun_phase(card: str) -> None:
         check(rec["status"] == "ok" and rec["chips"] == 256,
               f"(b) {tag}: {rec}")
         say("dryrun", f"(b) {tag}: {json.dumps(rec)}")
+    tag = f"{TP_DRYRUN_ARCH}__train_4k__single"
+    rec = json.loads((DRYRUN_OUT / "tp-cuda" / f"{tag}.json").read_text())
+    check(rec["status"] == "ok" and rec["chips"] == 256, f"(b) {tag}: {rec}")
+    cfg = get_config(TP_DRYRUN_ARCH)
+    split = tp_split(rec, cfg, dryrun.SHAPES["train_4k"], 16)
+    parts = sum(split[k] for k in ("tensor-parallel products",
+                                   "K/V projections", "loss head"))
+    say("dryrun", f"(b) {tag}: {rec['flops_per_device'] / 1e12:.3f} TFLOP "
+        f"a rank (attention and MLP gathered: "
+        f"{TP_DRYRUN_GATHERED_TFLOP} TFLOP); split per rank, TFLOP: "
+        + ", ".join(f"{k} {v / 1e12:.3f}" for k, v in split.items())
+        + f"; products from the shapes {parts / 1e12:.3f}, equal="
+        f"{parts == split['products']}; per operator "
+        f"{rec['flops_per_operator']}; collectives "
+        f"{rec['collective_counts']}, bytes "
+        f"{rec['collective_bytes_per_device']}; peak "
+        f"{rec['memory']['peak_bytes'] / 2**30:.3f} GiB, arguments "
+        f"{rec['memory']['argument_bytes'] / 2**30:.3f} GiB; traced in "
+        f"{rec['trace_s']} s")
+    check(parts == split["products"], f"(b) {tag}: the products are not "
+          f"the tensor-parallel split's")
+    check(rec["flops_per_device"] < TP_DRYRUN_GATHERED_TFLOP * 1e12,
+          f"(b) {tag}: not below the gathered layers' "
+          f"{TP_DRYRUN_GATHERED_TFLOP} TFLOP")
     keys = ("flops_per_device", "bytes_per_device", "collective_counts",
             "collective_bytes_per_device", "memory", "optimizer")
     for name, (_, tags) in runs.items():
@@ -3585,9 +3969,10 @@ def simt_bwd_ms(gen, B: int, S: int, H: int, KH: int, D: int) -> float:
 
 def zoo_phase(gen, card: str) -> dict:
     """Phase 13: each of ``ZOO`` in turn: (a) its float32 gate (2 layers
-    and ``GATE_TOKENS``; 1 layer and ``MOE_GATE_TOKENS`` above d_model
-    ``ZOO_WIDE``), (b) bf16 serving (traced for ``ZOO_TRACED``), (c) bf16
-    training for ``ZOO_TRAINED``; then (d) the kernels at the shapes these
+    and ``GATE_TOKENS``; 1 layer above d_model ``ZOO_DEEP``, and
+    ``MOE_GATE_TOKENS`` above ``ZOO_WIDE``), (b) bf16 serving (traced for
+    ``ZOO_TRACED``), (c) bf16 training for ``ZOO_TRAINED``; then (d) the
+    kernels at the shapes these
     paths gave them that no earlier phase ran: K2 (``sm90``) at
     stablelm-12b's prefill and K2-bwd (``sm90``'s two-warpgroup kernels)
     at its step, head dim 160, with ``simt``'s bf16 entry timed at that
@@ -3601,10 +3986,9 @@ def zoo_phase(gen, card: str) -> dict:
         cfg = get_config(arch)
         gc.collect()
         torch.cuda.empty_cache()
-        wide = cfg.d_model > ZOO_WIDE
         add_launches(total, model_gate(
-            cfg, "zoo", card, 1 if wide else 2,
-            MOE_GATE_TOKENS if wide else GATE_TOKENS))
+            cfg, "zoo", card, 1 if cfg.d_model > ZOO_DEEP else 2,
+            MOE_GATE_TOKENS if cfg.d_model > ZOO_WIDE else GATE_TOKENS))
         served, shapes[arch] = model_serve(cfg, "zoo", card,
                                            trace=arch in ZOO_TRACED)
         add_launches(total, served)
@@ -3679,6 +4063,20 @@ def main() -> None:
         f"(9, 0): {cap == (9, 0)}; python {sys.version.split()[0]}")
 
     # ---- 2. build: one nvcc per source, all started together --------------
+    # i1's A and B are drawn on a thread meanwhile (numpy fills them without
+    # the interpreter lock; the build waits on nvcc), joined before phase
+    # 4's host profile, which they would disturb
+    i1: dict = {}
+
+    def draw_i1() -> None:
+        t = time.perf_counter()
+        rng = np.random.default_rng(0)
+        i1["a"] = rng.standard_normal((M, K), dtype=np.float32)
+        i1["b"] = rng.standard_normal((K, N), dtype=np.float32)
+        i1["s"] = time.perf_counter() - t
+
+    drawing = threading.Thread(target=draw_i1)
+    drawing.start()
     t0 = time.perf_counter()
     builders = (build, build_k2, build_k2_sm90, build_k3, build_k2_bwd,
                 build_k2_bwd_sm90, build_k3_bwd)
@@ -3783,10 +4181,25 @@ def main() -> None:
 
     # ---- 4. predict: fit the node ----------------------------------------
     t0 = time.perf_counter()
+    drawing.join()
     cpu_prof = Profiler(host_cpu_runner(np.float32), repeats=3)
     cpu_prof.run(range(1000, 2001, 100))
     cpu_fit = cpu_prof.fit()
-    gpu_prof = Profiler(cuda_kernel_runner(dev, torch.float32), repeats=3)
+    if cpu_fit.a <= 1e-18:
+        # fit_linear's floor: the host's times did not grow with the size
+        # (a busy host: one run fitted b = 18 ms), and a device of free
+        # compute would take the whole GEMM; profile the host once more
+        say("predict", f"host fit degenerate (a={cpu_fit.a:.1e}, "
+            f"b={cpu_fit.b:.4e} s) on the readings " + ", ".join(
+                f"{r.size}^3 {r.seconds * 1e3:.3f} ms"
+                for r in cpu_prof.records) + ": profiling the host again")
+        cpu_prof = Profiler(host_cpu_runner(np.float32), repeats=3)
+        cpu_prof.run(range(1000, 2001, 100))
+        cpu_fit = cpu_prof.fit()
+        check(cpu_fit.a > 1e-18, "the host's times did not grow with the "
+              "size twice: " + ", ".join(f"{r.size}^3 {r.seconds * 1e3:.3f}"
+                                         f" ms" for r in cpu_prof.records))
+    gpu_prof =Profiler(cuda_kernel_runner(dev, torch.float32), repeats=3)
     gpu_prof.run(range(3000, 6001, 300))
     gpu_fit = gpu_prof.fit()
 
@@ -3833,9 +4246,13 @@ def main() -> None:
     card_rows = max(asg.m for d, asg in zip(hg.devices,
                                             plan.adapted.assignments)
                     if d.kind != "cpu")
-    a_dev = randn(card_rows, K, dtype=torch.float32)
-    b_dev = randn(K, N, dtype=torch.float32)
-    sample = torch.randperm(card_rows, generator=gen, device=dev)[:SAMPLE_ROWS]
+    # card_rows comes from the timed fit: drawn from ``gen``, it would move
+    # every later phase's random inputs with the host's timing
+    part_gen = torch.Generator(device=dev).manual_seed(1)
+    a_dev = torch.randn((card_rows, K), generator=part_gen, device=dev)
+    b_dev = torch.randn((K, N), generator=part_gen, device=dev)
+    sample = torch.randperm(card_rows, generator=part_gen,
+                            device=dev)[:SAMPLE_ROWS]
     main_row = compare(a_dev, b_dev, "float32", F32_TOL,
                        "main-path partition", exact_rows=sample)
     del a_dev, b_dev
@@ -3845,12 +4262,9 @@ def main() -> None:
           f"{main_row}")
 
     # ---- 5. main path: co-execution at i1 --------------------------------
-    t0 = time.perf_counter()
-    rng = np.random.default_rng(0)
-    a = rng.standard_normal((M, K), dtype=np.float32)
-    b = rng.standard_normal((K, N), dtype=np.float32)
-    say("main", f"A, B of i1 ({M}x{K}x{N} float32) made in "
-        f"{time.perf_counter() - t0:.1f} s")
+    a, b = i1["a"], i1["b"]
+    say("main", f"A, B of i1 ({M}x{K}x{N} float32) made in {i1['s']:.1f} s "
+        f"during the build")
     for d, asg in zip(hg.devices, plan.adapted.assignments):
         say("main", f"plan: {d.name:9s} rows {asg.row0}..{asg.row0 + asg.m} "
             f"share {asg.ops / (float(M) * N * K) * 100:.3f}%")
@@ -3911,10 +4325,10 @@ def main() -> None:
         serve_launches[name] += n
 
     # ---- 9. shard: dbrx-132B's expert-parallel MoE under a mesh -----------
-    shard_launches = shard_phase(card)
+    for name, n in shard_phase(card).items():
+        launches_of = (train_launches if "bwd" in name else serve_launches)
+        launches_of[name] = launches_of.get(name, 0) + n
     say("shard", f"total {time.perf_counter() - t_start:.1f} s")
-    for name, n in shard_launches.items():
-        serve_launches[name] += n
 
     # ---- 10. dryrun: the dry run and its accounting against the card ------
     dryrun_phase(card)

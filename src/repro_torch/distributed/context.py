@@ -71,6 +71,22 @@ def model_axis_size(mesh: DeviceMesh | None = None) -> int:
     return axis_size(mesh, "model")
 
 
+def model_group(mesh: DeviceMesh | None = None):
+    """The process group of the "model" axis; None without one."""
+    mesh = mesh or current_mesh()
+    if mesh is None or "model" not in axis_names(mesh):
+        return None
+    return mesh.get_group("model")
+
+
+def model_rank(mesh: DeviceMesh | None = None) -> int:
+    """This rank's coordinate on the "model" axis; 0 without one."""
+    mesh = mesh or current_mesh()
+    if mesh is None or "model" not in axis_names(mesh):
+        return 0
+    return mesh.get_local_rank("model")
+
+
 def data_shards(mesh: DeviceMesh | None = None) -> int:
     mesh = mesh or current_mesh()
     if mesh is None:

@@ -19,14 +19,28 @@ path.
 
 ``shard_params(model, mesh)`` places every parameter as a ``DTensor`` by
 its spec; a rank then holds what the rules give it.  The model code is per
-rank and computes on plain tensors: ``gathered(module)`` puts each
-``DTensor`` parameter's full value in its place for the extent of a call
-(an expert leaf keeps its "model" shard when the expert-parallel MoE path
-runs) and puts the ``DTensor`` back after it.  The gather is a sum over the
-axis group of zero-padded shards, which every backend (NCCL; gloo also for
-CUDA tensors) can all-reduce, and its backward sums the gradient over the
-batch axes, where each rank saw other tokens, before taking the rank's
-slice.
+rank and computes on plain tensors: ``gathered(module, keep=("model",))``
+puts each ``DTensor`` parameter's value in its place for the extent of a
+call and puts the ``DTensor`` back after it.  What is gathered:
+
+* a leaf that its module lists in ``model_dims`` (attention's ``wq``,
+  ``wk``, ``wv``, ``wo`` and biases, the dense MLP's and the shared
+  expert's ``wi``, ``wg``, ``wo``, the MoE's experts) and whose spec puts
+  "model" on that dim (its heads, columns or experts) keeps its "model"
+  shard: the layer computes its own heads, columns or experts and sums
+  the row-parallel products over "model" (``models.layers``,
+  ``models.moe``).  Only its other axes ("data": FSDP) are gathered;
+* every other leaf (norm scales, the router, the SSM's and MLA's leaves,
+  the embedding and head, ``wk``/``wv`` whose rule shards the head dim
+  because the KV heads do not divide "model", a leaf whose "model" entry
+  ``_maybe`` dropped) is gathered to its full value.
+
+The gather is a sum over the axis group of zero-padded shards, which every
+backend (NCCL; gloo also for CUDA tensors) can all-reduce.  Its backward
+sums the gradient over the batch axes, where each rank saw other tokens
+(whether the leaf is sharded over them or replicated), then takes the
+rank's slice.  A "model" shard is not summed over "model": each rank's
+gradient of its own heads or columns is whole.
 """
 from __future__ import annotations
 
@@ -354,7 +368,7 @@ def local_slice(full: torch.Tensor, mesh: DeviceMesh,
 class _Gather(torch.autograd.Function):
     """The full value of a local shard over the mesh dims it is sharded on
     (except ``keep``'s axes).  Backward: the gradient summed over the
-    gathered batch axes, then the rank's slice."""
+    batch axes of more than one rank, then the rank's slice."""
 
     @staticmethod
     def forward(ctx, local, mesh, pl, keep):
@@ -372,43 +386,67 @@ class _Gather(torch.autograd.Function):
             full.narrow(d, mesh.get_local_rank(i) * size, size).copy_(t)
             dist.all_reduce(full, group=mesh.get_group(i))
             t = full
-        return t
+        return t if dims else t.view_as(t)
 
     @staticmethod
     def backward(ctx, grad):
         mesh, pl = ctx.mesh, ctx.pl
-        names = axis_names(mesh)
+        batch = _batch_dims(mesh)
         g = grad
-        for i in ctx.dims:                        # major axis first
-            if names[i] in _BATCH_AXES:
+        for i in range(len(pl)):                 # major axis first
+            if i in batch:
                 g = g.contiguous().clone()
                 dist.all_reduce(g, group=mesh.get_group(i))
-            size = g.shape[pl[i].dim] // mesh.shape[i]
-            g = g.narrow(pl[i].dim, mesh.get_local_rank(i) * size, size)
+            if i in ctx.dims:
+                size = g.shape[pl[i].dim] // mesh.shape[i]
+                g = g.narrow(pl[i].dim, mesh.get_local_rank(i) * size, size)
         return g, None, None, None
+
+
+def _batch_dims(mesh: DeviceMesh) -> list[int]:
+    """The mesh dims of the batch axes with more than one rank."""
+    names = axis_names(mesh)
+    return [i for i, a in enumerate(names)
+            if a in _BATCH_AXES and mesh.shape[i] > 1]
 
 
 def gather(p: torch.Tensor, keep: tuple[str, ...] = ()) -> torch.Tensor:
     """A ``DTensor``'s full value as a plain tensor, its shards over
-    ``keep``'s mesh axes left in place; a plain tensor as it is."""
+    ``keep``'s mesh axes left in place; a plain tensor as it is.  Where
+    autograd records, the gradient is summed over the batch axes."""
     if not isinstance(p, DTensor):
         return p
     mesh, pl = p.device_mesh, tuple(p.placements)
     names = axis_names(mesh)
-    if not any(isinstance(x, Shard) and mesh.shape[i] > 1
-               and names[i] not in keep for i, x in enumerate(pl)):
+    sharded = any(isinstance(x, Shard) and mesh.shape[i] > 1
+                  and names[i] not in keep for i, x in enumerate(pl))
+    summed = p.requires_grad and torch.is_grad_enabled() and _batch_dims(mesh)
+    if not (sharded or summed):
         return p.to_local()
     return _Gather.apply(p.to_local(), mesh, pl, tuple(keep))
 
 
+def _model_dim(p: torch.Tensor) -> int | None:
+    """The tensor dim a ``DTensor`` is sharded on over a "model" axis of
+    more than one rank; None otherwise."""
+    if not isinstance(p, DTensor):
+        return None
+    mesh = p.device_mesh
+    names = axis_names(mesh)
+    if "model" not in names or _axsize(mesh, "model") == 1:
+        return None
+    pl = p.placements[names.index("model")]
+    return pl.dim if isinstance(pl, Shard) else None
+
+
 @contextlib.contextmanager
 def gathered(module: nn.Module, *, skip: str | None = None,
-             keep_experts: tuple[str, ...] = ()) -> Iterator[None]:
+             keep: tuple[str, ...] = ()) -> Iterator[None]:
     """Within the block: each ``DTensor`` parameter of ``module`` (but
-    those whose names start with ``skip``) replaced by its ``gather``; a
-    MoE's expert leaves (``expert_leaves`` of their module) keep their
-    shards over the axes ``keep_experts`` names.  The parameters are put
-    back after it."""
+    those whose names start with ``skip``) replaced by its ``gather``.  A
+    leaf listed in its module's ``model_dims`` (leaf -> dim) keeps its
+    shards over ``keep``'s axes where it is sharded on that dim over
+    "model".  The parameters are put back after it."""
     swapped = []
     try:
         for name, p in list(module.named_parameters()):
@@ -416,10 +454,10 @@ def gathered(module: nn.Module, *, skip: str | None = None,
                 continue
             owner_name, _, leaf = name.rpartition(".")
             owner = module.get_submodule(owner_name)
-            keep = (keep_experts
-                    if leaf in getattr(owner, "expert_leaves", ()) else ())
+            dim = getattr(owner, "model_dims", {}).get(leaf)
+            kept = keep if dim is not None and _model_dim(p) == dim else ()
             swapped.append((owner, leaf, p))
-            owner._parameters[leaf] = gather(p, keep)
+            owner._parameters[leaf] = gather(p, kept)
         yield
     finally:
         for owner, leaf, p in swapped:

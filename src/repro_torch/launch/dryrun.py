@@ -14,8 +14,10 @@ runs each step once, eagerly, as rank 0 of the mesh:
   tensors on ``--device`` (``cuda`` by default, so every kernel takes its
   card route: the kernels are operators with fake implementations),
   placed by the sharding rules (``shard_params``, ``param_shardings``,
-  ``batch_shardings``, ``cache_shardings(seq_shard=False)``): a rank holds
-  its shards and is given its batch shard, as on the card;
+  ``batch_shardings``) and the decode cache made by ``Model.init_cache``
+  under the mesh (this rank's KV heads where attention is tensor-parallel
+  over "model") and cut to the rank's batch shard: a rank holds its shards
+  and is given its batch shard, as on the card;
 * ``launch.hlo_costs.analyze`` around the step for FLOPs, bytes and
   collectives per device (rank 0's, as the reference's are device 0's),
   and the peak of the bytes alive from the step's arguments on.
@@ -128,11 +130,11 @@ def _shard(tree, shardings):
 
 
 def _batch_only(shardings):
-    """Each spec with its batch axes ("pod", "data") only.  The port's
-    layers compute replicated over "model" (ROADMAP P4), so a rank's decode
-    cache holds every head of its batch shard: the "model" entries of
-    ``cache_shardings``' specs are the reference's layout, not yet the
-    port's."""
+    """Each spec with its batch axes ("pod", "data") only: the decode cache
+    ``Model.init_cache`` makes under the mesh already holds this rank's KV
+    heads (the reference's "model" shard of ``cache_shardings`` where the
+    KV heads divide the axis; where they do not, the heads its query heads
+    read, whole, where the reference's spec shards the head dim)."""
     def keep(entry):
         axes = entry if isinstance(entry, tuple) else (entry,)
         return entry if entry is not None and set(axes) <= {"pod", "data"} \
@@ -144,9 +146,8 @@ def _batch_only(shardings):
 
 def _inputs(cfg, shape: ShapeSpec, device, fake: bool,
             generator: torch.Generator | None) -> dict:
-    """The step's data inputs at full (global) size on ``device``: fake
-    tensors, or tokens drawn from ``generator`` (embeddings N(0, 1)), and
-    a zero cache whose ``pos`` is the last slot."""
+    """The step's batch at full (global) size on ``device``: fake tensors,
+    or tokens drawn from ``generator`` (embeddings N(0, 1))."""
     specs = input_specs(cfg, shape)
 
     def make(t: torch.Tensor) -> torch.Tensor:
@@ -158,15 +159,7 @@ def _inputs(cfg, shape: ShapeSpec, device, fake: bool,
         return torch.randint(0, cfg.vocab_size, t.shape, generator=generator,
                              dtype=t.dtype).to(device)
 
-    out = {"batch": {k: make(v) for k, v in specs["batch"].items()}}
-    if "cache" in specs:
-        cache = {k: (torch.zeros(v.shape, dtype=v.dtype, device=device)
-                     if not fake else torch.empty(v.shape, dtype=v.dtype,
-                                                  device=device))
-                 for k, v in specs["cache"].items() if k != "pos"}
-        cache["pos"] = shape.seq - 1
-        out["cache"] = cache
-    return out
+    return {k: make(v) for k, v in specs["batch"].items()}
 
 
 def build_cell(cfg: ArchConfig, shape: ShapeSpec, mesh=None, *,
@@ -193,8 +186,7 @@ def build_cell(cfg: ArchConfig, shape: ShapeSpec, mesh=None, *,
     if mesh is not None:
         shard_params(model, mesh)
     gen = None if fake else torch.Generator().manual_seed(seed + 1)
-    data = _inputs(cfg, shape, device, fake, gen)
-    batch = data["batch"]
+    batch = _inputs(cfg, shape, device, fake, gen)
     if mesh is not None:
         batch = _shard(batch, batch_shardings(batch, mesh))
     if shape.kind == "train":
@@ -211,7 +203,9 @@ def build_cell(cfg: ArchConfig, shape: ShapeSpec, mesh=None, *,
         step, args = make_prefill_step(model), (batch,)
         arguments = list(model.parameters()) + list(batch.values())
     else:
-        cache = data["cache"]
+        with use_mesh(mesh):        # this rank's KV heads, the global batch
+            cache = model.init_cache(shape.batch, shape.seq)
+        cache["pos"] = shape.seq - 1            # a zero cache, last slot
         if mesh is not None:
             cache = _shard(cache, _batch_only(cache_shardings(
                 cache, mesh, seq_shard=False)))
@@ -287,6 +281,7 @@ def run_cell(arch: str, shape_name: str, mesh, multi_pod: bool, *,
         "optimizer": type(opt).__name__ if shape.kind == "train" else None,
         "trace_s": round(trace_s, 1),
         "flops_per_device": acc["flops"],
+        "flops_per_operator": acc["op_flops"],
         "bytes_per_device": acc["bytes"],
         "bytes_per_device_kernelized": acc["bytes_kernelized"],
         "flash_loop_bytes_per_device": acc["flash_loop_bytes"],

@@ -30,7 +30,15 @@ process (one rank):
 * ``bytes``       — the two together, the traffic of the plain program;
 * ``collective_bytes`` / ``collective_counts`` per kind, from the ``c10d``
                     and ``_c10d_functional`` operators (a ``DTensor``'s
-                    redistributions included): operand bytes per rank.
+                    redistributions included; the sums of the
+                    tensor-parallel layers' ``psum`` and ``sum_grads`` and
+                    of the sharded leaves' gathers): operand bytes per
+                    rank;
+* ``op_flops``    — the FLOPs by operator (``aten.mm``,
+                    ``repro_torch.flash_attention``, ...), whose sum is
+                    ``flops``: under a mesh with a "model" axis of n, the
+                    attention and MLP products and K2 / K2-bwd are each
+                    rank's 1/n (``tests/test_torch_dryrun.py``).
 
 A ``DTensor`` operand is billed at its local shard.  With ``external``
 tensors given (the step's arguments), ``CostMode`` also follows the bytes
@@ -269,8 +277,8 @@ class CostMode(TorchDispatchMode):
         return out
 
     def totals(self) -> dict:
-        """The reference's keys (``analyze``), and ``peak_bytes`` when
-        the live bytes were followed."""
+        """The reference's keys (``analyze``), ``op_flops``, and
+        ``peak_bytes`` when the live bytes were followed."""
         rec = self.rec
         out = {
             "flops": float(rec.flops),
@@ -281,6 +289,7 @@ class CostMode(TorchDispatchMode):
             "collective_bytes": {k: float(v)
                                  for k, v in rec.collective_bytes.items()},
             "collective_counts": dict(rec.collective_counts),
+            "op_flops": dict(sorted(rec.op_flops.items())),
         }
         if self.live is not None:
             out["peak_bytes"] = self.live.peak
@@ -291,7 +300,7 @@ def analyze(fn: Callable, *args, **kwargs) -> dict:
     """Run ``fn(*args, **kwargs)`` once and return the reference's keys:
     ``flops``, ``bytes``, ``bytes_kernelized``, ``flash_loop_bytes``,
     ``transcendentals``, ``collective_bytes``, ``collective_counts``
-    (per kind), for this rank."""
+    (per kind), and ``op_flops`` (per operator), for this rank."""
     with CostMode() as costs:
         fn(*args, **kwargs)
     return costs.totals()

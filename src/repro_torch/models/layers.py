@@ -13,19 +13,43 @@ Attention comes in three executable forms:
   prefill also goes through K2.
 
 Under a mesh (``distributed.context.use_mesh``) the layers compute on
-this rank's batch shard with full (gathered) weights, replicated over
-"model"; the reference's ``constrain`` calls on the decode queries stand
-where its do, and leave a plain tensor as it is.
+this rank's batch shard, with the residual stream replicated over "model".
+Attention and the dense MLP are tensor-parallel there, as the reference's
+sharding makes XLA compute them (Megatron's column/row split): where the
+heads (the MLP's columns) divide the "model" axis, a rank holds its share
+of ``wq``, ``wo`` and the biases (``wi``, ``wg``, ``wo``) through the call
+(``model_dims``; ``distributed.sharding.gathered``), computes its own
+heads (columns) and sums the output projection's partial products over
+"model" (``distributed.collectives.psum``, in the activations' dtype, as
+the reference's ``einsum`` gives them).  The replicated input of the
+column-parallel products goes through ``sum_grads``, whose backward sums
+its gradient over "model".  The KV heads follow the query heads
+(``HeadShard``): where they divide the axis, ``wk``/``wv`` are sharded as
+``wq``; where they do not (KH < n), the rank gathers them whole, keeps the
+KV heads its query heads read (their gradient summed over "model") and,
+where those heads do not give each KV head the same number of query heads,
+repeats K/V once per local query head so that K2 sees a uniform GQA
+ratio.  Prefill and training run K2 and K2-bwd on the local heads only; a
+decode step writes and reads the cache heads of the rank's own query
+heads, which ``Model.init_cache`` allocates per rank.  MLA stays gathered
+and computes every head on every rank.  The reference's ``constrain``
+calls on the decode queries stand where its do, and leave a plain tensor
+as it is.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Any
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.nn import functional as F
 
-from ..distributed.context import constrain, current_mesh, model_axis_size
+from ..distributed.collectives import psum, sum_grads
+from ..distributed.context import (constrain, current_mesh, model_axis_size,
+                                   model_group, model_rank)
 from ..kernels import flash_attention
 from .config import ArchConfig
 
@@ -117,7 +141,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, length: int, *, window: int = 0,
                      scale: float | None = None) -> torch.Tensor:
-    """One decode step.  q: (B, 1, H, Dk); caches: (B, S, KH, D*).
+    """One decode step.  q: (B, 1, H, Dk); caches: (B, S, KH, D*) — under
+    a tensor-parallel mesh, this rank's query and cache heads.
 
     ``length`` = number of valid cache entries (the new token's K/V must
     already be written).  Masked full-cache attention — O(S) per step.
@@ -154,7 +179,40 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+@dataclasses.dataclass(frozen=True)
+class HeadShard:
+    """One rank's share of an attention layer's heads over a "model" axis:
+    query heads ``[h0, h0 + hl)``, the KV heads ``[kv0, kv1)`` they read,
+    and, where those KV heads do not each serve the same number of them,
+    ``expand``: each local query head's KV head less ``kv0``."""
+    group: Any
+    h0: int
+    hl: int
+    kv0: int
+    kv1: int
+    expand: tuple[int, ...] | None
+
+
+def head_shard(cfg: ArchConfig, n: int, rank: int,
+               group: Any = None) -> HeadShard:
+    """Rank ``rank``'s heads of ``cfg``'s attention over ``n`` ranks (n
+    divides the query heads)."""
+    G = cfg.num_heads // cfg.num_kv_heads
+    hl = cfg.num_heads // n
+    h0 = rank * hl
+    kv = [h // G for h in range(h0, h0 + hl)]
+    kv0, kv1 = kv[0], kv[-1] + 1
+    uniform = len({kv.count(j) for j in range(kv0, kv1)}) == 1
+    return HeadShard(group, h0, hl, kv0, kv1,
+                     None if uniform else tuple(j - kv0 for j in kv))
+
+
 class Attention(nn.Module):
+    # the dim each leaf keeps sharded over "model" under a mesh
+    # (``distributed.sharding.gathered``): the heads
+    model_dims = {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "bq": 0, "bk": 0,
+                  "bv": 0}
+
     def __init__(self, cfg: ArchConfig, init: Init):
         super().__init__()
         dt = _dtype(cfg)
@@ -170,37 +228,88 @@ class Attention(nn.Module):
             self.bk = init.const(torch.zeros((KH, hd), dtype=dt))
             self.bv = init.const(torch.zeros((KH, hd), dtype=dt))
 
-    def qkv(self, x: torch.Tensor, positions: torch.Tensor):
-        q, k, v = (_linear(x, self.wq), _linear(x, self.wk),
-                   _linear(x, self.wv))
+    def head_shard(self) -> HeadShard | None:
+        """This rank's heads, or None where ``wq`` holds them all (no
+        mesh, a "model" axis of one rank, or heads that do not divide it).
+        Read from ``wq`` as a call sees it (a layer gathers its leaves for
+        the call) or, outside one, from its shard."""
+        mesh = current_mesh()
+        if model_axis_size(mesh) == 1:
+            return None
+        w = self.wq
+        local = (w.to_local() if isinstance(w, DTensor) else w).shape[1]
+        if local == self.cfg.num_heads:
+            return None
+        return head_shard(self.cfg, self.cfg.num_heads // local,
+                          model_rank(mesh), model_group(mesh))
+
+    def _kv(self, w: torch.Tensor, dim: int,
+            sh: HeadShard | None) -> torch.Tensor:
+        """``w`` (``wk``, ``wv`` or a bias) as this rank uses it: the KV
+        heads ``sh`` reads from a leaf gathered whole, whose gradient then
+        sums over "model"; a "model" shard as it is."""
+        if sh is None or w.shape[dim] != self.cfg.num_kv_heads:
+            return w
+        return sum_grads(w, sh.group).narrow(dim, sh.kv0, sh.kv1 - sh.kv0)
+
+    def qkv(self, x: torch.Tensor, positions: torch.Tensor,
+            sh: HeadShard | None = None):
+        q = _linear(x, self.wq)
+        k = _linear(x, self._kv(self.wk, 1, sh))
+        v = _linear(x, self._kv(self.wv, 1, sh))
         if self.cfg.qkv_bias:
-            q, k, v = q + self.bq, k + self.bk, v + self.bv
+            q = q + self.bq
+            k = k + self._kv(self.bk, 0, sh)
+            v = v + self._kv(self.bv, 0, sh)
         q = apply_rope(q, positions, self.cfg.rope_theta)
         k = apply_rope(k, positions, self.cfg.rope_theta)
         return q, k, v
 
+    @staticmethod
+    def _per_query(sh: HeadShard | None, k: torch.Tensor,
+                   v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """K and V (..., heads, D) repeated once per local query head where
+        the rank's query heads split its KV heads unevenly."""
+        if sh is None or sh.expand is None:
+            return k, v
+        idx = torch.tensor(sh.expand, device=k.device)
+        return k.index_select(-2, idx), v.index_select(-2, idx)
+
+    def _out(self, o: torch.Tensor, sh: HeadShard | None) -> torch.Tensor:
+        """The output projection of ``o`` (B, S, heads, hd); under ``sh`` a
+        row-parallel product summed over "model"."""
+        out = _linear(o.flatten(-2), self.wo.flatten(0, 1))
+        return out if sh is None else psum(out, sh.group)
+
     def forward(self, x: torch.Tensor, *, window: int = 0):
-        """Full-sequence (prefill) attention; returns (out, {"k", "v"})."""
+        """Full-sequence (prefill) attention; returns (out, {"k", "v"}),
+        K/V of this rank's KV heads under a tensor-parallel mesh."""
         S = x.shape[1]
         positions = torch.arange(S, device=x.device)[None, :]
-        q, k, v = self.qkv(x, positions)
-        o = flash_attention(q, k, v, causal=True, window=window)
-        return _linear(o.flatten(-2), self.wo.flatten(0, 1)), {"k": k, "v": v}
+        sh = self.head_shard()
+        if sh is not None:
+            x = sum_grads(x, sh.group)
+        q, k, v = self.qkv(x, positions, sh)
+        o = flash_attention(q, *self._per_query(sh, k, v), causal=True,
+                            window=window)
+        return self._out(o, sh), {"k": k, "v": v}
 
     def decode(self, x: torch.Tensor, cache: dict, pos: int, *,
                window: int = 0) -> torch.Tensor:
         """x: (B, 1, d).  Writes this token's K/V into ``cache["k"]``,
-        ``cache["v"]`` (B, S, KH, hd) at ``pos``, in place; a ``pos`` past
-        the end writes the last slot, as the reference's
-        ``dynamic_update_slice`` clamps its start."""
+        ``cache["v"]`` (B, S, KH, hd; this rank's KV heads under a
+        tensor-parallel mesh) at ``pos``, in place; a ``pos`` past the end
+        writes the last slot, as the reference's ``dynamic_update_slice``
+        clamps its start."""
         positions = torch.full((x.shape[0], 1), pos, device=x.device)
-        q, k, v = self.qkv(x, positions)
+        sh = self.head_shard()
+        q, k, v = self.qkv(x, positions, sh)
         slot = min(pos, cache["k"].shape[1] - 1)
         cache["k"][:, slot] = k[:, 0]
         cache["v"][:, slot] = v[:, 0]
-        o = decode_attention(q, cache["k"], cache["v"], pos + 1,
-                             window=window)
-        return _linear(o.flatten(-2), self.wo.flatten(0, 1))
+        o = decode_attention(q, *self._per_query(sh, cache["k"], cache["v"]),
+                             pos + 1, window=window)
+        return self._out(o, sh)
 
 
 # ---------------------------------------------------------------------------
@@ -298,15 +407,25 @@ class MLA(nn.Module):
 
 
 class MLP(nn.Module):
+    # the dim each leaf keeps sharded over "model" under a mesh: the columns
+    model_dims = {"wi": 1, "wg": 1, "wo": 0}
+
     def __init__(self, cfg: ArchConfig, init: Init, d_ff: int | None = None):
         super().__init__()
         dt = _dtype(cfg)
         d, ff = cfg.d_model, d_ff or cfg.d_ff
         out_sc = 0.02 / math.sqrt(2 * cfg.num_layers)
+        self.d_ff = ff
         self.wi = init.normal((d, ff), 0.02, dt)
         self.wg = init.normal((d, ff), 0.02, dt)
         self.wo = init.normal((ff, d), out_sc, dt)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """SwiGLU; where ``wi`` holds this rank's columns only, ``wi``/``wg``
+        column-parallel and ``wo`` row-parallel, summed over "model"."""
+        group = None if self.wi.shape[1] == self.d_ff else model_group()
+        if group is not None:
+            x = sum_grads(x, group)
         h = F.silu(x @ self.wg) * (x @ self.wi)
-        return h @ self.wo
+        out = h @ self.wo
+        return out if group is None else psum(out, group)

@@ -151,6 +151,9 @@ class MoE(nn.Module):
     (a SwiGLU ``MLP`` of width ``shared_expert_ff``)."""
 
     expert_leaves = ("w_in", "w_gate", "w_out")
+    # the dim each leaf keeps sharded over "model" under a mesh
+    # (``distributed.sharding.gathered``): the experts
+    model_dims = dict.fromkeys(expert_leaves, 0)
 
     def __init__(self, cfg: ArchConfig, init: Init):
         super().__init__()
@@ -204,7 +207,8 @@ def moe_block(moe: MoE, x: torch.Tensor, cfg: ArchConfig, mesh=None,
     / the batch axes' size), this rank runs experts ``[e_off, e_off +
     num_local)`` of its ``model_axis`` coordinate with a capacity from its
     own tokens, and the partial outputs (in x's dtype) are summed over
-    ``model_axis``; the shared expert is added after.  ``moe``'s expert
+    ``model_axis``; the shared expert (an ``MLP``, tensor-parallel over
+    "model" where its columns divide it) is added after.  ``moe``'s expert
     leaves are the shard's own (``shard_params`` places them so, and a
     ``Block`` gathers them over "data" only) or the full set, which is
     sliced here.  E not divisible by the axis size drops the experts

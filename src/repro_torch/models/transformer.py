@@ -7,7 +7,8 @@ Blocks live in an ``nn.ModuleList``, one module per layer, and run in a
 Python loop with each layer's own attention window and sub-config: a MoE
 config with ``moe_every`` = g > 1 (llama4) alternates g - 1 dense layers
 and one MoE layer, as the reference's groups of g sub-layers do.  Caches
-keep the reference's layout and keys: ``k``/``v`` (L, B, S, KH, hd), ``ckv``
+keep the reference's layout and keys: ``k``/``v`` (L, B, S, KH, hd; under
+a mesh whose "model" axis splits the heads, this rank's KV heads), ``ckv``
 (L, B, S, kvr), ``krope`` (L, B, S, rope), ``state`` (L, B, nh, hp, ds) in
 f32, ``conv`` (L, B, K-1, conv_dim), and ``pos``, a Python int.
 
@@ -105,7 +106,8 @@ class Block(nn.Module):
         (the MLP's or the shared expert's ``wo``, or a lone mixer's output
         projection); None where the layer ends otherwise (the MoE's
         combine, the hybrid's normed mix).  Read at call time: under a mesh
-        it is the gathered value."""
+        it is the value the call sees (this rank's rows of it where the
+        layer is tensor-parallel)."""
         cfg = self.cfg
         if cfg.uses_moe:
             return self.moe.shared.wo if cfg.shared_expert_ff else None
@@ -116,12 +118,14 @@ class Block(nn.Module):
         return self.ssm.w_out if cfg.uses_ssm else self.attn.wo
 
     def _gathered(self):
-        """This layer's ``DTensor`` parameters at their full values for a
-        call; the experts keep their "model" shards when the
-        expert-parallel MoE runs (a mesh with a "model" axis)."""
+        """This layer's ``DTensor`` parameters as a call uses them: under a
+        mesh with a "model" axis, the experts and the tensor-parallel
+        attention and MLP leaves keep their "model" shards (each module's
+        ``model_dims``), everything else at its full value; with no such
+        axis, everything at its full value."""
         mesh = current_mesh()
-        ep = mesh is not None and "model" in (mesh.mesh_dim_names or ())
-        return gathered(self, keep_experts=("model",) if ep else ())
+        tp = mesh is not None and "model" in (mesh.mesh_dim_names or ())
+        return gathered(self, keep=("model",) if tp else ())
 
     def forward(self, x: torch.Tensor, *, window: int = 0,
                 seq_shard: bool = False):
@@ -256,7 +260,9 @@ class Model(nn.Module):
     the module, so they take no ``params`` argument.  After
     ``distributed.sharding.shard_params`` the parameters are ``DTensor``s
     and each call works on this rank's batch shard: the top-level leaves
-    are gathered for the call, each layer's for the layer.
+    are gathered for the call, each layer's for the layer, but for the
+    "model" shards a layer computes on (``Block._gathered``: attention's
+    heads and the MLP's columns, tensor-parallel; the MoE's experts).
     """
 
     def __init__(self, cfg: ArchConfig, *, device="cuda",
@@ -389,11 +395,18 @@ class Model(nn.Module):
     # ---- decode -------------------------------------------------------------
 
     def init_cache(self, batch: int, max_len: int) -> dict:
+        """A zero cache of ``batch`` sequences of ``max_len`` positions in
+        the reference's layout.  Under a mesh whose "model" axis splits the
+        attention heads (call it under the mesh of the decode steps), K/V
+        hold the KV heads this rank's query heads read
+        (``layers.HeadShard``)."""
         cfg = self.cfg
         dt, dev, L = _dtype(cfg), self.device, cfg.num_layers
         cache: dict[str, Any] = {"pos": 0}
         if cfg.attention in ("gqa", "swa"):
-            shape = (L, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+            sh = self.layers[0].attn.head_shard()
+            kh = cfg.num_kv_heads if sh is None else sh.kv1 - sh.kv0
+            shape = (L, batch, max_len, kh, cfg.head_dim)
             cache["k"] = torch.zeros(shape, dtype=dt, device=dev)
             cache["v"] = torch.zeros(shape, dtype=dt, device=dev)
         elif cfg.attention == "mla":

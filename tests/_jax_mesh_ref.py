@@ -11,7 +11,7 @@ axis types.  Inputs are drawn with numpy from the seeds the tests use;
 parameters come from the reference's inits at ``PRNGKey(0)`` and are
 written beside the results, as float32 (bf16 values widen exactly).
 
-TASK is one of ``moe``, ``model``, ``shards``, ``psum``.
+TASK is one of ``moe``, ``model``, ``shards``, ``psum``, ``tp``.
 """
 import os
 import sys
@@ -30,7 +30,7 @@ from repro.models import Model, moe as ref_moe  # noqa: E402
 
 from _mesh_cases import (DECODE_STEPS, MODEL_SHAPE, MOE_ARCHS,  # noqa: E402
                          MOE_CAPACITY, MOE_DTYPES, MOE_MESHES, MOE_SHAPE,
-                         PSUM_SHAPE)
+                         PSUM_SHAPE, TP_ARCHS, TP_MESHES)
 
 
 def mesh_of(shape, axes=("data", "model")) -> Mesh:
@@ -138,6 +138,54 @@ def task_model(out: dict) -> None:
         out["cache/v"] = np.asarray(cache["v"], np.float32)
 
 
+def model_inputs(cfg) -> tuple[np.ndarray, np.ndarray]:
+    """A prompt (B, S) of token ids, or (B, S, d) embeddings for a stub
+    frontend, and ``DECODE_STEPS`` steps of one token (embedding) each."""
+    rng = np.random.default_rng(6)
+    B, S = MODEL_SHAPE
+    if cfg.frontend != "none":
+        return (rng.standard_normal((B, S, cfg.d_model)).astype(np.float32),
+                rng.standard_normal((DECODE_STEPS, B, 1, cfg.d_model))
+                .astype(np.float32))
+    return (rng.integers(0, cfg.vocab_size, (B, S)),
+            rng.integers(0, cfg.vocab_size, (DECODE_STEPS, B, 1)))
+
+
+def task_tp(out: dict) -> None:
+    """Each of ``TP_ARCHS`` at its tiny config, its parameters placed by
+    the reference's ``param_shardings`` on each of ``TP_MESHES`` (so XLA
+    computes attention and the MLP tensor-parallel over "model"): prefill
+    logits, decode logits and the final K/V cache."""
+    from repro.distributed.context import use_mesh
+    from repro.distributed.sharding import param_shardings
+    from repro.launch.specs import param_specs
+    for arch in TP_ARCHS:
+        cfg = get_tiny_config(arch)
+        model = Model(cfg)
+        params = model.init(jax.random.PRNGKey(0))
+        out.update({f"params/{arch}/{k}": v for k, v in flat(params).items()})
+        prompt, steps = model_inputs(cfg)
+        out[f"{arch}/prompt"], out[f"{arch}/steps"] = prompt, steps
+        key = "embeds" if cfg.frontend != "none" else "tokens"
+        for shape in TP_MESHES:
+            mesh = mesh_of(shape)
+            tag = f"{arch}/{shape[0]}x{shape[1]}"
+            placed = jax.device_put(params, param_shardings(
+                param_specs(cfg), mesh))
+            with use_mesh(mesh):
+                logits, cache = jax.jit(model.prefill)(
+                    placed, {key: jnp.asarray(prompt)})
+                out[f"{tag}/prefill"] = np.asarray(logits)
+                cache = model.extend_cache(cache, DECODE_STEPS)
+                decode = jax.jit(model.decode_step)
+                for t in range(DECODE_STEPS):
+                    logits, cache = decode(placed, cache,
+                                           {key: jnp.asarray(steps[t])})
+                    out[f"{tag}/decode/{t}"] = np.asarray(logits)
+                out[f"{tag}/cache/k"] = np.asarray(cache["k"], np.float32)
+                out[f"{tag}/cache/v"] = np.asarray(cache["v"], np.float32)
+
+
 def task_shards(out: dict) -> None:
     """Where each leaf of tiny dbrx's tree lives on a (2, 2) mesh: for
     every device coordinate, each dim's (start, stop) from
@@ -191,6 +239,6 @@ if __name__ == "__main__":
     task, path = sys.argv[1], sys.argv[2]
     result: dict = {}
     {"moe": task_moe, "model": task_model, "shards": task_shards,
-     "psum": task_psum}[task](result)
+     "psum": task_psum, "tp": task_tp}[task](result)
     np.savez(path, **result)
     print("OK", len(result))

@@ -10,3 +10,10 @@ MOE_SHAPE = (4, 16)                    # (B, S) of the MoE tests' tokens
 MODEL_SHAPE = (4, 8)                   # prefill tokens; then decode steps
 DECODE_STEPS = 4
 PSUM_SHAPE = (4, 256)                  # one row per rank
+# tensor-parallel attention and MLP (tests/test_torch_tp.py): GQA with QKV
+# bias, a stub frontend (embeddings in), a dense layer beside a MoE layer
+# with a shared expert, attention beside the expert-parallel MoE
+TP_ARCHS = ("qwen2-72b", "musicgen-medium", "llama4-maverick-400b-a17b",
+            "dbrx-132b")
+TP_MESHES = MOE_MESHES
+TP_DTYPES = MOE_DTYPES

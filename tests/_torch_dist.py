@@ -21,7 +21,8 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from _mesh_cases import DECODE_STEPS, MOE_ARCHS, MOE_CAPACITY, MOE_DTYPES
+from _mesh_cases import (DECODE_STEPS, MOE_ARCHS, MOE_CAPACITY, MOE_DTYPES,
+                         TP_ARCHS, TP_DTYPES)
 
 
 def _entry(fn, rank: int, world: int, store: str, args: tuple) -> None:
@@ -228,7 +229,9 @@ def model_ranks(rank: int, world: int, ref_path: str, out: str) -> None:
             logits, cache = model.decode_step(
                 cache, {"tokens": torch.from_numpy(ref["steps"][t][rows])})
             result[f"decode/{t}"] = logits
+        sh = model.layers[0].attn.head_shard()
     result["k"], result["v"] = cache["k"], cache["v"]
+    result["kv"] = (sh.kv0, sh.kv1)
     _save(out, "model", rank, result)
 
 
@@ -242,6 +245,137 @@ def ep_ranks(rank: int, world: int, moe_ref: str, model_ref: str,
     else:
         moe_ranks(rank, world, moe_ref, out, [(2, 2), (1, 4)])
         model_ranks(rank, world, model_ref, out)
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel attention and MLP
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class LeafShapes:
+    """Wraps ``Attention.qkv`` (prefill, training and decode call it) and
+    ``MLP.forward`` and keeps, per call, each leaf their module lists in
+    ``model_dims`` as (class, leaf, its size on that dim, the layer's full
+    count there: H, KH or d_ff)."""
+    rows: list = dataclasses.field(default_factory=list)
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self.saved = layers.Attention.qkv, layers.MLP.forward
+
+        def full(mod, leaf):
+            if isinstance(mod, layers.MLP):
+                return mod.d_ff
+            kv = leaf in ("wk", "wv", "bk", "bv")
+            return mod.cfg.num_kv_heads if kv else mod.cfg.num_heads
+
+        def wrap(fn):
+            def inner(mod, *args, **kwargs):
+                for leaf, dim in mod.model_dims.items():
+                    w = mod._parameters.get(leaf)
+                    if w is not None:
+                        self.rows.append((type(mod).__name__, leaf,
+                                          w.shape[dim], full(mod, leaf)))
+                return fn(mod, *args, **kwargs)
+            return inner
+
+        layers.Attention.qkv = wrap(self.saved[0])
+        layers.MLP.forward = wrap(self.saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers
+        layers.Attention.qkv, layers.MLP.forward = self.saved
+
+
+def tp_model(ref: dict, arch: str, dtype: str = "float32", mesh=None):
+    """Tiny ``arch`` in ``dtype`` holding the reference's parameters
+    (``_jax_mesh_ref.py tp``), placed on ``mesh`` where one is given."""
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.distributed.sharding import shard_params
+    from repro_torch.models.convert import params_from_reference
+    cfg = dataclasses.replace(get_tiny_config(arch), dtype=dtype)
+    model = params_from_reference(cfg, nested(ref, f"params/{arch}/"),
+                                  device="cpu")
+    return model if mesh is None else shard_params(model, mesh)
+
+
+def tp_batch(ref: dict, arch: str, rows: slice) -> dict:
+    """A training batch: the reference's prompt (ids or embeddings) and
+    labels drawn from a seed, rows ``rows``."""
+    model_in = ref[f"{arch}/prompt"]
+    labels = np.random.default_rng(7).integers(
+        0, 97, model_in.shape[:2])
+    key = "embeds" if model_in.ndim == 3 else "tokens"
+    return {key: torch.from_numpy(model_in[rows]),
+            "labels": torch.from_numpy(labels[rows])}
+
+
+def tp_train(ref: dict, arch: str, dtype: str, mesh) -> dict:
+    """One loss and backward of this rank's batch shard under ``mesh``,
+    and of the unsharded model over every shard (the sum of the shards'
+    losses, whose gradient the mesh's sums over "data" give): this rank's
+    loss and gradient shards beside the unsharded ones' (the shard's loss,
+    each gradient's slice under the parameter's placements)."""
+    from repro_torch.distributed.context import use_mesh
+    from repro_torch.distributed.sharding import local_slice
+    n = mesh.size(mesh.mesh_dim_names.index("data"))
+    i = mesh.get_local_rank("data")
+    bl = ref[f"{arch}/prompt"].shape[0] // n
+    model = tp_model(ref, arch, dtype, mesh).requires_grad_(True)
+    with LeafShapes() as seen, use_mesh(mesh):
+        loss = model.loss(tp_batch(ref, arch, slice(i * bl, (i + 1) * bl)))
+        loss.backward()
+    plain = tp_model(ref, arch, dtype).requires_grad_(True)
+    losses = [plain.loss(tp_batch(ref, arch, slice(j * bl, (j + 1) * bl)))
+              for j in range(n)]
+    sum(losses).backward()
+    params = dict(model.named_parameters())
+    # a stub frontend's embedding takes no part: no gradient on either side
+    return {"loss": loss.detach(), "want_loss": losses[i].detach(),
+            "grads": {k: p.grad.to_local() for k, p in params.items()
+                      if p.grad is not None},
+            "want": {k: local_slice(p.grad, mesh, params[k].placements)
+                     for k, p in plain.named_parameters()
+                     if p.grad is not None},
+            "shapes": seen.rows}
+
+
+def tp_ranks(rank: int, world: int, ref_path: str, out: str) -> None:
+    """Each of ``TP_ARCHS`` through ``shard_params`` on the meshes of
+    ``world`` ranks ((1, 2) on 2; (2, 2) and (1, 4) on 4): prefill and
+    decode steps of this rank's batch shard under ``use_mesh``, its cache
+    and the KV heads it holds, the leaf shapes the layers saw, and a
+    training step in each of ``TP_DTYPES``."""
+    from repro_torch.distributed.context import use_mesh
+    ref = dict(np.load(ref_path))
+    result = {}
+    for shape in ([(1, 2)] if world == 2 else [(2, 2), (1, 4)]):
+        mesh = _mesh(shape)
+        i = mesh.get_local_rank("data")
+        for arch in TP_ARCHS:
+            prompt, steps = ref[f"{arch}/prompt"], ref[f"{arch}/steps"]
+            key = "embeds" if prompt.ndim == 3 else "tokens"
+            bl = prompt.shape[0] // shape[0]
+            rows = slice(i * bl, (i + 1) * bl)
+            model = tp_model(ref, arch, mesh=mesh)
+            with LeafShapes() as seen, use_mesh(mesh):
+                logits, cache = model.prefill(
+                    {key: torch.from_numpy(prompt[rows])})
+                res = {"data": i, "prefill": logits}
+                cache = model.extend_cache(cache, DECODE_STEPS)
+                for t in range(DECODE_STEPS):
+                    logits, cache = model.decode_step(
+                        cache, {key: torch.from_numpy(steps[t][rows])})
+                    res[f"decode/{t}"] = logits
+                sh = model.layers[0].attn.head_shard()
+            res.update(k=cache["k"], v=cache["v"], kv=(sh.kv0, sh.kv1),
+                       shapes=seen.rows)
+            for dtype in TP_DTYPES:
+                res[f"train/{dtype}"] = tp_train(ref, arch, dtype, mesh)
+            result[f"{arch}/{shape[0]}x{shape[1]}"] = res
+    _save(out, f"tp{world}", rank, result)
 
 
 # ---------------------------------------------------------------------------
@@ -404,6 +538,7 @@ def dryrun_ranks(rank: int, world: int, out: str, cells: list) -> None:
         acc = dryrun.measure(cell)
         result[key] = {
             "flops": acc["flops"],
+            "op_flops": acc["op_flops"],
             "collective_counts": acc["collective_counts"],
             "collective_bytes": acc["collective_bytes"],
             "argument_bytes": dryrun.tensor_bytes(cell.arguments)}

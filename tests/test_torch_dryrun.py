@@ -16,6 +16,10 @@
   of another on one mesh dimension: DTensor does that by an all-to-all on
   a cuda mesh and by an all-gather on a cpu one, so a step without it
   reports the same collectives on both (``launch.dryrun``).
+* With attention and the MLP tensor-parallel over "model", a rank's
+  K2 / K2-bwd FLOPs and its products' (less the loss head and the MoE
+  router, which every rank of "model" repeats) are the unsharded cell's
+  at the rank's batch over the "model" size, exactly, per operator.
 * ``model_flops`` equals the reference's for all ten archs × four shapes;
   the reference's side runs in a subprocess (``repro.launch.dryrun`` sets
   ``XLA_FLAGS`` at import, so it is never imported here).
@@ -127,6 +131,14 @@ def test_tiny_cell_equals_a_real_run(records, real, arch, shape):
                                     else "AdamW")
     want = real[f"{arch}/{shape}"]
     assert rec["flops_per_device"] == want["flops"] > 0
+    # per operator: the kernels' equal; the products only in their sum
+    # (einsum takes bmm on fake tensors where it takes mm on real ones for
+    # the decode scores against one KV head)
+    ops = rec["flops_per_operator"]
+    assert {k: v for k, v in ops.items() if k.startswith("repro_torch.")} \
+        == {k: v for k, v in want["op_flops"].items()
+            if k.startswith("repro_torch.")}
+    assert sum(ops.values()) == rec["flops_per_device"]
     assert rec["collective_counts"] == want["collective_counts"]
     assert rec["collective_bytes_per_device"] == want["collective_bytes"]
     assert rec["memory"]["argument_bytes"] == want["argument_bytes"] > 0
@@ -169,6 +181,53 @@ def test_dots_cell_equals_a_real_run(records, real):
     none = records[DOTS_ARCH, "train_4k"]
     assert none["memory"]["argument_bytes"] == want["argument_bytes"]
     assert rec["flops_per_device"] > none["flops_per_device"]
+
+
+def _op_flops(arch: str, mesh) -> dict:
+    """FLOPs by operator of the tiny train_4k cell of rank 0 of ``mesh``
+    (None: one device, the rank's batch of BATCH / 4 rows), fake tensors."""
+    cfg = get_tiny_config(arch)
+    batch = BATCH if mesh is not None else BATCH // 4
+    shape = dataclasses.replace(SHAPES["train_4k"], seq=SEQ, batch=batch)
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        cell = dryrun.build_cell(cfg, shape, mesh, device="cpu")
+        with CostMode() as costs:
+            cell.run()
+    return costs.totals()["op_flops"]
+
+
+@pytest.mark.parametrize("arch", ["qwen2-72b", "llama4-maverick-400b-a17b"])
+def test_tensor_parallel_products_per_rank(arch):
+    """The tiny train_4k cell on (2, 2, 2) against the same cell unsharded
+    at the rank's batch (BATCH / 4 rows): per operator, K2's and K2-bwd's
+    FLOPs are the unsharded ones / 2 ("model" = 2: each rank's heads), and
+    so are the products' (attention's projections, the dense MLP's, the
+    shared expert's and the expert-parallel experts') once the products
+    every rank repeats are taken out of both: the loss head (8·T·d·V: the
+    chunk's forward, its recompute, dh and dW) and the MoE router (6·T·d·E
+    a MoE layer: forward, dx, dW), exactly."""
+    cfg = get_tiny_config(arch)
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
+    try:
+        mesh = make_debug_mesh((2, 2, 2), ("pod", "data", "model"),
+                               device_type="cpu")
+        tp = _op_flops(arch, mesh)
+    finally:
+        dist.destroy_process_group()
+    whole = _op_flops(arch, None)
+    assert set(tp) == set(whole)
+    T, d = BATCH // 4 * SEQ, cfg.d_model
+    moe_layers = (cfg.num_layers // cfg.moe_every if cfg.uses_moe else 0)
+    replicated = (8 * T * d * cfg.vocab_size
+                  + 6 * T * d * cfg.num_experts * moe_layers)
+    kernels = [op for op in whole if op.startswith("repro_torch.")]
+    assert kernels
+    for op in kernels:
+        assert 2 * tp[op] == whole[op] > 0, op
+    products = [op for op in whole if not op.startswith("repro_torch.")]
+    assert 2 * (sum(tp[op] for op in products) - replicated) == \
+        sum(whole[op] for op in products) - replicated > 0
+    assert sum(tp.values()) < sum(whole.values())
 
 
 _REF_MODEL_FLOPS = """

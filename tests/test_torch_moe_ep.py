@@ -165,11 +165,20 @@ def test_model_under_mesh_matches_reference(out, what):
 
 
 def test_model_cache_under_mesh_matches_reference(out):
+    """Each rank's cache holds its batch rows of the KV heads its query
+    heads read (attention is tensor-parallel over "model": tiny dbrx's 2 KV
+    heads, one a rank), equal to the reference's there."""
     ref = out["model_ref"]
     bl = ref["cache/k"].shape[1] // 2
+    heads = set()
     for res in out["model"]:
         i = res["data"]
+        kv0, kv1 = res["kv"]
+        assert kv1 - kv0 == 1
+        heads.add((i, kv0))
         for key in ("k", "v"):
             np.testing.assert_allclose(
-                res[key].numpy(), ref[f"cache/{key}"][:, i * bl:(i + 1) * bl],
+                res[key].numpy(),
+                ref[f"cache/{key}"][:, i * bl:(i + 1) * bl, :, kv0:kv1],
                 rtol=1e-4, atol=1e-4, err_msg=key)
+    assert heads == {(i, h) for i in range(2) for h in range(2)}
