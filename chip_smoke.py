@@ -132,7 +132,16 @@ failed check exits non-zero):
              once a rank on ``sm90``; the heads K2 saw, parameter bytes
              held (equal to the dry run's) and prefill peak per rank
              beside the dry run's prediction (mesh (1, 2), fake ``cuda``
-             tensors).
+             tensors); (d) the same two ranks, the SSM tensor-parallel:
+             mamba2-2.7B at full width (80 SSM heads of 64, state 128) cut
+             to 2 layers, 40 heads a rank through K3 / K3-bwd (one K3 a
+             layer a prefill, one K3-bwd a layer a step, on 40 heads), the
+             gates of (c) and three float32 decode steps held against the
+             unsharded decode as the prefill is, bf16 logits in K3's bf16
+             band; (e) MLA tensor-parallel: minicpm3-4B at full width cut
+             to 2 layers, 20 of 40 heads a rank through K2 / K2-bwd at Dk
+             96 / Dv 64, the latent cache whole, the absorbed decode held
+             as in (d), bf16 logits in K2's band.
 10. dryrun — ``launch.dryrun`` and ``launch.hlo_costs`` against the card:
              (a) at world size 1 on fake ``cuda`` tensors, a prediction of
              phase 7 (c)'s training step (hymba-1.5B, bf16, 4 x 2048,
@@ -149,13 +158,16 @@ failed check exits non-zero):
              hymba-1.5B ``long_500k`` on the 16 x 16 mesh (fake process
              group of 256 ranks), records printed, and two tiny cells on
              the (2, 2, 2) mesh traced on fake ``cuda`` and fake ``cpu``
-             tensors with equal accounting; stablelm-12b ``train_4k`` on
-             16 x 16 with attention and MLP tensor-parallel over "model":
-             its FLOPs a rank below the 6331 TFLOP it took with attention
-             and the MLP gathered on every rank (PERF.md section 6), split
-             into the tensor-parallel products, the K/V projections, the
-             loss head and K2 + K2-bwd, the products equal to the split's
-             from the shapes.
+             tensors with equal accounting; three ``train_4k`` cells
+             tensor-parallel over "model": stablelm-12b on 16 x 16
+             (attention and MLP), mamba2-2.7B on 16 x 16 (the SSM) and
+             minicpm3-4B on 32 x 8 (MLA): each one's FLOPs a rank below
+             what it took with those layers gathered on every rank (6331,
+             1394.356 and 658.830 TFLOP, PERF.md section 6), split into
+             the tensor-parallel products, the replicated ones (K/V or
+             MLA's down projections), the loss head, the kernels and the
+             other operators, the products equal to the split's from the
+             shapes.
 11. moe-train — MoE training, remat "dots", llama4 served: (a) a float32
              gradient gate of dbrx-132B at full width cut to 1 layer, phase 8
              (a)'s 512-token prompt: the loss and every parameter gradient on
@@ -213,7 +225,7 @@ failed check exits non-zero):
              stub), qwen2-72b (QKV bias) and deepseek-67b, weights from a
              seed; each through the helpers phase 12 uses: (a) a float32
              gate at full width against the same weights on the host (2
-             layers and 1100 tokens; 1 layer above d_model 4096, and 512
+             layers and 600 tokens; 1 layer above d_model 4096, and 512
              tokens above 6144), prefill against decode, launches per
              route as ``route``/``route_bwd`` name them; (b) bf16 serving
              at full width and the largest depth whose weights stay under
@@ -308,6 +320,7 @@ from repro_torch.launch.specs import ShapeSpec, input_specs  # noqa: E402
 from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
 from repro_torch.models import Model, moe  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
+from repro_torch.models import ssm as model_ssm  # noqa: E402
 from repro_torch.models.transformer import chunked_xent  # noqa: E402
 from repro_torch.serving.engine import (Completion,  # noqa: E402
                                         PoasDispatcher, Request,
@@ -385,16 +398,22 @@ SHARD_LAYERS = 4
 # same prompt.
 SHARD_TOL, SHARD_SPREAD = 1e-5, 2.0
 SHARD_RANKS, SHARD_TIMEOUT = 2, 900   # (b): ranks on the one card; seconds
-# Phase 9 (c): qwen2-72b at full width (64/8 heads of 128, d_ff 29568, QKV
-# bias) cut to 1 layer, tensor-parallel over "model" on the same two ranks:
-# each rank's 32 query and 4 KV heads, 14784 MLP columns.  Float32: the
-# prefill logits against the unsharded run as in (b), the yardstick the
-# host's float32 prefill of the cut, run by the parent while the ranks
-# work (logits std 1.8); a training step's loss and gradient shards at
-# phase 7 (b)'s gates.  bf16:
-# the logits in K2's bf16 band (rtol, and atol as a share of the largest
-# logit).
-TP_ARCH, TP_TOKENS, TP_BF16_TOL = "qwen2-72b", 512, 2e-2
+# Phases 9 (c), (d), (e): each cut at full width, tensor-parallel over
+# "model" on the same two ranks: (configuration, layers, the bf16 logits'
+# band, float32 decode steps held against the unsharded decode).  (c)
+# qwen2-72b (64/8 heads of 128, d_ff 29568, QKV bias): each rank's 32 query
+# and 4 KV heads, 14784 MLP columns; (d) mamba2-2.7B (80 SSM heads of 64,
+# state 128): 40 heads a rank through K3 / K3-bwd; (e) minicpm3-4B (MLA, 40
+# heads, Dk 96 / Dv 64): 20 heads a rank through K2 / K2-bwd, the latent
+# whole.  Float32: the prefill logits (and decode steps) against the
+# unsharded run as in (b), the yardstick the host's float32 run of the cut,
+# run by the parent while the ranks work; a training step's loss and
+# gradient shards at phase 7 (b)'s gates.  bf16: the logits in the band of
+# the cut's kernel (rtol, and atol as a share of the largest logit).
+TP_TOKENS, TP_DECODE = 512, 3
+TP_PARTS = {"(c)": ("qwen2-72b", 1, K2_TOL["bfloat16"], False),
+            "(d)": ("mamba2-2_7b", 2, K3_TOL["bfloat16"], True),
+            "(e)": ("minicpm3-4b", 2, K2_TOL["bfloat16"], True)}
 # Phase 10 (a): the predicted arguments less the batch must equal the bytes
 # the built tensors requested; against memory_allocated's growth they
 # differ by the caching allocator's rounding of those blocks (512 bytes,
@@ -409,10 +428,16 @@ TP_ARCH, TP_TOKENS, TP_BF16_TOL = "qwen2-72b", 512, 2e-2
 # their operators and the same rounding are not in the prediction.
 DRYRUN_ARG_TOL, DRYRUN_PEAK_TOL = 0.01, 0.15
 DRYRUN_TIMEOUT = 600      # (b): seconds for each host-only dry run
-# (b): the cell whose per-rank FLOPs split is printed, and its FLOPs a rank
-# when attention and the MLP were gathered and repeated on every rank of
-# "model" (the dry run's earlier record of this cell, PERF.md section 6)
-TP_DRYRUN_ARCH, TP_DRYRUN_GATHERED_TFLOP = "stablelm-12b", 6331
+# (b): the train_4k cells whose per-rank FLOPs split is printed, each
+# tensor-parallel over "model": (configuration, mesh shape, or None for
+# 16 x 16, its FLOPs a rank when its layers were gathered and repeated on
+# every rank of "model": the dry run's earlier records, PERF.md section 6).
+# stablelm-12b: attention and MLP over 16 (its 8 KV heads do not divide
+# it); mamba2-2.7B: the SSM, 5 of 80 heads a rank; minicpm3-4B on 32 x 8:
+# MLA, 5 of 40 heads a rank (40 heads do not divide 16)
+TP_DRYRUN_CELLS = (("stablelm-12b", None, 6331),
+                   ("mamba2-2_7b", None, 1394.356),
+                   ("minicpm3-4b", (32, 8), 658.830))
 DRYRUN_OUT = ROOT / "experiments" / "dryrun_torch_chip"
 # Phase 11 (b): 2 of dbrx's 40 layers in bf16 with their gradients and
 # AdamW's bf16 moments: 7.751 B parameters at 8 bytes, ~62 GB, and the f32
@@ -472,14 +497,17 @@ SERVE_WEIGHTS, TRAIN_PEAK = 64 * 2**30, 66 * 2**30
 # all are served, the first four trained (as the reference trains them).
 # ZOO_TRACED's serving is traced, and stablelm-12b's step (K2-bwd's share
 # at head dim 160).  The float32 gate, on the host, takes 2 layers and
-# GATE_TOKENS; 1 layer above d_model ZOO_DEEP (stablelm-12b 5120,
+# ZOO_GATE_TOKENS; 1 layer above d_model ZOO_DEEP (stablelm-12b 5120,
 # internvl2-26b 6144: 2 layers took 22.2 and 26.8 s of a run until phase 9
 # (c) needed the time, NVIDIA H100 80GB HBM3, 700.00 W), and also
 # MOE_GATE_TOKENS above ZOO_WIDE (qwen2-72b and deepseek-67b, 8192).
+# ZOO_GATE_TOKENS was GATE_TOKENS (1100) until phase 9 (d) and (e) needed
+# the time: no zoo configuration has a window for 1100 to pass, and 600
+# still gives mamba2 three chunks of 256, the last one ragged.
 ZOO = ("mamba2-2_7b", "stablelm-12b", "musicgen-medium", "internvl2-26b",
        "qwen2-72b", "deepseek-67b")
 ZOO_TRAINED, ZOO_TRACED = ZOO[:4], ZOO[:2]
-ZOO_DEEP, ZOO_WIDE = 4096, 6144
+ZOO_DEEP, ZOO_WIDE, ZOO_GATE_TOKENS = 4096, 6144, 600
 MEASURED: dict = {}       # phase 6's prefill busy s, phase 7's step times
                           # and its traced step's (busy, wall) s
 
@@ -2390,7 +2418,7 @@ def shard_world1(card: str) -> int:
 
 def shard_close(got: torch.Tensor, want: torch.Tensor,
                 host: torch.Tensor) -> tuple[bool, str]:
-    """(b), (c): float32 logits of the mesh against the unsharded run's on
+    """(b)-(e): float32 logits of the mesh against the unsharded run's on
     the card, held to ``SHARD_SPREAD`` times the largest distance of the
     host's float32 logits of the same weights and prompt from that run;
     the gate's text, with allclose at rtol = atol = ``SHARD_TOL`` beside
@@ -2509,50 +2537,86 @@ def shard_two_ranks(card: str) -> int:
     return simt
 
 
-def tp_cut(dtype: str):
-    return dataclasses.replace(get_config(TP_ARCH), num_layers=1,
+def tp_cut(part: str, dtype: str):
+    arch, layers = TP_PARTS[part][:2]
+    return dataclasses.replace(get_config(arch), num_layers=layers,
                                dtype=dtype, remat="none")
 
 
-def tp_batch() -> dict:
-    """Phase 9 (c)'s prompt of ``TP_TOKENS`` ids and its next tokens."""
-    ids = np.random.default_rng(1).integers(1, get_config(TP_ARCH).vocab_size,
-                                            TP_TOKENS + 1)
+def tp_batch(part: str) -> dict:
+    """Phase 9 ``part``'s prompt of ``TP_TOKENS`` ids, its next tokens
+    (the labels) and ``TP_DECODE`` decode steps of one id each."""
+    vocab = get_config(TP_PARTS[part][0]).vocab_size
+    ids = np.random.default_rng(1).integers(1, vocab,
+                                            TP_TOKENS + 1 + TP_DECODE)
     t = torch.as_tensor(ids[None]).to(DEV)
-    return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+    return {"tokens": t[:, :TP_TOKENS], "labels": t[:, 1:TP_TOKENS + 1],
+            "steps": [t[:, TP_TOKENS + 1 + i:TP_TOKENS + 2 + i]
+                      for i in range(TP_DECODE)]}
 
 
 def tp_shapes():
-    """Shadows ``models.layers.flash_attention`` with a recording wrapper:
-    the (q, k) shapes of each K2 call, in a list."""
+    """Shadows ``models.layers.flash_attention`` and ``models.ssm.
+    ssd_chunk`` with recording wrappers: the (query, KV) heads of each K2
+    call and the heads of each K3 call, in a list of ("K2", (q, kv)) and
+    ("K3", nh); and a function that puts both back."""
     seen: list = []
-    inner = model_layers.flash_attention
+    k2, k3 = model_layers.flash_attention, model_ssm.ssd_chunk
 
-    def recording(q, k, v, **kw):
-        seen.append((tuple(q.shape), tuple(k.shape)))
-        return inner(q, k, v, **kw)
-    model_layers.flash_attention = recording
-    return seen, inner
+    def k2_rec(q, k, v, **kw):
+        seen.append(("K2", (q.shape[2], k.shape[2])))
+        return k2(q, k, v, **kw)
+
+    def k3_rec(xdt, *args, **kw):
+        seen.append(("K3", xdt.shape[3]))
+        return k3(xdt, *args, **kw)
+
+    def restore():
+        model_layers.flash_attention, model_ssm.ssd_chunk = k2, k3
+    model_layers.flash_attention, model_ssm.ssd_chunk = k2_rec, k3_rec
+    return seen, restore
 
 
-def tp_pass(rank: int, mesh, dtype: str) -> dict:
-    """(c) One rank, one dtype: the unsharded cut's prefill logits, loss
-    and gradient slices (the ranks in turn, so that one unsharded model
-    with its gradients is on the card at a time), then the same weights
-    placed on ``mesh``: prefill under ``use_mesh`` (parameter bytes held,
-    peak net of what the process holds besides), a loss and backward, K2
-    and K2-bwd launches by route and the heads K2 saw."""
+def tp_serve(model, batch: dict, decode: bool, marks=None) -> dict:
+    """The prefill's last-token logits and, where ``decode``, those of
+    each decode step after it (on the host for a model there), float32 on
+    the host.  ``marks`` (a list) gets the launch counts and the card's
+    peak memory as the prefill leaves them."""
+    dev = model.device
+    with torch.inference_mode():
+        logits, cache = model.prefill({"tokens": batch["tokens"].to(dev)})
+        out = {"logits": logits.float().cpu(), "decode": []}
+        if marks is not None:
+            torch.cuda.synchronize()
+            marks += [launch_counts(), torch.cuda.max_memory_allocated()]
+        if decode:
+            cache = model.extend_cache(cache, TP_DECODE)
+            for step in batch["steps"]:
+                logits, cache = model.decode_step(cache,
+                                                  {"tokens": step.to(dev)})
+                out["decode"].append(logits.float().cpu())
+    return out
+
+
+def tp_pass(rank: int, mesh, part: str, dtype: str) -> dict:
+    """``part`` on one rank in one dtype: the unsharded cut's prefill
+    logits (float32: and decode steps), loss and gradient slices (the
+    ranks in turn, so that one unsharded model with its gradients is on
+    the card at a time), then the same weights placed on ``mesh``: prefill
+    (and decode) under ``use_mesh`` (parameter bytes held, the prefill's
+    peak net of what the process holds besides), a loss and backward, the
+    kernels' launches in the prefill and in the step, and the heads K2 and
+    K3 saw."""
     from repro_torch.distributed.sharding import local_slice, param_shardings
-    cfg = tp_cut(dtype)
-    batch = tp_batch()
-    prompt = {"tokens": batch["tokens"]}
+    cfg = tp_cut(part, dtype)
+    batch = tp_batch(part)
+    decode = dtype == "float32" and TP_PARTS[part][3]
     want = {}
     for turn in range(SHARD_RANKS):
         if turn == rank:
             model = Model(cfg, device=DEV,
                           generator=torch.Generator(DEV).manual_seed(0))
-            with torch.inference_mode():
-                want["logits"] = model.prefill(prompt)[0].float().cpu()
+            want = tp_serve(model, batch, decode)
             if dtype == "float32":      # no gate reads bf16's gradients
                 model.requires_grad_(True)
                 loss = model.loss(batch)
@@ -2572,38 +2636,40 @@ def tp_pass(rank: int, mesh, dtype: str) -> dict:
     held = sum(p.to_local().numel() * p.to_local().element_size()
                for p in model.parameters())
     base = torch.cuda.memory_allocated()
-    reset_k2_counts()
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    seen, inner = tp_shapes()
+    seen, restore = tp_shapes()
+    marks: list = []
     try:
-        with use_mesh(mesh), torch.inference_mode():
-            got = model.prefill(prompt)[0].float().cpu()
-        torch.cuda.synchronize()
+        with use_mesh(mesh):
+            got = tp_serve(model, batch, decode, marks)
+        served = launch_counts()
+        prefill, peak = marks
         # the dry run's peak counts from the arguments on: the parameters
         # and the batch (int32 ids there)
-        peak = torch.cuda.max_memory_allocated() - base + held + 4 * \
-            TP_TOKENS
-        prefill_k2 = k2_counts()
+        peak = peak - base + held + 4 * TP_TOKENS
         model.requires_grad_(True)
         with use_mesh(mesh):
             loss = model.loss(batch)
             loss.backward()
         torch.cuda.synchronize()
     finally:
-        model_layers.flash_attention = inner
+        restore()
+    step = {k: v - served[k] for k, v in launch_counts().items()}
     rel = {n: leaf_rel(want["grads"][n], p.grad.to_local())
            for n, p in model.named_parameters() if "grads" in want}
     return {"coord": tuple(mesh.get_coordinate()), "want": want["logits"],
-            "got": got, "want_loss": want.get("loss"),
+            "got": got["logits"], "want_decode": want["decode"],
+            "got_decode": got["decode"], "want_loss": want.get("loss"),
             "loss": float(loss.detach()), "rel": rel, "held": held,
-            "peak": peak, "prefill_k2": prefill_k2,
-            "step_k2": tuple(a - b for a, b in zip(k2_counts(), prefill_k2)),
-            "step_k2b": k2b_counts(), "shapes": seen}
+            "peak": peak, "prefill": prefill,
+            "decode": {k: served[k] - v for k, v in prefill.items()},
+            "step": step, "shapes": seen}
 
 
 def tp_rank(rank: int, world: int, store: str, out: str) -> None:
-    """(c) One rank on the one card over gloo, mesh (1, 2): ``tp_pass`` in
-    float32, then in bf16."""
+    """(c)-(e) One rank on the one card over gloo, mesh (1, 2): each
+    part's ``tp_pass`` in float32, then in bf16."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=f"file://{store}",
@@ -2611,38 +2677,41 @@ def tp_rank(rank: int, world: int, store: str, out: str) -> None:
     try:
         mesh = make_debug_mesh((1, SHARD_RANKS))
         res = {}
-        for dtype in ("float32", "bfloat16"):
-            res[dtype] = tp_pass(rank, mesh, dtype)
-            gc.collect()
-            torch.cuda.empty_cache()
+        for part in TP_PARTS:
+            for dtype in ("float32", "bfloat16"):
+                t0 = time.perf_counter()
+                res[part, dtype] = tp_pass(rank, mesh, part, dtype)
+                res[part, dtype]["s"] = time.perf_counter() - t0
+                gc.collect()
+                torch.cuda.empty_cache()
         torch.save(res, Path(out) / f"tp{rank}.pt")
     finally:
         dist.destroy_process_group()
 
 
 def tp_predict() -> dict:
-    """(c) The dry run's record of each rank's prefill of the cut, per
-    dtype: rank 0 of a fake group of ``SHARD_RANKS`` on fake cuda tensors,
-    mesh (1, 2)."""
+    """(c)-(e) The dry run's record of each rank's prefill of each cut,
+    per dtype: rank 0 of a fake group of ``SHARD_RANKS`` on fake cuda
+    tensors, mesh (1, 2)."""
     recs = {}
     dryrun._fake_group(SHARD_RANKS)
     try:
         mesh = make_debug_mesh((1, SHARD_RANKS))
-        for dtype in ("float32", "bfloat16"):
-            cfg = tp_cut(dtype)
-            recs[dtype] = dryrun.run_cell(
-                cfg.name, "prefill", mesh, False, device=DEV, cfg=cfg,
-                shape=ShapeSpec("prefill", "prefill", TP_TOKENS, 1))
-            check(recs[dtype]["status"] == "ok", f"(c) dry run: "
-                  f"{recs[dtype]}")
+        for part in TP_PARTS:
+            for dtype in ("float32", "bfloat16"):
+                cfg = tp_cut(part, dtype)
+                recs[part, dtype] = rec = dryrun.run_cell(
+                    cfg.name, "prefill", mesh, False, device=DEV, cfg=cfg,
+                    shape=ShapeSpec("prefill", "prefill", TP_TOKENS, 1))
+                check(rec["status"] == "ok", f"{part} dry run: {rec}")
     finally:
         dist.destroy_process_group()
     return recs
 
 
 def tp_step_gates(res: dict) -> tuple[float, str]:
-    """(c) float32: the step's loss against the unsharded one (relative)
-    and the gradient leaf whose shard is furthest from the unsharded's."""
+    """float32: the step's loss against the unsharded one (relative) and
+    the gradient leaf whose shard is furthest from the unsharded's."""
     return (abs(res["loss"] - res["want_loss"]) / abs(res["want_loss"]),
             max(res["rel"], key=res["rel"].get))
 
@@ -2654,36 +2723,72 @@ def tp_step_text(res: dict) -> str:
             f"||g_tp - g||/||g|| {res['rel'][worst]:.3e} ({worst}); ")
 
 
-def shard_tp(card: str) -> dict:
-    """(c) ``SHARD_RANKS`` spawned ranks on the one card over gloo, mesh
-    (1, 2): qwen2-72b at full width cut to 1 layer, attention and MLP
-    tensor-parallel; the gates on what each wrote.  Returns the ranks'
-    K2 and K2-bwd launches by route."""
-    cfg = get_config(TP_ARCH)
+def tp_heads(part: str) -> dict:
+    """What a rank of two computes in ``part``: its heads of each mixer
+    and kernel, as ``tp_shapes`` records them, and its text."""
+    cfg = get_config(TP_PARTS[part][0])
     n = SHARD_RANKS
-    hl, kl = cfg.num_heads // n, cfg.num_kv_heads // n
-    pred = tp_predict()
-    # the float32 gate's yardstick: the cut's prefill on the host, its
-    # weights drawn on the card as the ranks draw them, run while they work
-    # (before them it took 8.6 s and (c) 115.6 s; beside them (c) took
-    # 107.6 s; NVIDIA H100 80GB HBM3, 700.00 W)
+    if cfg.uses_ssm:
+        return {"seen": {("K3", cfg.ssm_heads // n)},
+                "text": f"{cfg.ssm_heads // n} of {cfg.ssm_heads} SSM heads "
+                        f"(d_inner {cfg.d_inner // n} of {cfg.d_inner})"}
+    hl = cfg.num_heads // n
+    if cfg.attention == "mla":
+        return {"seen": {("K2", (hl, hl))},
+                "text": f"MLA {hl} of {cfg.num_heads} heads, Dk "
+                        f"{cfg.qk_nope_head_dim + cfg.qk_rope_head_dim} / Dv "
+                        f"{cfg.v_head_dim}, latent whole"}
+    kl = cfg.num_kv_heads // n
+    return {"seen": {("K2", (hl, kl))},
+            "text": f"heads {hl}/{kl} of {cfg.num_heads}/{cfg.num_kv_heads},"
+                    f" MLP columns {cfg.d_ff // n} of {cfg.d_ff}"}
+
+
+def tp_kernels(part: str, dtype: str) -> dict:
+    """The launches each rank's prefill (and its training step, its
+    forward and backward) of ``part`` must make, by kernel and route: one
+    K2 or K3 a layer, one backward a layer."""
+    cfg = tp_cut(part, dtype)
+    L = cfg.num_layers
+    if cfg.uses_ssm:
+        return {"prefill": {"ssd_chunk": L},
+                "step": {"ssd_chunk": L, "ssd_chunk_bwd": L}}
+    r = "sm90" if dtype == "bfloat16" else "simt"
+    return {"prefill": {f"flash_attention/{r}": L},
+            "step": {f"flash_attention/{r}": L,
+                     f"flash_attention_bwd/{r}": L}}
+
+
+def shard_tp(card: str) -> dict:
+    """(c)-(e) ``SHARD_RANKS`` spawned ranks on the one card over gloo,
+    mesh (1, 2): each of ``TP_PARTS`` at full width, depth cut, its token
+    mixer and MLP tensor-parallel; the gates on what each wrote.  Returns
+    the ranks' launches by kernel."""
+    # the float32 gate's yardstick: each cut's prefill (and decode) on the
+    # host, its weights drawn on the card as the ranks draw them, run while
+    # they work, and the dry run's records of the cuts after them: (c)-(e)
+    # took 100.0 s so, where (c) alone took 115.6 s with both before the
+    # ranks (NVIDIA H100 80GB HBM3, 700.00 W)
     t0 = time.perf_counter()
-    host_m = Model(tp_cut("float32"), device=DEV,
-                   generator=torch.Generator(DEV).manual_seed(0)).to("cpu")
-    gc.collect()
-    torch.cuda.empty_cache()
+    host = {}
     with tempfile.TemporaryDirectory() as tmp:
         ctx = mp.get_context("spawn")
-        procs = [ctx.Process(target=tp_rank, args=(r, n, f"{tmp}/store", tmp))
-                 for r in range(n)]
+        procs = [ctx.Process(target=tp_rank, args=(r, SHARD_RANKS,
+                                                   f"{tmp}/store", tmp))
+                 for r in range(SHARD_RANKS)]
         for p in procs:
             p.start()
-        with torch.inference_mode():
-            host = host_m.prefill({"tokens": tp_batch()["tokens"].cpu()})[0]
-        del host_m
-        say("shard", f"(c) the host's float32 prefill of the cut, weights "
-            f"drawn and moved: {time.perf_counter() - t0:.1f} s beside the "
-            f"ranks")
+        for part, (_, _, _, decode) in TP_PARTS.items():
+            host_m = Model(tp_cut(part, "float32"), device=DEV,
+                           generator=torch.Generator(DEV).manual_seed(0)
+                           ).to("cpu")
+            gc.collect()
+            torch.cuda.empty_cache()
+            host[part] = tp_serve(host_m, tp_batch(part), bool(decode))
+            del host_m
+        say("shard", f"(c)-(e) the host's float32 prefills (and decode "
+            f"steps) of the cuts, weights drawn and moved: "
+            f"{time.perf_counter() - t0:.1f} s beside the ranks")
         deadline = time.monotonic() + SHARD_TIMEOUT
         for p in procs:
             p.join(max(0.0, deadline - time.monotonic()))
@@ -2691,73 +2796,94 @@ def shard_tp(card: str) -> dict:
         for p in hung:
             p.kill()
             p.join()
-        check(not hung, f"(c) {len(hung)} ranks still ran after "
+        check(not hung, f"(c)-(e) {len(hung)} ranks still ran after "
               f"{SHARD_TIMEOUT} s")
         codes = [p.exitcode for p in procs]
-        check(codes == [0] * n, f"(c) rank exit codes {codes}")
-        ranks = [torch.load(Path(tmp) / f"tp{r}.pt") for r in range(n)]
-    launches = {"flash_attention/sm90": 0, "flash_attention/simt": 0,
-                "flash_attention_bwd/sm90": 0, "flash_attention_bwd/simt": 0}
-    for dtype, route in (("float32", "simt"), ("bfloat16", "sm90")):
-        rec = pred[dtype]
-        batch_b = sum(t.numel() * t.element_size() for t in input_specs(
-            tp_cut(dtype), ShapeSpec("prefill", "prefill", TP_TOKENS, 1))[
-                "batch"].values())
-        for r, all_res in enumerate(ranks):
-            res = all_res[dtype]
-            err = float((res["got"] - res["want"]).abs().max())
-            if dtype == "float32":
-                ok, tol = shard_close(res["got"], res["want"], host)
-            else:
-                atol = TP_BF16_TOL * float(res["want"].abs().max())
-                ok = torch.allclose(res["got"], res["want"],
-                                    rtol=TP_BF16_TOL, atol=atol)
-                tol = (f"allclose(rtol={TP_BF16_TOL}, atol={TP_BF16_TOL} x "
-                       f"max|want|)={ok}")
-            pk2, sk2, sk2b = res["prefill_k2"], res["step_k2"], res["step_k2b"]
-            heads = {(q[2], k[2]) for q, k in res["shapes"]}
-            pred_held = rec["memory"]["argument_bytes"] - batch_b
-            peak_err = abs(rec["memory"]["peak_bytes"] - res["peak"]) / \
-                res["peak"]
-            say("shard", f"(c) {dtype} rank {r} at {res['coord']}: "
-                f"{cfg.name} cut to 1 layer, heads {hl}/{kl} of "
-                f"{cfg.num_heads}/{cfg.num_kv_heads}, MLP columns "
-                f"{cfg.d_ff // n} of {cfg.d_ff}; prefill of {TP_TOKENS} "
-                f"tokens: last-token logits vs the unsharded {dtype} run "
-                f"max_abs_err={err:.3e} (std "
-                f"{float(res['want'].std()):.3e}) {tol}; "
-                + (tp_step_text(res) if dtype == "float32" else
-                   f"the step's loss {res['loss']:.6f}; ")
-                + f"K2 heads (query, KV) seen {sorted(heads)}; K2 launches "
-                f"prefill sm90/simt {pk2}, step {sk2}; K2-bwd {sk2b}; "
-                f"parameters held {res['held']} B (dry run "
-                f"{pred_held} B); prefill peak "
-                f"{res['peak'] / 2**30:.3f} GiB (dry run "
-                f"{rec['memory']['peak_bytes'] / 2**30:.3f} GiB, error "
-                f"{peak_err * 100:.2f} %); {card}")
-            check(bool(torch.isfinite(res["got"]).all()),
-                  f"(c) {dtype} rank {r}: logits are not finite")
-            check(ok, f"(c) {dtype} rank {r}: the tensor-parallel prefill "
-                  f"disagrees")
-            check(heads == {(hl, kl)}, f"(c) {dtype} rank {r}: K2 saw "
-                  f"heads {heads}, not {(hl, kl)}")
-            want_k2 = (1, 0) if route == "sm90" else (0, 1)
-            check(pk2 == want_k2 and sk2 == want_k2 and sk2b == want_k2,
-                  f"(c) {dtype} rank {r}: K2 / K2-bwd launched {pk2}, "
-                  f"{sk2}, {sk2b}, not once each on {route}")
-            check(res["held"] == pred_held, f"(c) {dtype} rank {r}: holds "
-                  f"{res['held']} B of parameters, the dry run {pred_held}")
-            check(math.isfinite(res["loss"]), f"(c) {dtype} rank {r}: the "
-                  f"loss is not finite")
-            if dtype == "float32":
-                loss_rel, worst = tp_step_gates(res)
-                check(loss_rel <= GATE_LOSS_RTOL,
-                      f"(c) rank {r}: the tensor-parallel loss disagrees")
-                check(res["rel"][worst] <= GATE_LEAF_RTOL, f"(c) rank {r}: "
-                      f"gradient shard of {worst} disagrees")
-            launches[f"flash_attention/{route}"] += pk2[route == "simt"] + \
-                sk2[route == "simt"]
-            launches[f"flash_attention_bwd/{route}"] += sk2b[route == "simt"]
+        check(codes == [0] * SHARD_RANKS, f"(c)-(e) rank exit codes {codes}")
+        ranks = [torch.load(Path(tmp) / f"tp{r}.pt")
+                 for r in range(SHARD_RANKS)]
+    pred = tp_predict()
+    launches: dict = {}
+    for part, (arch, _, bf16_tol, _) in TP_PARTS.items():
+        heads = tp_heads(part)
+        for dtype in ("float32", "bfloat16"):
+            rec = pred[part, dtype]
+            batch_b = sum(t.numel() * t.element_size() for t in input_specs(
+                tp_cut(part, dtype), ShapeSpec("prefill", "prefill",
+                                               TP_TOKENS, 1))[
+                    "batch"].values())
+            want_k = tp_kernels(part, dtype)
+            for r, all_res in enumerate(ranks):
+                res = all_res[part, dtype]
+                err = float((res["got"] - res["want"]).abs().max())
+                if dtype == "float32":
+                    ok, tol = shard_close(res["got"], res["want"],
+                                          host[part]["logits"])
+                    for t, (g, w, h) in enumerate(zip(
+                            res["got_decode"], res["want_decode"],
+                            host[part]["decode"])):
+                        d_ok, d_tol = shard_close(g, w, h)
+                        say("shard", f"{part} float32 rank {r}: decode step "
+                            f"{t} vs the unsharded decode max_abs_err="
+                            f"{float((g - w).abs().max()):.3e} {d_tol}")
+                        check(d_ok, f"{part} rank {r}: decode step {t} "
+                              f"disagrees")
+                    check(len(res["got_decode"]) == len(host[part]["decode"]),
+                          f"{part} rank {r}: decode steps missing")
+                else:
+                    atol = bf16_tol * float(res["want"].abs().max())
+                    ok = torch.allclose(res["got"], res["want"],
+                                        rtol=bf16_tol, atol=atol)
+                    tol = (f"allclose(rtol={bf16_tol}, atol={bf16_tol} x "
+                           f"max|want|)={ok}")
+                pre = {k: v for k, v in res["prefill"].items() if v}
+                stp = {k: v for k, v in res["step"].items() if v}
+                seen = set(res["shapes"])
+                pred_held = rec["memory"]["argument_bytes"] - batch_b
+                peak_err = abs(rec["memory"]["peak_bytes"] - res["peak"]) / \
+                    res["peak"]
+                say("shard", f"{part} {dtype} rank {r} at {res['coord']}: "
+                    f"{arch} cut to {tp_cut(part, dtype).num_layers} "
+                    f"layer(s), {heads['text']}; prefill of {TP_TOKENS} "
+                    f"tokens: last-token logits vs the unsharded {dtype} run "
+                    f"max_abs_err={err:.3e} (std "
+                    f"{float(res['want'].std()):.3e}) {tol}; "
+                    + (tp_step_text(res) if dtype == "float32" else
+                       f"the step's loss {res['loss']:.6f}; ")
+                    + f"kernel heads seen {sorted(seen)}; launches prefill "
+                    f"{pre}, step {stp}; parameters held {res['held']} B (dry "
+                    f"run {pred_held} B); prefill peak "
+                    f"{res['peak'] / 2**30:.3f} GiB (dry run "
+                    f"{rec['memory']['peak_bytes'] / 2**30:.3f} GiB, error "
+                    f"{peak_err * 100:.2f} %); {res['s']:.1f} s; {card}")
+                check(bool(torch.isfinite(res["got"]).all()),
+                      f"{part} {dtype} rank {r}: logits are not finite")
+                check(ok, f"{part} {dtype} rank {r}: the tensor-parallel "
+                      f"prefill disagrees")
+                check(seen == heads["seen"], f"{part} {dtype} rank {r}: the "
+                      f"kernels saw heads {seen}, not {heads['seen']}")
+                check(pre == want_k["prefill"] and stp == want_k["step"]
+                      and not any(res["decode"].values()),
+                      f"{part} {dtype} rank {r}: launched {pre} in the "
+                      f"prefill, {stp} in the step, "
+                      f"{res['decode']} in decode; want {want_k}")
+                check(res["held"] == pred_held, f"{part} {dtype} rank {r}: "
+                      f"holds {res['held']} B of parameters, the dry run "
+                      f"{pred_held}")
+                check(math.isfinite(res["loss"]), f"{part} {dtype} rank "
+                      f"{r}: the loss is not finite")
+                if dtype == "float32":
+                    loss_rel, worst = tp_step_gates(res)
+                    check(loss_rel <= GATE_LOSS_RTOL, f"{part} rank {r}: "
+                          f"the tensor-parallel loss disagrees")
+                    check(res["rel"][worst] <= GATE_LEAF_RTOL,
+                          f"{part} rank {r}: gradient shard of {worst} "
+                          f"disagrees")
+                add = add_launches(dict.fromkeys(res["step"], 0),
+                                   res["prefill"], res["step"])
+                for name, k in add.items():
+                    launches[name] = launches.get(name, 0) + k
+    say("shard", f"(c)-(e) done in {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -2934,31 +3060,92 @@ def dryrun_hold(label: str, cfg, shape, step, reading: dict,
 
 
 def tp_split(rec: dict, cfg, shape, n: int) -> dict:
-    """A train cell's products per rank of a mesh whose "model" axis has
-    ``n`` ranks, from the shapes: the tensor-parallel ones (attention's q
-    and output projections and QKV bias-free products on H/n heads, the
-    dense MLP's d_ff/n columns), the K/V projections of the KV heads the
-    rank's query heads read (KH/n where n divides KH, else those heads
-    whole), and the loss head every rank repeats; each product 2·T·m·k
-    forward, again in remat "full"'s recompute (but the layer's last, the
-    MLP's ``wo``, where the recompute stops), twice in the backward.  K2
-    and K2-bwd come from ``rec``'s operators; ``products`` is ``rec``'s
-    sum over the rest, which must equal the three parts'."""
+    """A train cell's FLOPs per rank of a mesh whose "model" axis has
+    ``n`` ranks, from the shapes: the tensor-parallel products (attention's
+    q and output projections on H/n heads, the dense MLP's d_ff/n columns;
+    MLA's ``wq_b``, ``wk_b``, ``wv_b``, ``wo`` on H/n heads; the SSM's
+    ``w_in`` on its heads' z, x and dt columns and its groups' B and C, and
+    ``w_out`` on their d_inner/n rows), the products every rank of "model"
+    repeats (attention's K/V projections of the KV heads the rank's query
+    heads read, KH/n where n divides KH, else those heads whole; MLA's
+    down projections ``wq_a`` and ``wkv_a``) and the loss head; each
+    product 2·T·m·k forward, again in remat "full"'s recompute (but the
+    layer's last, where the recompute stops), twice in the backward.  The
+    kernels (K2, K2-bwd, K3, K3-bwd) and the other operators (the SSM's
+    inter-chunk ``bmm``) come from ``rec``'s operators; ``products`` is
+    ``rec``'s ``mm``s, which must equal the three parts' sum."""
     T = shape.batch * shape.seq // (rec["chips"] // n)
-    sh = model_layers.head_shard(cfg, n, 0)
-    d, hd, L = cfg.d_model, cfg.head_dim, cfg.num_layers
+    d, L = cfg.d_model, cfg.num_layers
     passes = 8 if cfg.remat == "full" else 6
-    tp = T * L * (passes * (2 * d * sh.hl * hd + 2 * d * cfg.d_ff // n)
-                  + 6 * d * cfg.d_ff // n)
-    kv = passes * T * L * 2 * d * (sh.kv1 - sh.kv0) * hd
-    head = 8 * T * d * cfg.vocab_size
+    ff = cfg.d_ff // n
+    # the MLP's wo is the layer's last product; a lone mixer's is its own
+    mlp = passes * 2 * d * ff + 6 * ff * d if cfg.d_ff else 0
+    last = 6 if not cfg.d_ff else passes
+    if cfg.uses_ssm:
+        sh = model_layers.split_heads(cfg.ssm_heads, cfg.ssm_groups, n, 0)
+        di = sh.hl * cfg.ssm_head_dim
+        cols = 2 * di + 2 * (sh.kv1 - sh.kv0) * cfg.ssm_state + sh.hl
+        tp, rep = passes * d * cols + last * di * d, 0
+    elif cfg.attention == "mla":
+        hl = cfg.num_heads // n
+        nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+        qr, kvr, vd = cfg.q_lora_rank, cfg.kv_lora_rank, cfg.v_head_dim
+        tp = passes * (qr * hl * (nope + rope) + kvr * hl * (nope + vd)
+                       + hl * vd * d)
+        rep = passes * d * (qr + kvr + rope)
+    else:
+        sh = model_layers.head_shard(cfg, n, 0)
+        hd = cfg.head_dim
+        tp = passes * 2 * d * sh.hl * hd
+        rep = passes * 2 * d * (sh.kv1 - sh.kv0) * hd
     ops = rec["flops_per_operator"]
-    return {"tensor-parallel products": tp, "K/V projections": kv,
-            "loss head": head,
-            "K2 + K2-bwd": sum(v for k, v in ops.items()
-                               if k.startswith("repro_torch.")),
-            "products": sum(v for k, v in ops.items()
-                            if not k.startswith("repro_torch."))}
+    kernels = sum(v for k, v in ops.items() if k.startswith("repro_torch."))
+    mm = sum(v for k, v in ops.items() if k in ("aten.mm", "aten.addmm"))
+    return {"tensor-parallel products": T * L * (tp + mlp),
+            "replicated products": T * L * rep,
+            "loss head": 8 * T * d * cfg.vocab_size,
+            "kernels": kernels,
+            "other operators": rec["flops_per_device"] - kernels - mm,
+            "products": mm}
+
+
+def tp_dryrun_check(arch: str, mesh, gathered_tflop: float) -> None:
+    """(b) One of ``TP_DRYRUN_CELLS``: its record's FLOPs a rank, split
+    by ``tp_split``, below its gathered layers' and equal to the split's
+    products."""
+    tag = f"{arch}__train_4k__single"
+    rec = json.loads((DRYRUN_OUT / f"tp-{arch}" / f"{tag}.json").read_text())
+    check(rec["status"] == "ok" and rec["chips"] == 256, f"(b) {tag}: {rec}")
+    n = mesh[1] if mesh else 16
+    split = tp_split(rec, get_config(arch), dryrun.SHAPES["train_4k"], n)
+    parts = sum(split[k] for k in ("tensor-parallel products",
+                                   "replicated products", "loss head"))
+    say("dryrun", f"(b) {tag} on {mesh or (16, 16)} (\"model\" = {n}): "
+        f"{rec['flops_per_device'] / 1e12:.3f} TFLOP a rank (its layers "
+        f"gathered: {gathered_tflop} TFLOP); split per rank, TFLOP: "
+        + ", ".join(f"{k} {v / 1e12:.3f}" for k, v in split.items())
+        + f"; products from the shapes {parts / 1e12:.3f}, equal="
+        f"{parts == split['products']}; per operator "
+        f"{rec['flops_per_operator']}; collectives "
+        f"{rec['collective_counts']}, bytes "
+        f"{rec['collective_bytes_per_device']}; peak "
+        f"{rec['memory']['peak_bytes'] / 2**30:.3f} GiB, arguments "
+        f"{rec['memory']['argument_bytes'] / 2**30:.3f} GiB; traced in "
+        f"{rec['trace_s']} s")
+    check(parts == split["products"], f"(b) {tag}: the products are not "
+          f"the tensor-parallel split's")
+    check(rec["flops_per_device"] < gathered_tflop * 1e12,
+          f"(b) {tag}: not below the gathered layers' {gathered_tflop} "
+          f"TFLOP")
+
+
+def tp_dryrun_cli(arch: str, mesh) -> subprocess.Popen:
+    """(b) The dry run of one of ``TP_DRYRUN_CELLS`` on fake cuda
+    tensors, in a subprocess."""
+    return dryrun_cli(["--singlepod", "--arch", arch, "--shape", "train_4k",
+                       "--device", "cuda"]
+                      + (["--mesh-shape", ",".join(map(str, mesh))]
+                         if mesh else []), DRYRUN_OUT / f"tp-{arch}")
 
 
 def dryrun_cli(args: list, out: Path) -> subprocess.Popen:
@@ -3000,11 +3187,9 @@ def dryrun_phase(card: str) -> None:
     procs = {(name, dev): dryrun_cli(args + ["--device", dev],
                                      DRYRUN_OUT / f"{name}-{dev}")
              for name, (args, _) in runs.items() for dev in devices}
-    # stablelm-12b train_4k on 16 x 16: attention and MLP tensor-parallel
-    # over "model" = 16 (its 8 KV heads do not divide it)
-    procs["tp", "cuda"] = dryrun_cli(
-        ["--singlepod", "--arch", TP_DRYRUN_ARCH, "--shape", "train_4k",
-         "--device", "cuda"], DRYRUN_OUT / "tp-cuda")
+    # TP_DRYRUN_CELLS: train_4k tensor-parallel over "model"
+    for arch, mesh, _ in TP_DRYRUN_CELLS:
+        procs[f"tp-{arch}", "cuda"] = tp_dryrun_cli(arch, mesh)
     for (name, dev), proc in procs.items():
         try:
             log, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
@@ -3024,30 +3209,8 @@ def dryrun_phase(card: str) -> None:
         check(rec["status"] == "ok" and rec["chips"] == 256,
               f"(b) {tag}: {rec}")
         say("dryrun", f"(b) {tag}: {json.dumps(rec)}")
-    tag = f"{TP_DRYRUN_ARCH}__train_4k__single"
-    rec = json.loads((DRYRUN_OUT / "tp-cuda" / f"{tag}.json").read_text())
-    check(rec["status"] == "ok" and rec["chips"] == 256, f"(b) {tag}: {rec}")
-    cfg = get_config(TP_DRYRUN_ARCH)
-    split = tp_split(rec, cfg, dryrun.SHAPES["train_4k"], 16)
-    parts = sum(split[k] for k in ("tensor-parallel products",
-                                   "K/V projections", "loss head"))
-    say("dryrun", f"(b) {tag}: {rec['flops_per_device'] / 1e12:.3f} TFLOP "
-        f"a rank (attention and MLP gathered: "
-        f"{TP_DRYRUN_GATHERED_TFLOP} TFLOP); split per rank, TFLOP: "
-        + ", ".join(f"{k} {v / 1e12:.3f}" for k, v in split.items())
-        + f"; products from the shapes {parts / 1e12:.3f}, equal="
-        f"{parts == split['products']}; per operator "
-        f"{rec['flops_per_operator']}; collectives "
-        f"{rec['collective_counts']}, bytes "
-        f"{rec['collective_bytes_per_device']}; peak "
-        f"{rec['memory']['peak_bytes'] / 2**30:.3f} GiB, arguments "
-        f"{rec['memory']['argument_bytes'] / 2**30:.3f} GiB; traced in "
-        f"{rec['trace_s']} s")
-    check(parts == split["products"], f"(b) {tag}: the products are not "
-          f"the tensor-parallel split's")
-    check(rec["flops_per_device"] < TP_DRYRUN_GATHERED_TFLOP * 1e12,
-          f"(b) {tag}: not below the gathered layers' "
-          f"{TP_DRYRUN_GATHERED_TFLOP} TFLOP")
+    for cell in TP_DRYRUN_CELLS:
+        tp_dryrun_check(*cell)
     keys = ("flops_per_device", "bytes_per_device", "collective_counts",
             "collective_bytes_per_device", "memory", "optimizer")
     for name, (_, tags) in runs.items():
@@ -3969,7 +4132,7 @@ def simt_bwd_ms(gen, B: int, S: int, H: int, KH: int, D: int) -> float:
 
 def zoo_phase(gen, card: str) -> dict:
     """Phase 13: each of ``ZOO`` in turn: (a) its float32 gate (2 layers
-    and ``GATE_TOKENS``; 1 layer above d_model ``ZOO_DEEP``, and
+    and ``ZOO_GATE_TOKENS``; 1 layer above d_model ``ZOO_DEEP``, and
     ``MOE_GATE_TOKENS`` above ``ZOO_WIDE``), (b) bf16 serving (traced for
     ``ZOO_TRACED``), (c) bf16 training for ``ZOO_TRAINED``; then (d) the
     kernels at the shapes these
@@ -3988,7 +4151,7 @@ def zoo_phase(gen, card: str) -> dict:
         torch.cuda.empty_cache()
         add_launches(total, model_gate(
             cfg, "zoo", card, 1 if cfg.d_model > ZOO_DEEP else 2,
-            MOE_GATE_TOKENS if cfg.d_model > ZOO_WIDE else GATE_TOKENS))
+            MOE_GATE_TOKENS if cfg.d_model > ZOO_WIDE else ZOO_GATE_TOKENS))
         served, shapes[arch] = model_serve(cfg, "zoo", card,
                                            trace=arch in ZOO_TRACED)
         add_launches(total, served)

@@ -24,16 +24,22 @@ puts each ``DTensor`` parameter's value in its place for the extent of a
 call and puts the ``DTensor`` back after it.  What is gathered:
 
 * a leaf that its module lists in ``model_dims`` (attention's ``wq``,
-  ``wk``, ``wv``, ``wo`` and biases, the dense MLP's and the shared
-  expert's ``wi``, ``wg``, ``wo``, the MoE's experts) and whose spec puts
-  "model" on that dim (its heads, columns or experts) keeps its "model"
-  shard: the layer computes its own heads, columns or experts and sums
-  the row-parallel products over "model" (``models.layers``,
-  ``models.moe``).  Only its other axes ("data": FSDP) are gathered;
-* every other leaf (norm scales, the router, the SSM's and MLA's leaves,
-  the embedding and head, ``wk``/``wv`` whose rule shards the head dim
-  because the KV heads do not divide "model", a leaf whose "model" entry
-  ``_maybe`` dropped) is gathered to its full value.
+  ``wk``, ``wv``, ``wo`` and biases, MLA's ``wq_b``, ``wk_b``, ``wv_b``,
+  ``wo``, the dense MLP's and the shared expert's ``wi``, ``wg``, ``wo``,
+  the SSM's ``w_out`` where its heads divide "model", the MoE's experts)
+  and whose spec puts "model" on that dim (its heads, columns or experts)
+  keeps its "model" shard: the layer computes its own heads, columns or
+  experts and sums the row-parallel products over "model"
+  (``models.layers``, ``models.ssm``, ``models.moe``).  Only its other
+  axes ("data": FSDP) are gathered;
+* every other leaf (norm scales, the router, MLA's down projections
+  ``wq_a`` and ``wkv_a``, the SSM's ``w_in``, conv, ``A_log``, ``D`` and
+  ``dt_bias``, the embedding and head, ``wk``/``wv`` whose rule shards
+  the head dim because the KV heads do not divide "model", a leaf whose
+  "model" entry ``_maybe`` dropped) is gathered to its full value.  A
+  tensor-parallel layer narrows such a leaf to the share it computes (the
+  SSM: the columns and channels of its heads, ``models.ssm``; attention:
+  the KV heads its query heads read) and sums its gradient over "model".
 
 The gather is a sum over the axis group of zero-padded shards, which every
 backend (NCCL; gloo also for CUDA tensors) can all-reduce.  Its backward

@@ -15,8 +15,9 @@ runs each step once, eagerly, as rank 0 of the mesh:
   card route: the kernels are operators with fake implementations),
   placed by the sharding rules (``shard_params``, ``param_shardings``,
   ``batch_shardings``) and the decode cache made by ``Model.init_cache``
-  under the mesh (this rank's KV heads where attention is tensor-parallel
-  over "model") and cut to the rank's batch shard: a rank holds its shards
+  under the mesh (this rank's KV heads, SSM heads and conv channels where
+  attention and the SSM are tensor-parallel over "model") and cut to the
+  rank's batch shard: a rank holds its shards
   and is given its batch shard, as on the card;
 * ``launch.hlo_costs.analyze`` around the step for FLOPs, bytes and
   collectives per device (rank 0's, as the reference's are device 0's),
@@ -134,7 +135,9 @@ def _batch_only(shardings):
     ``Model.init_cache`` makes under the mesh already holds this rank's KV
     heads (the reference's "model" shard of ``cache_shardings`` where the
     KV heads divide the axis; where they do not, the heads its query heads
-    read, whole, where the reference's spec shards the head dim)."""
+    read, whole, where the reference's spec shards the head dim), and its
+    SSM heads and conv channels where the SSM is tensor-parallel; MLA's
+    latent is whole on every rank."""
     def keep(entry):
         axes = entry if isinstance(entry, tuple) else (entry,)
         return entry if entry is not None and set(axes) <= {"pod", "data"} \

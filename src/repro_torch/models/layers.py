@@ -31,10 +31,18 @@ where those heads do not give each KV head the same number of query heads,
 repeats K/V once per local query head so that K2 sees a uniform GQA
 ratio.  Prefill and training run K2 and K2-bwd on the local heads only; a
 decode step writes and reads the cache heads of the rank's own query
-heads, which ``Model.init_cache`` allocates per rank.  MLA stays gathered
-and computes every head on every rank.  The reference's ``constrain``
-calls on the decode queries stand where its do, and leave a plain tensor
-as it is.
+heads, which ``Model.init_cache`` allocates per rank.  MLA is
+tensor-parallel where its heads divide the axis: a rank keeps its heads'
+share of ``wq_b``, ``wk_b``, ``wv_b`` and ``wo``, computes the down
+projections and the latent (``wq_a``, ``wkv_a``, both norms: gathered)
+whole, and runs K2 / K2-bwd (prefill) or the absorbed decode against the
+whole latent cache on its own heads; the latent's and the query latent's
+gradients are summed over "model", and ``wo``'s product too.  The latent
+cache stays whole on every rank, as the reference's is replicated over
+"model".  The SSM's tensor-parallel form is ``models.ssm``'s; its gated
+norm over a split d_inner is ``rmsnorm_split``.  The reference's
+``constrain`` calls on the decode queries stand where its do, and leave a
+plain tensor as it is.
 """
 from __future__ import annotations
 
@@ -97,6 +105,20 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
     h = x.float()
     var = (h * h).mean(dim=-1, keepdim=True)
     h = h * torch.rsqrt(var + eps)
+    return (h * scale.float()).to(x.dtype)
+
+
+def rmsnorm_split(scale: torch.Tensor, x: torch.Tensor, eps: float,
+                  dim: int, group: Any) -> torch.Tensor:
+    """``rmsnorm`` over a last dim of ``dim`` elements split over ``group``
+    (the SSM's gated norm over d_inner under a tensor-parallel mesh): ``x``
+    and ``scale`` hold this rank's slice of it.  Each rank's float32 sum of
+    squares is summed over the group (``psum``, in float32) and divided by
+    the whole ``dim``; every rank's slice reads that sum, so its gradient
+    is summed over the group too (``sum_grads``)."""
+    h = x.float()
+    ss = sum_grads(psum((h * h).sum(dim=-1, keepdim=True), group), group)
+    h = h * torch.rsqrt(ss / dim + eps)
     return (h * scale.float()).to(x.dtype)
 
 
@@ -193,18 +215,44 @@ class HeadShard:
     expand: tuple[int, ...] | None
 
 
-def head_shard(cfg: ArchConfig, n: int, rank: int,
-               group: Any = None) -> HeadShard:
-    """Rank ``rank``'s heads of ``cfg``'s attention over ``n`` ranks (n
-    divides the query heads)."""
-    G = cfg.num_heads // cfg.num_kv_heads
-    hl = cfg.num_heads // n
+def split_heads(heads: int, kv_heads: int, n: int, rank: int,
+                group: Any = None) -> HeadShard:
+    """Rank ``rank``'s share of ``heads`` heads over ``n`` ranks (n divides
+    them), head h reading KV head h // (heads / kv_heads): attention's
+    query and KV heads, MLA's heads (each its own), or the SSM's heads and
+    the B/C groups they read."""
+    G = heads // kv_heads
+    hl = heads // n
     h0 = rank * hl
     kv = [h // G for h in range(h0, h0 + hl)]
     kv0, kv1 = kv[0], kv[-1] + 1
     uniform = len({kv.count(j) for j in range(kv0, kv1)}) == 1
     return HeadShard(group, h0, hl, kv0, kv1,
                      None if uniform else tuple(j - kv0 for j in kv))
+
+
+def head_shard(cfg: ArchConfig, n: int, rank: int,
+               group: Any = None) -> HeadShard:
+    """Rank ``rank``'s heads of ``cfg``'s attention over ``n`` ranks (n
+    divides the query heads)."""
+    return split_heads(cfg.num_heads, cfg.num_kv_heads, n, rank, group)
+
+
+def local_heads(w: torch.Tensor, dim: int, heads: int, kv_heads: int
+                ) -> HeadShard | None:
+    """This rank's heads where ``w`` (a leaf whose dim ``dim`` holds the
+    ``heads`` heads, as a call sees it, or outside one its shard) holds a
+    "model" share of them under the installed mesh; None where it holds
+    them all (no mesh, a "model" axis of one rank, heads that do not
+    divide it)."""
+    mesh = current_mesh()
+    if model_axis_size(mesh) == 1:
+        return None
+    local = (w.to_local() if isinstance(w, DTensor) else w).shape[dim]
+    if local == heads:
+        return None
+    return split_heads(heads, kv_heads, heads // local, model_rank(mesh),
+                       model_group(mesh))
 
 
 class Attention(nn.Module):
@@ -233,15 +281,8 @@ class Attention(nn.Module):
         mesh, a "model" axis of one rank, or heads that do not divide it).
         Read from ``wq`` as a call sees it (a layer gathers its leaves for
         the call) or, outside one, from its shard."""
-        mesh = current_mesh()
-        if model_axis_size(mesh) == 1:
-            return None
-        w = self.wq
-        local = (w.to_local() if isinstance(w, DTensor) else w).shape[1]
-        if local == self.cfg.num_heads:
-            return None
-        return head_shard(self.cfg, self.cfg.num_heads // local,
-                          model_rank(mesh), model_group(mesh))
+        return local_heads(self.wq, 1, self.cfg.num_heads,
+                           self.cfg.num_kv_heads)
 
     def _kv(self, w: torch.Tensor, dim: int,
             sh: HeadShard | None) -> torch.Tensor:
@@ -318,6 +359,9 @@ class Attention(nn.Module):
 
 
 class MLA(nn.Module):
+    # the dim each leaf keeps sharded over "model" under a mesh: the heads
+    model_dims = {"wq_b": 1, "wk_b": 1, "wv_b": 1, "wo": 0}
+
     def __init__(self, cfg: ArchConfig, init: Init):
         super().__init__()
         dt = _dtype(cfg)
@@ -336,11 +380,23 @@ class MLA(nn.Module):
         self.q_norm = RMSNorm(qr, dt, init)
         self.kv_norm = RMSNorm(kvr, dt, init)
 
-    def _q(self, x, positions):
+    def head_shard(self) -> HeadShard | None:
+        """This rank's heads (each its own K/V head), or None where
+        ``wq_b`` holds them all; read as ``Attention.head_shard``."""
+        return local_heads(self.wq_b, 1, self.cfg.num_heads,
+                           self.cfg.num_heads)
+
+    @staticmethod
+    def _shared(x: torch.Tensor, sh: HeadShard | None) -> torch.Tensor:
+        """A tensor every rank computes whole and reads for its own heads
+        only: under ``sh`` its gradient is summed over "model"."""
+        return x if sh is None else sum_grads(x, sh.group)
+
+    def _q(self, x, positions, sh: HeadShard | None = None):
         cfg = self.cfg
         nope = cfg.qk_nope_head_dim
         cq = self.q_norm(_linear(x, self.wq_a), cfg.norm_eps)
-        q = _linear(cq, self.wq_b)
+        q = _linear(self._shared(cq, sh), self.wq_b)
         q_nope, q_rope = q[..., :nope], q[..., nope:]
         return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -352,33 +408,45 @@ class MLA(nn.Module):
         k_rope = apply_rope(kv[..., None, kvr:], positions, cfg.rope_theta)
         return ckv, k_rope[..., 0, :]
 
+    def _out(self, o: torch.Tensor, sh: HeadShard | None) -> torch.Tensor:
+        """``wo`` on ``o`` (B, S, heads, vdim); under ``sh`` row-parallel,
+        summed over "model"."""
+        out = _linear(o.flatten(-2), self.wo.flatten(0, 1))
+        return out if sh is None else psum(out, sh.group)
+
     def forward(self, x: torch.Tensor, *, window: int = 0):
         """Prefill MLA: expand the latent to per-head K/V and attend through
         K2.  K per head = [W_kb·c ; k_rope (shared)]; V per head = W_vb·c.
-        Returns (out, {"ckv", "krope"})."""
+        Under a tensor-parallel mesh the rank's heads only.  Returns (out,
+        {"ckv", "krope"}), the latent whole."""
         cfg = self.cfg
         B, S, _ = x.shape
-        H, nope, rope = cfg.num_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+        nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
         positions = torch.arange(S, device=x.device)[None, :]
-        q_nope, q_rope = self._q(x, positions)
+        sh = self.head_shard()
+        q_nope, q_rope = self._q(x, positions, sh)
         ckv, k_rope = self._latent(x, positions)
-        k_nope = _linear(ckv, self.wk_b)
-        v = _linear(ckv, self.wv_b)
-        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, rope)],
-                      dim=-1)
+        c = self._shared(ckv, sh)
+        k_nope = _linear(c, self.wk_b)
+        v = _linear(c, self.wv_b)
+        H = k_nope.shape[-2]
+        k = torch.cat([k_nope, self._shared(k_rope, sh)[:, :, None, :]
+                       .expand(B, S, H, rope)], dim=-1)
         q = torch.cat([q_nope, q_rope], dim=-1)
         o = flash_attention(q, k, v, causal=True,
                             scale=1.0 / math.sqrt(nope + rope))
-        out = _linear(o.flatten(-2), self.wo.flatten(0, 1))
-        return out, {"ckv": ckv, "krope": k_rope}
+        return self._out(o, sh), {"ckv": ckv, "krope": k_rope}
 
     def decode(self, x: torch.Tensor, cache: dict, pos: int, *,
                window: int = 0) -> torch.Tensor:
         """Absorbed-matmul MLA decode: score against the *latent* cache
-        (``cache["ckv"]`` (B, S, kvr), ``cache["krope"]`` (B, S, rope)),
-        written at ``min(pos, S - 1)`` in place, as in ``Attention.decode``."""
+        (``cache["ckv"]`` (B, S, kvr), ``cache["krope"]`` (B, S, rope),
+        whole on every rank), written at ``min(pos, S - 1)`` in place, as in
+        ``Attention.decode``; under a tensor-parallel mesh the rank's heads
+        only."""
         cfg = self.cfg
         positions = torch.full((x.shape[0], 1), pos, device=x.device)
+        sh = self.head_shard()
         q_nope, q_rope = self._q(x, positions)        # (B,1,H,nope/rope)
         ckv_t, k_rope_t = self._latent(x, positions)  # (B,1,kvr), (B,1,rope)
         ckv, kr = cache["ckv"], cache["krope"]
@@ -398,7 +466,7 @@ class MLA(nn.Module):
         pattn = torch.softmax(s, dim=-1)
         o_lat = torch.einsum("bhqs,bsr->bqhr", pattn, ckv.float())
         o = torch.einsum("bqhr,rhe->bqhe", o_lat.to(x.dtype), self.wv_b)
-        return _linear(o.flatten(-2), self.wo.flatten(0, 1))
+        return self._out(o, sh)
 
 
 # ---------------------------------------------------------------------------

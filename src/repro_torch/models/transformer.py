@@ -10,7 +10,9 @@ and one MoE layer, as the reference's groups of g sub-layers do.  Caches
 keep the reference's layout and keys: ``k``/``v`` (L, B, S, KH, hd; under
 a mesh whose "model" axis splits the heads, this rank's KV heads), ``ckv``
 (L, B, S, kvr), ``krope`` (L, B, S, rope), ``state`` (L, B, nh, hp, ds) in
-f32, ``conv`` (L, B, K-1, conv_dim), and ``pos``, a Python int.
+f32, ``conv`` (L, B, K-1, conv_dim; under a mesh whose "model" axis splits
+the SSM's heads, this rank's heads and channels, ``models.ssm``), and
+``pos``, a Python int.
 
 Training (``loss``, ``hidden_states``) runs the same blocks with autograd:
 K2 and K3 then run as ``torch.autograd.Function``s whose backward is a
@@ -120,9 +122,9 @@ class Block(nn.Module):
     def _gathered(self):
         """This layer's ``DTensor`` parameters as a call uses them: under a
         mesh with a "model" axis, the experts and the tensor-parallel
-        attention and MLP leaves keep their "model" shards (each module's
-        ``model_dims``), everything else at its full value; with no such
-        axis, everything at its full value."""
+        attention, MLA, SSM and MLP leaves keep their "model" shards (each
+        module's ``model_dims``), everything else at its full value; with
+        no such axis, everything at its full value."""
         mesh = current_mesh()
         tp = mesh is not None and "model" in (mesh.mesh_dim_names or ())
         return gathered(self, keep=("model",) if tp else ())
@@ -261,8 +263,9 @@ class Model(nn.Module):
     ``distributed.sharding.shard_params`` the parameters are ``DTensor``s
     and each call works on this rank's batch shard: the top-level leaves
     are gathered for the call, each layer's for the layer, but for the
-    "model" shards a layer computes on (``Block._gathered``: attention's
-    heads and the MLP's columns, tensor-parallel; the MoE's experts).
+    "model" shards a layer computes on (``Block._gathered``: attention's,
+    MLA's and the SSM's heads and the MLP's columns, tensor-parallel; the
+    MoE's experts).
     """
 
     def __init__(self, cfg: ArchConfig, *, device="cuda",
@@ -399,7 +402,9 @@ class Model(nn.Module):
         the reference's layout.  Under a mesh whose "model" axis splits the
         attention heads (call it under the mesh of the decode steps), K/V
         hold the KV heads this rank's query heads read
-        (``layers.HeadShard``)."""
+        (``layers.HeadShard``); where it splits the SSM's heads, ``state``
+        holds the rank's heads and ``conv`` its channels (``models.ssm``).
+        MLA's latent cache is whole on every rank."""
         cfg = self.cfg
         dt, dev, L = _dtype(cfg), self.device, cfg.num_layers
         cache: dict[str, Any] = {"pos": 0}
@@ -416,7 +421,8 @@ class Model(nn.Module):
                 (L, batch, max_len, cfg.qk_rope_head_dim), dtype=dt,
                 device=dev)
         if cfg.uses_ssm:
-            sc = init_ssm_cache(cfg, batch, dt, dev)
+            sc = init_ssm_cache(cfg, batch, dt, dev,
+                                self.layers[0].ssm.head_shard())
             cache["state"] = sc["state"].expand(L, *sc["state"].shape).clone()
             cache["conv"] = sc["conv"].expand(L, *sc["conv"].shape).clone()
         return cache

@@ -11,7 +11,8 @@ axis types.  Inputs are drawn with numpy from the seeds the tests use;
 parameters come from the reference's inits at ``PRNGKey(0)`` and are
 written beside the results, as float32 (bf16 values widen exactly).
 
-TASK is one of ``moe``, ``model``, ``shards``, ``psum``, ``tp``.
+TASK is one of ``moe``, ``model``, ``shards``, ``psum``, ``tp``,
+``tp_mixers``.
 """
 import os
 import sys
@@ -30,7 +31,7 @@ from repro.models import Model, moe as ref_moe  # noqa: E402
 
 from _mesh_cases import (DECODE_STEPS, MODEL_SHAPE, MOE_ARCHS,  # noqa: E402
                          MOE_CAPACITY, MOE_DTYPES, MOE_MESHES, MOE_SHAPE,
-                         PSUM_SHAPE, TP_ARCHS, TP_MESHES)
+                         PSUM_SHAPE, TP_ARCHS, TP_MESHES, TP_MIXER_ARCHS)
 
 
 def mesh_of(shape, axes=("data", "model")) -> Mesh:
@@ -151,15 +152,16 @@ def model_inputs(cfg) -> tuple[np.ndarray, np.ndarray]:
             rng.integers(0, cfg.vocab_size, (DECODE_STEPS, B, 1)))
 
 
-def task_tp(out: dict) -> None:
-    """Each of ``TP_ARCHS`` at its tiny config, its parameters placed by
-    the reference's ``param_shardings`` on each of ``TP_MESHES`` (so XLA
-    computes attention and the MLP tensor-parallel over "model"): prefill
-    logits, decode logits and the final K/V cache."""
+def task_tp(out: dict, archs=TP_ARCHS) -> None:
+    """Each of ``archs`` at its tiny config, its parameters placed by the
+    reference's ``param_shardings`` on each of ``TP_MESHES`` (so XLA
+    computes attention, the MLP, the SSM and MLA tensor-parallel over
+    "model"): prefill logits, decode logits and the final cache (each
+    entry but ``pos``)."""
     from repro.distributed.context import use_mesh
     from repro.distributed.sharding import param_shardings
     from repro.launch.specs import param_specs
-    for arch in TP_ARCHS:
+    for arch in archs:
         cfg = get_tiny_config(arch)
         model = Model(cfg)
         params = model.init(jax.random.PRNGKey(0))
@@ -182,8 +184,14 @@ def task_tp(out: dict) -> None:
                     logits, cache = decode(placed, cache,
                                            {key: jnp.asarray(steps[t])})
                     out[f"{tag}/decode/{t}"] = np.asarray(logits)
-                out[f"{tag}/cache/k"] = np.asarray(cache["k"], np.float32)
-                out[f"{tag}/cache/v"] = np.asarray(cache["v"], np.float32)
+                for name, val in cache.items():
+                    if name != "pos":
+                        out[f"{tag}/cache/{name}"] = np.asarray(val,
+                                                                np.float32)
+
+
+def task_tp_mixers(out: dict) -> None:
+    task_tp(out, TP_MIXER_ARCHS)
 
 
 def task_shards(out: dict) -> None:
@@ -239,6 +247,7 @@ if __name__ == "__main__":
     task, path = sys.argv[1], sys.argv[2]
     result: dict = {}
     {"moe": task_moe, "model": task_model, "shards": task_shards,
-     "psum": task_psum, "tp": task_tp}[task](result)
+     "psum": task_psum, "tp": task_tp, "tp_mixers": task_tp_mixers}[task](
+         result)
     np.savez(path, **result)
     print("OK", len(result))

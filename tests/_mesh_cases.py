@@ -17,3 +17,6 @@ TP_ARCHS = ("qwen2-72b", "musicgen-medium", "llama4-maverick-400b-a17b",
             "dbrx-132b")
 TP_MESHES = MOE_MESHES
 TP_DTYPES = MOE_DTYPES
+# tensor-parallel token mixers (tests/test_torch_tp_mixers.py): the SSM
+# (attention-free), a hybrid's attention beside its SSM, MLA
+TP_MIXER_ARCHS = ("mamba2-2_7b", "hymba-1_5b", "minicpm3-4b")

@@ -11,6 +11,7 @@ torch and the port only, never JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 import uuid
@@ -22,7 +23,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from _mesh_cases import (DECODE_STEPS, MOE_ARCHS, MOE_CAPACITY, MOE_DTYPES,
-                         TP_ARCHS, TP_DTYPES)
+                         TP_ARCHS, TP_DTYPES, TP_MIXER_ARCHS)
 
 
 def _entry(fn, rank: int, world: int, store: str, args: tuple) -> None:
@@ -312,7 +313,69 @@ def tp_batch(ref: dict, arch: str, rows: slice) -> dict:
             "labels": torch.from_numpy(labels[rows])}
 
 
-def tp_train(ref: dict, arch: str, dtype: str, mesh) -> dict:
+@dataclasses.dataclass
+class MixerShapes:
+    """Wraps ``SSM.forward``/``decode`` and ``MLA.forward``/``decode`` and
+    keeps, per call, each leaf a tensor-parallel mixer computes its own
+    heads with, as (class, leaf, its size on its heads' dim, the layer's
+    full size there: d_inner or H); and the heads K3 and K2 saw at each
+    launch, as ("K3", "heads", nh seen, None), ("K2", "heads", (query, KV)
+    heads seen, None)."""
+    rows: list = dataclasses.field(default_factory=list)
+    LEAVES = {"SSM": {"w_out": 0},
+              "MLA": {"wq_b": 1, "wk_b": 1, "wv_b": 1, "wo": 0}}
+
+    def __enter__(self):
+        from repro_torch.models import layers, ssm
+        self.saved = (ssm.SSM.forward, ssm.SSM.decode, layers.MLA.forward,
+                      layers.MLA.decode, ssm.ssd_chunk,
+                      layers.flash_attention)
+
+        def wrap(fn):
+            def inner(mod, *args, **kwargs):
+                name = type(mod).__name__
+                full = (mod.cfg.d_inner if name == "SSM"
+                        else mod.cfg.num_heads)
+                for leaf, dim in self.LEAVES[name].items():
+                    self.rows.append((name, leaf,
+                                      mod._parameters[leaf].shape[dim],
+                                      full))
+                return fn(mod, *args, **kwargs)
+            return inner
+
+        def k3(xdt, *args, **kwargs):
+            self.rows.append(("K3", "heads", xdt.shape[3], None))
+            return self.saved[4](xdt, *args, **kwargs)
+
+        def k2(q, k, *args, **kwargs):
+            self.rows.append(("K2", "heads", (q.shape[2], k.shape[2]), None))
+            return self.saved[5](q, k, *args, **kwargs)
+
+        ssm.SSM.forward, ssm.SSM.decode = (wrap(self.saved[0]),
+                                           wrap(self.saved[1]))
+        layers.MLA.forward, layers.MLA.decode = (wrap(self.saved[2]),
+                                                 wrap(self.saved[3]))
+        ssm.ssd_chunk, layers.flash_attention = k3, k2
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers, ssm
+        (ssm.SSM.forward, ssm.SSM.decode, layers.MLA.forward,
+         layers.MLA.decode, ssm.ssd_chunk, layers.flash_attention) = \
+            self.saved
+
+
+@contextlib.contextmanager
+def every_share():
+    """``LeafShapes`` and ``MixerShapes`` at once; yields their rows."""
+    with LeafShapes() as a, MixerShapes() as b:
+        rows: list = []
+        yield rows
+    rows.extend(a.rows + b.rows)
+
+
+def tp_train(ref: dict, arch: str, dtype: str, mesh,
+             recorder=LeafShapes) -> dict:
     """One loss and backward of this rank's batch shard under ``mesh``,
     and of the unsharded model over every shard (the sum of the shards'
     losses, whose gradient the mesh's sums over "data" give): this rank's
@@ -324,7 +387,7 @@ def tp_train(ref: dict, arch: str, dtype: str, mesh) -> dict:
     i = mesh.get_local_rank("data")
     bl = ref[f"{arch}/prompt"].shape[0] // n
     model = tp_model(ref, arch, dtype, mesh).requires_grad_(True)
-    with LeafShapes() as seen, use_mesh(mesh):
+    with recorder() as seen, use_mesh(mesh):
         loss = model.loss(tp_batch(ref, arch, slice(i * bl, (i + 1) * bl)))
         loss.backward()
     plain = tp_model(ref, arch, dtype).requires_grad_(True)
@@ -339,7 +402,7 @@ def tp_train(ref: dict, arch: str, dtype: str, mesh) -> dict:
             "want": {k: local_slice(p.grad, mesh, params[k].placements)
                      for k, p in plain.named_parameters()
                      if p.grad is not None},
-            "shapes": seen.rows}
+            "shapes": seen if isinstance(seen, list) else seen.rows}
 
 
 def tp_ranks(rank: int, world: int, ref_path: str, out: str) -> None:
@@ -376,6 +439,149 @@ def tp_ranks(rank: int, world: int, ref_path: str, out: str) -> None:
                 res[f"train/{dtype}"] = tp_train(ref, arch, dtype, mesh)
             result[f"{arch}/{shape[0]}x{shape[1]}"] = res
     _save(out, f"tp{world}", rank, result)
+
+
+def tp_mixer_ranks(rank: int, world: int, ref_path: str, out: str) -> None:
+    """Each of ``TP_MIXER_ARCHS`` through ``shard_params`` on the meshes of
+    ``world`` ranks ((1, 2) on 2; (2, 2) and (1, 4) on 4), as ``tp_ranks``:
+    prefill and decode logits of this rank's batch shard, its cache, the
+    shares its layers saw, a training step in each of ``TP_DTYPES``; then
+    the edge case of its world against the unsharded port
+    (``mixer_edge``)."""
+    from repro_torch.distributed.context import use_mesh
+    ref = dict(np.load(ref_path))
+    result = {}
+    for shape in ([(1, 2)] if world == 2 else [(2, 2), (1, 4)]):
+        mesh = _mesh(shape)
+        i = mesh.get_local_rank("data")
+        for arch in TP_MIXER_ARCHS:
+            prompt, steps = ref[f"{arch}/prompt"], ref[f"{arch}/steps"]
+            bl = prompt.shape[0] // shape[0]
+            rows = slice(i * bl, (i + 1) * bl)
+            model = tp_model(ref, arch, mesh=mesh)
+            with every_share() as seen, use_mesh(mesh):
+                logits, cache = model.prefill(
+                    {"tokens": torch.from_numpy(prompt[rows])})
+                res = {"data": i, "model": mesh.get_local_rank("model"),
+                       "prefill": logits}
+                cache = model.extend_cache(cache, DECODE_STEPS)
+                for t in range(DECODE_STEPS):
+                    logits, cache = model.decode_step(
+                        cache, {"tokens": torch.from_numpy(steps[t][rows])})
+                    res[f"decode/{t}"] = logits
+            res["cache"] = {k: v for k, v in cache.items() if k != "pos"}
+            res["shapes"] = seen
+            for dtype in TP_DTYPES:
+                res[f"train/{dtype}"] = tp_train(ref, arch, dtype, mesh,
+                                                 every_share)
+            result[f"{arch}/{shape[0]}x{shape[1]}"] = res
+    result["edge"] = {case: mixer_edge(*MIXER_EDGES[case])
+                      for case in MIXER_EDGES
+                      if np.prod(MIXER_EDGES[case][2]) == world}
+    result["norm"] = norm_slice(rank, world)
+    _save(out, f"mixers{world}", rank, result)
+
+
+NORM_EPS = 1e-5
+
+
+def norm_inputs() -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``norm_slice``'s input (3, 5, 64), scale (64,) and output
+    cotangent, float32, from a seed."""
+    rng = np.random.default_rng(10)
+    x = rng.standard_normal((3, 5, 64)).astype(np.float32)
+    scale = 1 + 0.1 * rng.standard_normal(64).astype(np.float32)
+    g = rng.standard_normal((3, 5, 64)).astype(np.float32)
+    return tuple(torch.from_numpy(a) for a in (x, scale, g))
+
+
+def norm_slice(rank: int, world: int) -> dict:
+    """``layers.rmsnorm_split`` of this rank's slice of ``norm_inputs``'
+    last dim over the world's group, per dtype of ``TP_DTYPES``: its output
+    and the gradient of its input under the sum over every rank of the
+    output times the cotangent."""
+    from repro_torch.models.layers import rmsnorm_split
+    x, scale, g = norm_inputs()
+    w = x.shape[-1] // world
+    cols = slice(rank * w, (rank + 1) * w)
+    result = {}
+    for dtype in TP_DTYPES:
+        xs = x[..., cols].to(getattr(torch, dtype)).requires_grad_(True)
+        y = rmsnorm_split(scale[cols].to(xs.dtype), xs, NORM_EPS,
+                          x.shape[-1], dist.group.WORLD)
+        (y.float() * g[..., cols]).sum().backward()
+        result[dtype], result[f"grad/{dtype}"] = y.detach(), xs.grad
+    return result
+
+
+# the cases of ``mixer_edge`` by name: (tiny arch, its changed fields, mesh)
+MIXER_EDGES = {
+    # 2 SSM heads of 64 on 4 ranks: 4 divides d_inner (128), not the heads
+    "ssm-heads-2-on-4": ("mamba2-2_7b", {"ssm_head_dim": 64}, (1, 4)),
+    # 3 attention heads (gathered) beside 8 SSM heads (4 a rank) on 2 ranks
+    "hybrid-attention-3-on-2": ("hymba-1_5b",
+                                {"num_heads": 3, "num_kv_heads": 1}, (1, 2)),
+    # the full configurations' remat: the layer recomputed in the backward
+    # (its sums over "model" too), and "dots"' selective recompute
+    "hybrid-remat-full": ("hymba-1_5b", {"remat": "full"}, (1, 2)),
+    "ssm-remat-full": ("mamba2-2_7b", {"remat": "full"}, (1, 2)),
+    "mla-remat-dots": ("minicpm3-4b", {"remat": "dots"}, (1, 2)),
+}
+
+
+def mixer_edge(arch: str, fields: dict, shape: tuple) -> dict:
+    """Tiny ``arch`` with ``fields`` changed and seeded weights, on
+    ``shape``'s mesh and unsharded: prefill, decode steps, the cache and a
+    float32 training step of this rank's batch shard (the unsharded run
+    over every shard, as ``tp_train``), and the shares the layers saw."""
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.distributed.context import use_mesh
+    from repro_torch.distributed.sharding import local_slice, shard_params
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_tiny_config(arch), **fields)
+    mesh = _mesh(shape)
+    rng = np.random.default_rng(9)
+    tokens = torch.from_numpy(rng.integers(0, 97, (4, 9)))
+    steps = torch.from_numpy(rng.integers(0, 97, (DECODE_STEPS, 4, 1)))
+    n = shape[0]
+    i = mesh.get_local_rank("data")
+    bl = tokens.shape[0] // n
+    mine = slice(i * bl, (i + 1) * bl)
+    result = {"data": i, "model": mesh.get_local_rank("model")}
+    for how in ("sharded", "plain"):
+        model = Model(cfg, device="cpu")
+        on = how == "sharded"
+        if on:
+            shard_params(model, mesh)
+        part = (lambda t: t[mine]) if on else (lambda t: t)
+        with every_share() as seen, use_mesh(mesh if on else None):
+            logits, cache = model.prefill({"tokens": part(tokens)[:, :-1]})
+            run = {"prefill": logits}
+            cache = model.extend_cache(cache, DECODE_STEPS)
+            for t in range(DECODE_STEPS):
+                logits, cache = model.decode_step(
+                    cache, {"tokens": part(steps[t])})
+                run[f"decode/{t}"] = logits
+            model.requires_grad_(True)
+            batches = [mine] if on else [slice(j * bl, (j + 1) * bl)
+                                         for j in range(n)]
+            losses = [model.loss({"tokens": tokens[b, :-1],
+                                  "labels": tokens[b, 1:]})
+                      for b in batches]
+            sum(losses).backward()
+        run["loss"] = losses[0 if on else i].detach()
+        run["cache"] = {k: v for k, v in cache.items() if k != "pos"}
+        run["grads"] = {k: p.grad for k, p in model.named_parameters()}
+        run["shapes"] = seen
+        result[how] = (run, model)
+    (sharded, model), (plain, _) = result["sharded"], result["plain"]
+    places = {k: p.placements for k, p in model.named_parameters()}
+    plain["grads"] = {k: local_slice(g, mesh, places[k])
+                      for k, g in plain["grads"].items()}
+    sharded["grads"] = {k: g.to_local() for k, g in sharded["grads"].items()}
+    result.update(sharded=sharded, plain=plain, arch=arch, fields=fields,
+                  shape=shape)
+    return result
 
 
 # ---------------------------------------------------------------------------

@@ -158,10 +158,11 @@ def test_cache_holds_the_ranks_heads(out, shape, arch):
     assert sorted(set(heads)) == list(range(cfg.num_kv_heads))
 
 
-def _hold_bf16(arch: str, rank: int, grads: dict, g32: dict) -> None:
+def _hold_bf16(arch: str, rank: int, grads: dict, g32: dict,
+               near_zero: dict = NEAR_ZERO) -> None:
     """Each bf16 gradient shard against the float32 one: ``BF16_GRAD``
     relative above ``GRAD_FLOOR`` of the largest leaf's norm; below it, a
-    leaf of ``NEAR_ZERO`` whose distance is below the floor too."""
+    leaf of ``near_zero`` whose distance is below the floor too."""
     floor = GRAD_FLOOR * max(float(np.linalg.norm(_np(g)))
                              for g in g32.values())
     for name, g in grads.items():
@@ -171,7 +172,7 @@ def _hold_bf16(arch: str, rank: int, grads: dict, g32: dict) -> None:
         if norm >= floor:
             assert dist <= BF16_GRAD * norm, what
         else:
-            assert name in NEAR_ZERO.get(arch, ()), what
+            assert name in near_zero.get(arch, ()), what
             assert dist <= floor, what
 
 
