@@ -141,7 +141,13 @@ failed check exits non-zero):
              band; (e) MLA tensor-parallel: minicpm3-4B at full width cut
              to 2 layers, 20 of 40 heads a rank through K2 / K2-bwd at Dk
              96 / Dv 64, the latent cache whole, the absorbed decode held
-             as in (d), bf16 logits in K2's band.
+             as in (d), bf16 logits in K2's band.  In (c)-(e) the embedding
+             and head are vocab-parallel (each rank's V/2 rows and
+             columns), and each cut's float32 and bf16 step runs again
+             under Megatron-SP (``seq_shard_activations``: 256 of the 512
+             rows a rank between the regions): float32 loss and gradient
+             shards at (c)'s gates against the unsharded step, bf16 loss
+             against the step without SP, the same launches.
 10. dryrun — ``launch.dryrun`` and ``launch.hlo_costs`` against the card:
              (a) at world size 1 on fake ``cuda`` tensors, a prediction of
              phase 7 (c)'s training step (hymba-1.5B, bf16, 4 x 2048,
@@ -154,7 +160,9 @@ failed check exits non-zero):
              beside the measured time, and phase 6's prefill busy time and
              phase 7's step time printed for comparison with earlier runs
              (``PERF.md`` §5); (b) on the host, in subprocesses with a time
-             limit: the full-config dry run of dbrx-132B ``train_4k`` and
+             limit, started before phase 9 and run behind it at niceness 19
+             (so is the first dry run of phases 12 and 13's depth searches):
+             the full-config dry run of dbrx-132B ``train_4k`` and
              hymba-1.5B ``long_500k`` on the 16 x 16 mesh (fake process
              group of 256 ranks), records printed, and two tiny cells on
              the (2, 2, 2) mesh traced on fake ``cuda`` and fake ``cpu``
@@ -165,9 +173,13 @@ failed check exits non-zero):
              what it took with those layers gathered on every rank (6331,
              1394.356 and 658.830 TFLOP, PERF.md section 6), split into
              the tensor-parallel products, the replicated ones (K/V or
-             MLA's down projections), the loss head, the kernels and the
-             other operators, the products equal to the split's from the
-             shapes.
+             MLA's down projections), the loss head (V/n columns where n
+             divides the vocab), the kernels and the other operators, the
+             products equal to the split's from the shapes, and the FLOPs
+             a rank held at 412.841, 171.418 and 200.893 TFLOP; stablelm's
+             cell again under ``--opt`` (Megatron-SP): the same FLOPs, its
+             peak below by at least half of what the saved layer inputs
+             take at S rather than S/16, collectives printed beside.
 11. moe-train — MoE training, remat "dots", llama4 served: (a) a float32
              gradient gate of dbrx-132B at full width cut to 1 layer, phase 8
              (a)'s 512-token prompt: the loss and every parameter gradient on
@@ -249,6 +261,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import functools
 import gc
@@ -262,7 +275,7 @@ import sys
 import tempfile
 import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -321,6 +334,7 @@ from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
 from repro_torch.models import Model, moe  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models import ssm as model_ssm  # noqa: E402
+from repro_torch.models import transformer as model_tf  # noqa: E402
 from repro_torch.models.transformer import chunked_xent  # noqa: E402
 from repro_torch.serving.engine import (Completion,  # noqa: E402
                                         PoasDispatcher, Request,
@@ -431,13 +445,20 @@ DRYRUN_TIMEOUT = 600      # (b): seconds for each host-only dry run
 # (b): the train_4k cells whose per-rank FLOPs split is printed, each
 # tensor-parallel over "model": (configuration, mesh shape, or None for
 # 16 x 16, its FLOPs a rank when its layers were gathered and repeated on
-# every rank of "model": the dry run's earlier records, PERF.md section 6).
-# stablelm-12b: attention and MLP over 16 (its 8 KV heads do not divide
-# it); mamba2-2.7B: the SSM, 5 of 80 heads a rank; minicpm3-4B on 32 x 8:
-# MLA, 5 of 40 heads a rank (40 heads do not divide 16)
-TP_DRYRUN_CELLS = (("stablelm-12b", None, 6331),
-                   ("mamba2-2_7b", None, 1394.356),
-                   ("minicpm3-4b", (32, 8), 658.830))
+# every rank of "model": the dry run's earlier records, PERF.md section 6;
+# its TFLOP a rank now, to the third decimal).  stablelm-12b: attention and
+# MLP over 16 (its 8 KV heads do not divide it); mamba2-2.7B: the SSM, 5 of
+# 80 heads a rank; minicpm3-4B on 32 x 8: MLA, 5 of 40 heads a rank (40
+# heads do not divide 16).  The vocab-parallel loss head: stablelm's 100352
+# and minicpm3's 73448 divide "model", mamba2's 50280 does not (whole).
+TP_DRYRUN_CELLS = (("stablelm-12b", None, 6331, 412.841),
+                   ("mamba2-2_7b", None, 1394.356, 171.418),
+                   ("minicpm3-4b", (32, 8), 658.830, 200.893))
+# (b): the cell run again with the dry run's --opt (Megatron-SP, loss
+# chunks of 8192): the same FLOPs, and a peak below the cell's by about
+# what remat "full" no longer holds: each layer's input at S/16 rows
+# (40 x 65536 x 5120 bf16 = 25.0 GiB a rank at S, 1.56 at S/16)
+TP_DRYRUN_OPT = "stablelm-12b"
 DRYRUN_OUT = ROOT / "experiments" / "dryrun_torch_chip"
 # Phase 11 (b): 2 of dbrx's 40 layers in bf16 with their gradients and
 # AdamW's bf16 moments: 7.751 B parameters at 8 bytes, ~62 GB, and the f32
@@ -2658,13 +2679,57 @@ def tp_pass(rank: int, mesh, part: str, dtype: str) -> dict:
     step = {k: v - served[k] for k, v in launch_counts().items()}
     rel = {n: leaf_rel(want["grads"][n], p.grad.to_local())
            for n, p in model.named_parameters() if "grads" in want}
+    sp = tp_sp_step(model, mesh, batch, want, dtype)
     return {"coord": tuple(mesh.get_coordinate()), "want": want["logits"],
             "got": got["logits"], "want_decode": want["decode"],
             "got_decode": got["decode"], "want_loss": want.get("loss"),
             "loss": float(loss.detach()), "rel": rel, "held": held,
             "peak": peak, "prefill": prefill,
             "decode": {k: served[k] - v for k, v in prefill.items()},
-            "step": step, "shapes": seen}
+            "step": step, "shapes": seen, "sp": sp}
+
+
+def tp_sp_step(model, mesh, batch: dict, want: dict, dtype: str) -> dict:
+    """The same loss and backward again under Megatron-SP
+    (``seq_shard_activations``: 256 of the 512 rows a rank between the
+    regions): the loss, the float32 gradient shards against the unsharded
+    run's (``want``), the bf16 ones against the step without SP just
+    taken, the rows each layer took, the kernels' launches and the step's
+    peak beside the step's without SP."""
+    # the step's bf16 gradients kept on the host, so that the SP step's
+    # peak counts what it allocates itself
+    plain = want["grads"] if dtype == "float32" else {
+        n: p.grad.to_local().cpu() for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    plain_peak = torch.cuda.max_memory_allocated()
+    model.zero_grad(set_to_none=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    flag = model.cfg
+    model.cfg = dataclasses.replace(flag, seq_shard_activations=True)
+    rows: list = []
+    block_out = model_tf._block_out
+
+    def recording(blk, x, *args):
+        rows.append(x.shape[1])
+        return block_out(blk, x, *args)
+    model_tf._block_out = recording
+    before = launch_counts()
+    try:
+        with use_mesh(mesh):
+            loss = model.loss(batch)
+            loss.backward()
+        torch.cuda.synchronize()
+    finally:
+        model_tf._block_out = block_out
+        model.cfg = flag
+    grads = {n: p.grad.to_local() for n, p in model.named_parameters()}
+    return {"loss": float(loss.detach()), "rows": rows,
+            "rel": {n: leaf_rel(plain[n], g) for n, g in grads.items()},
+            "step": {k: v - before[k] for k, v in launch_counts().items()},
+            "peak": torch.cuda.max_memory_allocated(),
+            "plain_peak": plain_peak}
 
 
 def tp_rank(rank: int, world: int, store: str, out: str) -> None:
@@ -2728,20 +2793,24 @@ def tp_heads(part: str) -> dict:
     and kernel, as ``tp_shapes`` records them, and its text."""
     cfg = get_config(TP_PARTS[part][0])
     n = SHARD_RANKS
+    V = cfg.vocab_size
+    vocab = (f"; embedding rows and head columns {V // n} of {V}"
+             if V % n == 0 else f"; embedding and head whole ({V})")
     if cfg.uses_ssm:
         return {"seen": {("K3", cfg.ssm_heads // n)},
                 "text": f"{cfg.ssm_heads // n} of {cfg.ssm_heads} SSM heads "
-                        f"(d_inner {cfg.d_inner // n} of {cfg.d_inner})"}
+                        f"(d_inner {cfg.d_inner // n} of {cfg.d_inner})"
+                        + vocab}
     hl = cfg.num_heads // n
     if cfg.attention == "mla":
         return {"seen": {("K2", (hl, hl))},
                 "text": f"MLA {hl} of {cfg.num_heads} heads, Dk "
                         f"{cfg.qk_nope_head_dim + cfg.qk_rope_head_dim} / Dv "
-                        f"{cfg.v_head_dim}, latent whole"}
+                        f"{cfg.v_head_dim}, latent whole" + vocab}
     kl = cfg.num_kv_heads // n
     return {"seen": {("K2", (hl, kl))},
             "text": f"heads {hl}/{kl} of {cfg.num_heads}/{cfg.num_kv_heads},"
-                    f" MLP columns {cfg.d_ff // n} of {cfg.d_ff}"}
+                    f" MLP columns {cfg.d_ff // n} of {cfg.d_ff}" + vocab}
 
 
 def tp_kernels(part: str, dtype: str) -> dict:
@@ -2879,12 +2948,53 @@ def shard_tp(card: str) -> dict:
                     check(res["rel"][worst] <= GATE_LEAF_RTOL,
                           f"{part} rank {r}: gradient shard of {worst} "
                           f"disagrees")
+                tp_sp_check(part, dtype, r, res, want_k["step"], bf16_tol,
+                            card)
                 add = add_launches(dict.fromkeys(res["step"], 0),
-                                   res["prefill"], res["step"])
+                                   res["prefill"], res["step"],
+                                   res["sp"]["step"])
                 for name, k in add.items():
                     launches[name] = launches.get(name, 0) + k
     say("shard", f"(c)-(e) done in {time.perf_counter() - t0:.1f} s")
     return launches
+
+
+def tp_sp_check(part: str, dtype: str, r: int, res: dict, want_step: dict,
+                bf16_tol: float, card: str) -> None:
+    """(c)-(e) The Megatron-SP step of ``tp_sp_step``: every layer took
+    TP_TOKENS / 2 rows; float32: loss and gradient shards at phase 7 (b)'s
+    gates against the unsharded run; bf16: the loss in the cut's band of
+    the step's without SP (the forward's arithmetic is the same), its
+    gradient shards' distance from that step's printed; the same kernel
+    launches as that step."""
+    sp = res["sp"]
+    worst = max(sp["rel"], key=sp["rel"].get)
+    stp = {k: v for k, v in sp["step"].items() if v}
+    if dtype == "float32":
+        base = res["want_loss"]
+        ok = abs(sp["loss"] - base) <= GATE_LOSS_RTOL * abs(base)
+        gate = (f"gates {GATE_LOSS_RTOL} / {GATE_LEAF_RTOL} against the "
+                f"unsharded run")
+        check(sp["rel"][worst] <= GATE_LEAF_RTOL, f"{part} rank {r}: the "
+              f"SP gradient shard of {worst} disagrees")
+    else:
+        base = res["loss"]
+        ok = abs(sp["loss"] - base) <= bf16_tol * abs(base)
+        gate = f"rtol {bf16_tol} against the step without SP"
+    say("shard", f"{part} {dtype} rank {r}: Megatron-SP step, layers took "
+        f"{sorted(set(sp['rows']))} of {TP_TOKENS} rows; loss "
+        f"{sp['loss']:.6f} vs {base:.6f} (bit-equal "
+        f"{sp['loss'] == res['loss']} to the step without SP); "
+        f"{len(sp['rel'])} gradient shards, worst ||g_sp - g||/||g|| "
+        f"{sp['rel'][worst]:.3e} ({worst}); {gate}; launches {stp}; step "
+        f"peak {sp['peak'] / 2**30:.3f} GiB (without SP "
+        f"{sp['plain_peak'] / 2**30:.3f}); {card}")
+    check(set(sp["rows"]) == {TP_TOKENS // SHARD_RANKS}, f"{part} rank {r}: "
+          f"the SP layers took {sp['rows']} rows")
+    check(math.isfinite(sp["loss"]) and ok, f"{part} {dtype} rank {r}: the "
+          f"SP loss disagrees")
+    check(stp == want_step, f"{part} {dtype} rank {r}: the SP step launched "
+          f"{stp}, not {want_step}")
 
 
 def shard_phase(card: str) -> dict:
@@ -3068,8 +3178,9 @@ def tp_split(rec: dict, cfg, shape, n: int) -> dict:
     ``w_out`` on their d_inner/n rows), the products every rank of "model"
     repeats (attention's K/V projections of the KV heads the rank's query
     heads read, KH/n where n divides KH, else those heads whole; MLA's
-    down projections ``wq_a`` and ``wkv_a``) and the loss head; each
-    product 2·T·m·k forward, again in remat "full"'s recompute (but the
+    down projections ``wq_a`` and ``wkv_a``) and the loss head (V/n
+    columns where n divides the vocab, else V); each product 2·T·m·k
+    forward, again in remat "full"'s recompute (but the
     layer's last, where the recompute stops), twice in the backward.  The
     kernels (K2, K2-bwd, K3, K3-bwd) and the other operators (the SSM's
     inter-chunk ``bmm``) come from ``rec``'s operators; ``products`` is
@@ -3101,18 +3212,21 @@ def tp_split(rec: dict, cfg, shape, n: int) -> dict:
     ops = rec["flops_per_operator"]
     kernels = sum(v for k, v in ops.items() if k.startswith("repro_torch."))
     mm = sum(v for k, v in ops.items() if k in ("aten.mm", "aten.addmm"))
+    V = cfg.vocab_size
     return {"tensor-parallel products": T * L * (tp + mlp),
             "replicated products": T * L * rep,
-            "loss head": 8 * T * d * cfg.vocab_size,
+            # the vocab-parallel head: V/n columns where n divides V
+            "loss head": 8 * T * d * (V // n if V % n == 0 else V),
             "kernels": kernels,
             "other operators": rec["flops_per_device"] - kernels - mm,
             "products": mm}
 
 
-def tp_dryrun_check(arch: str, mesh, gathered_tflop: float) -> None:
+def tp_dryrun_check(arch: str, mesh, gathered_tflop: float,
+                    tflop: float) -> None:
     """(b) One of ``TP_DRYRUN_CELLS``: its record's FLOPs a rank, split
-    by ``tp_split``, below its gathered layers' and equal to the split's
-    products."""
+    by ``tp_split``, below its gathered layers', equal to the split's
+    products and ``tflop`` TFLOP to the third decimal."""
     tag = f"{arch}__train_4k__single"
     rec = json.loads((DRYRUN_OUT / f"tp-{arch}" / f"{tag}.json").read_text())
     check(rec["status"] == "ok" and rec["chips"] == 256, f"(b) {tag}: {rec}")
@@ -3137,48 +3251,94 @@ def tp_dryrun_check(arch: str, mesh, gathered_tflop: float) -> None:
     check(rec["flops_per_device"] < gathered_tflop * 1e12,
           f"(b) {tag}: not below the gathered layers' {gathered_tflop} "
           f"TFLOP")
+    check(round(rec["flops_per_device"] / 1e12, 3) == tflop,
+          f"(b) {tag}: {rec['flops_per_device'] / 1e12:.3f} TFLOP a rank, "
+          f"not {tflop}")
 
 
-def tp_dryrun_cli(arch: str, mesh) -> subprocess.Popen:
+def tp_opt_check(card: str) -> None:
+    """(b) ``TP_DRYRUN_OPT`` under --opt beside the same cell without it:
+    FLOPs equal; peak, collectives; the peak below by at least half the
+    saved inputs' term (25.0 - 1.56 GiB)."""
+    tag = f"{TP_DRYRUN_OPT}__train_4k__single"
+    plain, opt = (json.loads((DRYRUN_OUT / d / f"{tag}.json").read_text())
+                  for d in (f"tp-{TP_DRYRUN_OPT}", f"tp-{TP_DRYRUN_OPT}-opt"))
+    check(opt["status"] == "ok", f"(b) {tag} --opt: {opt}")
+    cfg = get_config(TP_DRYRUN_OPT)
+    T = dryrun.SHAPES["train_4k"].batch * dryrun.SHAPES["train_4k"].seq // 16
+    term = cfg.num_layers * T * cfg.d_model * 2 * (1 - 1 / 16)
+    drop = plain["memory"]["peak_bytes"] - opt["memory"]["peak_bytes"]
+    say("dryrun", f"(b) {tag} with --opt (Megatron-SP, loss chunks of "
+        f"8192) beside it without: {opt['flops_per_device'] / 1e12:.3f} "
+        f"against {plain['flops_per_device'] / 1e12:.3f} TFLOP a rank; peak "
+        f"{opt['memory']['peak_bytes'] / 2**30:.3f} against "
+        f"{plain['memory']['peak_bytes'] / 2**30:.3f} GiB (down "
+        f"{drop / 2**30:.3f}; the saved inputs' term {term / 2**30:.3f}); "
+        f"collectives {opt['collective_counts']} against "
+        f"{plain['collective_counts']}, bytes "
+        f"{opt['collective_bytes_per_device']} against "
+        f"{plain['collective_bytes_per_device']}; traced in "
+        f"{opt['trace_s']} s; {card}")
+    check(opt["flops_per_device"] == plain["flops_per_device"],
+          f"(b) {tag}: --opt changed the FLOPs")
+    check(drop >= term / 2, f"(b) {tag}: --opt's peak is down "
+          f"{drop / 2**30:.3f} GiB, not about {term / 2**30:.3f}")
+
+
+def tp_dryrun_cli(arch: str, mesh, opt: bool = False) -> subprocess.Popen:
     """(b) The dry run of one of ``TP_DRYRUN_CELLS`` on fake cuda
-    tensors, in a subprocess."""
+    tensors (with ``--opt``: ``TP_DRYRUN_OPT``), in a subprocess."""
     return dryrun_cli(["--singlepod", "--arch", arch, "--shape", "train_4k",
                        "--device", "cuda"]
                       + (["--mesh-shape", ",".join(map(str, mesh))]
-                         if mesh else []), DRYRUN_OUT / f"tp-{arch}")
+                         if mesh else []) + (["--opt"] if opt else []),
+                      DRYRUN_OUT / f"tp-{arch}{'-opt' if opt else ''}")
 
 
 def dryrun_cli(args: list, out: Path) -> subprocess.Popen:
+    """One dry run CLI in a subprocess at the lowest scheduling priority
+    (niceness 19: it yields the host's cores to this process's own work),
+    its output in ``out``/cli.log (``dryrun_log``), killed at exit if it
+    still runs."""
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    return subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", *args, "--out",
-         str(out)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
+    out.mkdir(parents=True, exist_ok=True)
+    with open(out / "cli.log", "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+             "--out", str(out)], cwd=ROOT, env=env, stdout=log,
+            stderr=subprocess.STDOUT, text=True,
+            preexec_fn=lambda: os.nice(19))
+    proc.log_path = out / "cli.log"
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
 
 
-def dryrun_phase(card: str) -> None:
-    """Phase 10: (a)'s rows (taken in phases 7 and 9) summed up, then (b)
-    on the host: the full-config cells no package has a record of, and the
-    same records on fake cuda and fake cpu tensors: dbrx-132B's full
-    train_4k and three tiny train cells, hymba's under AdamW, dbrx's and
-    llama4's under FactoredAdam (a tiny cell keeps its full configuration's
-    optimizer)."""
-    t0 = time.perf_counter()
-    check(len(DRYRUN_HELD) == 2, f"(a) held {DRYRUN_HELD}, not 2 cells")
-    steps = MEASURED.get("step_ms", [])
-    say("dryrun", f"(a) both cells held; this run's phase 6 prefill "
-        f"(5 x 2776) device busy {MEASURED.get('prefill_busy_s', 0):.4f} "
-        f"s and phase 7 steps 2-{TRAIN_STEPS} "
-        f"{', '.join(f'{t:.2f}' for t in steps)} ms, beside earlier runs "
-        f"of this script with the kernels called through ctypes alone "
-        f"(PERF.md section 5); {card}")
+def dryrun_log(proc: subprocess.Popen, what: str) -> str:
+    """``dryrun_cli``'s subprocess waited for; its output."""
+    try:
+        proc.wait(timeout=DRYRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail(f"(b) the {what} dry run ran past {DRYRUN_TIMEOUT} s")
+    return proc.log_path.read_text()
+
+
+def dryrun_start() -> dict:
+    """Phase 10 (b)'s dry runs started on the host, each in a subprocess
+    at the lowest scheduling priority, to run while phase 9, which claims
+    no time, works on the card (``dryrun_finish`` collects them): the
+    full-config cells no package has a record of, and the same records on
+    fake cuda and fake cpu tensors: dbrx-132B's full train_4k and three
+    tiny train cells, hymba's under AdamW, dbrx's and llama4's under
+    FactoredAdam (a tiny cell keeps its full configuration's optimizer);
+    hymba's long_500k; the tensor-parallel train_4k cells."""
     devices = ("cuda", "cpu")
     tiny_args = ["--tiny", "--singlepod", "--mesh-shape", "2,2,2", "--shape",
                  "train_4k", "--seq", "64", "--batch", "8"]
     runs = {   # name -> (CLI arguments, records compared across devices)
-        "full": (["--singlepod", "--arch", "dbrx-132b", "hymba-1_5b",
-                  "--shape", "train_4k", "long_500k"],
-                 ["dbrx-132b__train_4k__single"]),
+        "full": (["--singlepod", "--arch", "dbrx-132b", "--shape",
+                  "train_4k"], ["dbrx-132b__train_4k__single"]),
         "tiny": (tiny_args + ["--arch", "hymba-1_5b", "dbrx-132b",
                               "llama4-maverick-400b-a17b"],
                  ["hymba-1_5b__train_4k__single",
@@ -3187,30 +3347,47 @@ def dryrun_phase(card: str) -> None:
     procs = {(name, dev): dryrun_cli(args + ["--device", dev],
                                      DRYRUN_OUT / f"{name}-{dev}")
              for name, (args, _) in runs.items() for dev in devices}
+    procs["long", "cuda"] = dryrun_cli(
+        ["--singlepod", "--arch", "hymba-1_5b", "--shape", "long_500k",
+         "--device", "cuda"], DRYRUN_OUT / "long-cuda")
     # TP_DRYRUN_CELLS: train_4k tensor-parallel over "model"
-    for arch, mesh, _ in TP_DRYRUN_CELLS:
+    for arch, mesh, *_ in TP_DRYRUN_CELLS:
         procs[f"tp-{arch}", "cuda"] = tp_dryrun_cli(arch, mesh)
+    procs[f"tp-{TP_DRYRUN_OPT}-opt", "cuda"] = tp_dryrun_cli(
+        TP_DRYRUN_OPT, None, opt=True)
+    return {"procs": procs, "runs": runs, "t0": time.perf_counter()}
+
+
+def dryrun_finish(started: dict, card: str) -> None:
+    """Phase 10: (a)'s rows (taken in phases 7 and 9) summed up; (b)
+    ``dryrun_start``'s dry runs waited for and held."""
+    check(len(DRYRUN_HELD) == 2, f"(a) held {DRYRUN_HELD}, not 2 cells")
+    steps = MEASURED.get("step_ms", [])
+    say("dryrun", f"(a) both cells held; this run's phase 6 prefill "
+        f"(5 x 2776) device busy {MEASURED.get('prefill_busy_s', 0):.4f} "
+        f"s and phase 7 steps 2-{TRAIN_STEPS} "
+        f"{', '.join(f'{t:.2f}' for t in steps)} ms, beside earlier runs "
+        f"of this script with the kernels called through ctypes alone "
+        f"(PERF.md section 5); {card}")
+    procs, runs = started["procs"], started["runs"]
+    devices = ("cuda", "cpu")
     for (name, dev), proc in procs.items():
-        try:
-            log, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.communicate()
-            fail(f"(b) the {name} dry run on {dev} ran past "
-                 f"{DRYRUN_TIMEOUT} s")
+        log = dryrun_log(proc, f"{name} on {dev}")
         for line in log.splitlines():
             if line.split(" ", 1)[0] in ("[ok]", "[skip]", "[error]"):
                 say("dryrun", f"(b) {name} on {dev}: {line}")
         check(proc.returncode == 0, f"(b) the {name} dry run on {dev} "
               f"exited {proc.returncode}:\n{log[-3000:]}")
-    for tag in ("dbrx-132b__train_4k__single", "hymba-1_5b__long_500k__single"):
-        rec = json.loads((DRYRUN_OUT / "full-cuda" / f"{tag}.json")
+    for name, tag in (("full", "dbrx-132b__train_4k__single"),
+                      ("long", "hymba-1_5b__long_500k__single")):
+        rec = json.loads((DRYRUN_OUT / f"{name}-cuda" / f"{tag}.json")
                          .read_text())
         check(rec["status"] == "ok" and rec["chips"] == 256,
               f"(b) {tag}: {rec}")
         say("dryrun", f"(b) {tag}: {json.dumps(rec)}")
     for cell in TP_DRYRUN_CELLS:
         tp_dryrun_check(*cell)
+    tp_opt_check(card)
     keys = ("flops_per_device", "bytes_per_device", "collective_counts",
             "collective_bytes_per_device", "memory", "optimizer")
     for name, (_, tags) in runs.items():
@@ -3224,7 +3401,8 @@ def dryrun_phase(card: str) -> None:
                 f"{a['collective_bytes_per_device']})")
             check(same, f"(b) {name} {tag}: the accounting depends on the "
                   f"device")
-    say("dryrun", f"done in {time.perf_counter() - t0:.1f} s")
+    say("dryrun", f"(b) done in {time.perf_counter() - started['t0']:.1f} "
+        f"s from the start of its dry runs (phase 9 ran meanwhile)")
 
 
 # ---------------------------------------------------------------------------
@@ -3951,6 +4129,50 @@ def model_serve(cfg, phase: str, card: str, trace: bool = True
     return launches, max(shapes)[1:]
 
 
+# Phases 12 and 13 (c): the first dry run of each trained configuration's
+# depth search, traced ahead in worker processes (``depth_prefetch``)
+DEPTH_AHEAD: dict = {}
+
+
+def first_depth(cfg) -> int:
+    """The depth ``train_depth`` traces first: the full depth where the
+    state of the full depth fits ``TRAIN_PEAK``, else half of it."""
+    full = cfg.num_layers
+    fits = 8 * cfg.param_count() <= TRAIN_PEAK
+    return full if fits else max(1, full // 2)
+
+
+def depth_prefetch(cfgs) -> ProcessPoolExecutor:
+    """Start the first dry run of ``train_depth`` for each of ``cfgs`` in
+    a pool of spawned processes at the lowest scheduling priority, to be
+    traced while the card works on other phases; ``depth_collect`` waits
+    for the records and ``train_depth`` takes them from ``DEPTH_AHEAD``.
+    Returns the pool (shut down at exit too)."""
+    pool = ProcessPoolExecutor(len(cfgs), mp_context=mp.get_context("spawn"),
+                               initializer=os.nice, initargs=(19,))
+
+    def stop() -> None:
+        for proc in list((pool._processes or {}).values()):
+            proc.kill()
+        pool.shutdown(wait=False, cancel_futures=True)
+    atexit.register(stop)
+    shape = ShapeSpec("train", "train", TRAIN_SEQ, TRAIN_BATCH)
+    for cfg in cfgs:
+        cut = dataclasses.replace(cfg, num_layers=first_depth(cfg))
+        DEPTH_AHEAD[cut.name, cut.num_layers] = pool.submit(
+            dryrun.run_cell, cut.name, "train", None, False, shape=shape,
+            device=DEV, cfg=cut)
+    return pool
+
+
+def depth_collect(pool: ProcessPoolExecutor) -> None:
+    """``depth_prefetch``'s records waited for, and its pool shut down: no
+    worker holds the card's memory past this point."""
+    for key, fut in list(DEPTH_AHEAD.items()):
+        DEPTH_AHEAD[key] = fut.result()
+    pool.shutdown(wait=True)
+
+
 def train_depth(cfg, phase: str, shape) -> tuple:
     """The largest depth whose dry-run peak (``launch.dryrun``'s
     ``run_cell`` on fake cuda tensors) stays under ``TRAIN_PEAK``.  A
@@ -3963,8 +4185,11 @@ def train_depth(cfg, phase: str, shape) -> tuple:
     @functools.cache
     def dry(L):
         cut = dataclasses.replace(cfg, num_layers=L)
-        rec = dryrun.run_cell(cut.name, "train", None, False, shape=shape,
-                              device=DEV, cfg=cut)
+        rec = DEPTH_AHEAD.pop((cut.name, L), None)
+        if rec is None or shape != ShapeSpec("train", "train", TRAIN_SEQ,
+                                             TRAIN_BATCH):
+            rec = dryrun.run_cell(cut.name, "train", None, False,
+                                  shape=shape, device=DEV, cfg=cut)
         check(rec.get("status") == "ok", f"(c) the dry run gave {rec}")
         say(phase, f"(c) dry run of {cut.name} at {L} of {cfg.num_layers} "
             f"layers, batch {shape.batch} x {shape.seq}: arguments "
@@ -3981,7 +4206,7 @@ def train_depth(cfg, phase: str, shape) -> tuple:
         return 8 * dataclasses.replace(cfg, num_layers=L).param_count()
 
     full = L = cfg.num_layers
-    if state_bytes(full) > TRAIN_PEAK or peak(full) > TRAIN_PEAK:
+    if first_depth(cfg) != full or peak(full) > TRAIN_PEAK:
         half = max(1, full // 2)
         per = (state_bytes(full) - state_bytes(half)) / (full - half)
         L = max(1, min(full - 1,
@@ -4488,13 +4713,20 @@ def main() -> None:
         serve_launches[name] += n
 
     # ---- 9. shard: dbrx-132B's expert-parallel MoE under a mesh -----------
+    # Phase 10 (b)'s host-only dry runs and the first dry run of phases 12
+    # and 13's depth searches run behind phase 9, which claims no time:
+    # behind phase 12 they doubled minicpm3-4b's host-bound decode steps
+    # (191.69 -> 379.57 ms, NVIDIA H100 80GB HBM3, 700.00 W)
+    dry = dryrun_start()
+    ahead = depth_prefetch([get_config(a) for a in (MLA_ARCH,) + ZOO_TRAINED])
     for name, n in shard_phase(card).items():
         launches_of = (train_launches if "bwd" in name else serve_launches)
         launches_of[name] = launches_of.get(name, 0) + n
     say("shard", f"total {time.perf_counter() - t_start:.1f} s")
 
     # ---- 10. dryrun: the dry run and its accounting against the card ------
-    dryrun_phase(card)
+    dryrun_finish(dry, card)
+    depth_collect(ahead)
     say("dryrun", f"total {time.perf_counter() - t_start:.1f} s")
 
     # ---- 11. moe-train: MoE training, remat "dots", llama4 served ---------

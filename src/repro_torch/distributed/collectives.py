@@ -1,5 +1,6 @@
-"""Distributed-optimization collectives: compressed gradient all-reduce, and
-the two sums of the expert-parallel MoE with their gradients.
+"""Distributed-optimization collectives: compressed gradient all-reduce, the
+sums of the tensor- and expert-parallel layers with their gradients, and
+the sequence-parallel gathers and scatters of Megatron-SP.
 
 ``compressed_psum_mean`` quantizes to int8 with per-tensor scale and
 stochastic rounding before the all-reduce, cutting bytes on the wire 4×
@@ -10,13 +11,29 @@ replay another generator's draws.
 
 A group is a ``torch.distributed`` process group or the name of an axis of
 the installed mesh (``distributed.context.use_mesh``).
+
+A tensor-parallel module enters its region with ``region_in`` and leaves
+it with ``region_out``.  Without Megatron-SP they are the sum of the
+input's gradient (``sum_grads``) and of the row-parallel product
+(``psum``) over "model"; under ``context.use_seq_shard(True)`` the residual
+stream holds this rank's S/n rows, so the input is all-gathered along the
+sequence (its gradient reduce-scattered) and the product summed over
+"model" and cut to the rank's rows (its gradient all-gathered).  A module
+that runs whole on every rank (its heads or columns do not divide "model")
+passes ``group=None``: no sum without SP; under SP its input is gathered
+with a backward that keeps the rank's rows of the (whole, equal)
+gradient, and its output split with a backward that gathers the rows'
+gradients, so that every rank computes the same whole gradients of its
+leaves.  The collectives are ``all_gather_into_tensor``, ``all_reduce``
+and ``reduce_scatter_tensor``, which NCCL and gloo (CPU and CUDA tensors,
+torch 2.11 and 2.13) all run.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
 
-from .context import current_mesh
+from .context import current_mesh, model_group, seq_sharded
 
 F32 = torch.float32
 
@@ -144,3 +161,118 @@ def psum(x: torch.Tensor, group) -> torch.Tensor:
 def sum_grads(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` itself, whose gradient is summed over ``group``."""
     return _SumGrads.apply(x, axis_group(group))
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """Elementwise maximum of ``x`` over ``group``, no gradient."""
+    out = x.detach().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=axis_group(group))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Megatron-SP: the sequence gathered into a region and scattered out of it
+# ---------------------------------------------------------------------------
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' ``x`` of ``group`` concatenated along ``dim`` in rank
+    order; no gradient."""
+    group = axis_group(group)
+    n = dist.get_world_size(group)
+    src = x.detach().movedim(dim, 0).contiguous()
+    out = src.new_empty((n * src.shape[0], *src.shape[1:]))
+    dist.all_gather_into_tensor(out, src, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's 1/n of ``x`` along ``dim`` (n ranks of ``group``, which
+    divide it), summed over the group; no gradient."""
+    group = axis_group(group)
+    n = dist.get_world_size(group)
+    src = x.detach().movedim(dim, 0).contiguous()
+    out = src.new_empty((src.shape[0] // n, *src.shape[1:]))
+    dist.reduce_scatter_tensor(out, src, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def _rows(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's 1/n of ``x`` along ``dim``, a copy."""
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    size = x.shape[dim] // n
+    return x.narrow(dim, r * size, size).contiguous()
+
+
+class _SeqGather(torch.autograd.Function):
+    """All-gather along ``dim``.  Backward: the gradient reduce-scattered
+    (``summed``: each rank's gradient of the gathered tensor is a part of
+    it) or the rank's rows of it (each rank's is the whole, the same)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, summed):
+        ctx.dim, ctx.group, ctx.summed = dim, group, summed
+        return all_gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.summed:
+            return reduce_scatter_dim(g, ctx.dim, ctx.group), None, None, None
+        return _rows(g, ctx.dim, ctx.group), None, None, None
+
+
+class _SeqScatter(torch.autograd.Function):
+    """This rank's rows along ``dim`` of ``x`` summed over ``group``
+    (``summed``) or of ``x`` itself (the same on every rank).  Backward:
+    the rows' gradients all-gathered.  The sum is ``psum``'s all-reduce,
+    cut to the rank's rows, so that a layer's output holds the same values,
+    rounding included, with Megatron-SP as without it: a bf16
+    reduce-scatter sums in another order, which moved tiny hymba's and
+    qwen2's bf16 gradients past the per-leaf gate the unsplit stream meets
+    (``tests/test_torch_tp_seq.py``).  It moves twice a reduce-scatter's
+    bytes (``PERF.md``)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, summed):
+        ctx.dim, ctx.group = dim, group
+        if not summed:
+            return _rows(x, dim, group)
+        total = x.detach().clone()
+        dist.all_reduce(total, group=group)
+        return _rows(total, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_dim(g, ctx.dim, ctx.group), None, None, None
+
+
+def region_in(x: torch.Tensor, group) -> torch.Tensor:
+    """The input (B, S, d) of a tensor-parallel region over ``group`` (the
+    "model" group; None: the module runs whole on every rank).  Without
+    SP: ``sum_grads`` over ``group`` (nothing for None).  Under
+    ``use_seq_shard``: ``x`` is this rank's rows, gathered along the
+    sequence over "model"; the gradient reduce-scattered (a group) or
+    the rank's rows taken (None)."""
+    if seq_sharded():
+        g = axis_group(group) if group is not None else model_group()
+        return _SeqGather.apply(x, 1, g, group is not None)
+    return x if group is None else sum_grads(x, group)
+
+
+def region_out(y: torch.Tensor, group) -> torch.Tensor:
+    """The output (B, S, d) of a region: without SP ``psum`` over
+    ``group``'s partial products (nothing for None); under
+    ``use_seq_shard`` this rank's rows of their sum (``psum``'s, cut) or,
+    for None, of ``y`` itself; the gradient all-gathered."""
+    if seq_sharded():
+        g = axis_group(group) if group is not None else model_group()
+        return _SeqScatter.apply(y, 1, g, group is not None)
+    return y if group is None else psum(y, group)
+
+
+def seq_partial(w: torch.Tensor) -> torch.Tensor:
+    """A replicated leaf that the layer applies to this rank's rows of a
+    sequence-sharded stream (a norm's scale): under ``use_seq_shard`` its
+    gradient is summed over "model" (each rank's covers its rows); else
+    ``w`` as it is."""
+    return sum_grads(w, model_group()) if seq_sharded() else w

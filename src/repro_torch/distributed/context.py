@@ -10,6 +10,11 @@ own batch shard with plain tensors, as the body of a ``shard_map`` does.
 So under a mesh ``constrain`` redistributes a ``DTensor`` to the spec's
 placements and returns a plain tensor as it is; the calls stand at the
 reference's layout points, where a whole-program accounting can find them.
+The per-rank code lays the residual stream out itself: under
+``use_seq_shard(True)`` (Megatron-SP, the reference's ``constrain_tokens(
+seq_shard=True)``) each rank of "model" holds its S/n rows of it between
+the tensor-parallel regions (``distributed.collectives.region_in`` /
+``region_out``).
 """
 from __future__ import annotations
 
@@ -24,6 +29,8 @@ from torch.distributed.tensor import DTensor
 
 _MESH: contextvars.ContextVar[DeviceMesh | None] = contextvars.ContextVar(
     "repro_torch_mesh", default=None)
+_SEQ: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "repro_torch_seq_shard", default=False)
 
 
 def current_mesh() -> DeviceMesh | None:
@@ -37,6 +44,22 @@ def use_mesh(mesh: DeviceMesh | None) -> Iterator[None]:
         yield
     finally:
         _MESH.reset(token)
+
+
+@contextlib.contextmanager
+def use_seq_shard(on: bool) -> Iterator[None]:
+    """Within the block, the residual stream is this rank's rows of the
+    sequence over "model" where ``on`` (the caller decides: a "model"
+    axis of n > 1 ranks that divides the sequence)."""
+    token = _SEQ.set(bool(on))
+    try:
+        yield
+    finally:
+        _SEQ.reset(token)
+
+
+def seq_sharded() -> bool:
+    return _SEQ.get()
 
 
 def axis_names(mesh: DeviceMesh) -> tuple[str, ...]:

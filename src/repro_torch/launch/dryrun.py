@@ -252,7 +252,8 @@ def run_cell(arch: str, shape_name: str, mesh, multi_pod: bool, *,
         cfg = get_tiny_config(arch) if tiny else get_config(arch)
     if opt:
         # the reference's §Perf configuration: sequence-parallel residual
-        # stream and larger loss slabs
+        # stream (Megatron-SP in ``Model.loss``: S/n rows a rank between
+        # the tensor-parallel regions) and larger loss slabs
         cfg = dataclasses.replace(cfg, seq_shard_activations=True,
                                   loss_chunk=8192)
     shape = shape or SHAPES[shape_name]

@@ -40,7 +40,17 @@ whole latent cache on its own heads; the latent's and the query latent's
 gradients are summed over "model", and ``wo``'s product too.  The latent
 cache stays whole on every rank, as the reference's is replicated over
 "model".  The SSM's tensor-parallel form is ``models.ssm``'s; its gated
-norm over a split d_inner is ``rmsnorm_split``.  The reference's
+norm over a split d_inner is ``rmsnorm_split``.  Each module enters and
+leaves its region through ``collectives.region_in`` / ``region_out``:
+without Megatron-SP these are the ``sum_grads`` and ``psum`` above; under
+it (``context.use_seq_shard``, the training path only) the module's input
+is this rank's rows of the sequence, gathered on the way in, and its
+output is summed back to those rows on the way out.  A module that runs
+whole passes no group: under SP it gathers the rows and keeps its own
+rows of the output, with gradients that keep every rank's leaves whole.
+MLA computes its down projections and latents whole on every rank (their
+gradients summed by ``_shared``), so its input enters as a whole
+module's.  The reference's
 ``constrain`` calls on the decode queries stand where its do, and leave a
 plain tensor as it is.
 """
@@ -55,7 +65,8 @@ from torch import nn
 from torch.distributed.tensor import DTensor
 from torch.nn import functional as F
 
-from ..distributed.collectives import psum, sum_grads
+from ..distributed.collectives import (psum, region_in, region_out,
+                                       sum_grads)
 from ..distributed.context import (constrain, current_mesh, model_axis_size,
                                    model_group, model_rank)
 from ..kernels import flash_attention
@@ -318,18 +329,19 @@ class Attention(nn.Module):
 
     def _out(self, o: torch.Tensor, sh: HeadShard | None) -> torch.Tensor:
         """The output projection of ``o`` (B, S, heads, hd); under ``sh`` a
-        row-parallel product summed over "model"."""
+        row-parallel product summed over "model" (``region_out``)."""
         out = _linear(o.flatten(-2), self.wo.flatten(0, 1))
-        return out if sh is None else psum(out, sh.group)
+        return region_out(out, None if sh is None else sh.group)
 
     def forward(self, x: torch.Tensor, *, window: int = 0):
         """Full-sequence (prefill) attention; returns (out, {"k", "v"}),
-        K/V of this rank's KV heads under a tensor-parallel mesh."""
+        K/V of this rank's KV heads under a tensor-parallel mesh.  Under
+        Megatron-SP ``x`` and the output are this rank's rows of the
+        sequence (``region_in``, ``region_out``)."""
+        sh = self.head_shard()
+        x = region_in(x, None if sh is None else sh.group)
         S = x.shape[1]
         positions = torch.arange(S, device=x.device)[None, :]
-        sh = self.head_shard()
-        if sh is not None:
-            x = sum_grads(x, sh.group)
         q, k, v = self.qkv(x, positions, sh)
         o = flash_attention(q, *self._per_query(sh, k, v), causal=True,
                             window=window)
@@ -410,16 +422,20 @@ class MLA(nn.Module):
 
     def _out(self, o: torch.Tensor, sh: HeadShard | None) -> torch.Tensor:
         """``wo`` on ``o`` (B, S, heads, vdim); under ``sh`` row-parallel,
-        summed over "model"."""
+        summed over "model" (``region_out``)."""
         out = _linear(o.flatten(-2), self.wo.flatten(0, 1))
-        return out if sh is None else psum(out, sh.group)
+        return region_out(out, None if sh is None else sh.group)
 
     def forward(self, x: torch.Tensor, *, window: int = 0):
         """Prefill MLA: expand the latent to per-head K/V and attend through
         K2.  K per head = [W_kb·c ; k_rope (shared)]; V per head = W_vb·c.
         Under a tensor-parallel mesh the rank's heads only.  Returns (out,
-        {"ckv", "krope"}), the latent whole."""
+        {"ckv", "krope"}), the latent whole.  Every rank computes the down
+        projections and latents whole (their gradients summed by
+        ``_shared``), so under Megatron-SP ``x`` enters as a whole
+        module's input (``region_in(x, None)``)."""
         cfg = self.cfg
+        x = region_in(x, None)
         B, S, _ = x.shape
         nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
         positions = torch.arange(S, device=x.device)[None, :]
@@ -490,10 +506,9 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """SwiGLU; where ``wi`` holds this rank's columns only, ``wi``/``wg``
-        column-parallel and ``wo`` row-parallel, summed over "model"."""
+        column-parallel and ``wo`` row-parallel, summed over "model"
+        (``region_in``, ``region_out``)."""
         group = None if self.wi.shape[1] == self.d_ff else model_group()
-        if group is not None:
-            x = sum_grads(x, group)
+        x = region_in(x, group)
         h = F.silu(x @ self.wg) * (x @ self.wi)
-        out = h @ self.wo
-        return out if group is None else psum(out, group)
+        return region_out(h @ self.wo, group)

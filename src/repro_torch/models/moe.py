@@ -215,27 +215,35 @@ def moe_block(moe: MoE, x: torch.Tensor, cfg: ArchConfig, mesh=None,
     beyond ``n_model * num_local``, as the reference does.
     ``batch_axes`` names the axes the batch is sharded over, as in the
     reference, whose capacity reads the global batch over their size;
-    here ``x`` already is that shard, so the capacity reads its rows."""
-    from ..distributed.collectives import psum, sum_grads
+    here ``x`` already is that shard, so the capacity reads its rows.
+    Under Megatron-SP (``context.use_seq_shard``) ``x`` and the output are
+    this rank's rows of the sequence, gathered before the router and cut
+    to the rank's rows after the sum (``collectives.region_in``,
+    ``region_out``)."""
+    from ..distributed.collectives import region_in, region_out, sum_grads
     from ..distributed.context import axis_names, axis_size
 
     if mesh is None or model_axis not in axis_names(mesh):
         return moe(x)
-    B, S, d = x.shape
+    group = mesh.get_group(model_axis)
+    # under Megatron-SP x is this rank's rows of the sequence: gathered
+    # first, so that the capacity reads every token, as without SP
+    xg = region_in(x, group)
+    B, S, d = xg.shape
     E = cfg.num_experts
     n_model = axis_size(mesh, model_axis)
     num_local = max(E // n_model, 1)
     # the reference's t_local = ceil(B_global / n_data) * S: this shard's
     cap = capacity_for(max(B * S, 1), cfg)
     e_off = mesh.get_local_rank(model_axis) * num_local
-    group = mesh.get_group(model_axis)
     p = moe.weights(e_off, num_local)
     # x and the router are the same on every rank of the model axis, and
     # each rank's experts use them differently: their gradients sum over it
+    # (x's in ``region_in``)
     p["router"] = sum_grads(p["router"], group)
-    out, _ = moe_local(p, sum_grads(x, group).reshape(B * S, d), cfg,
-                       e_off=e_off, num_local=num_local, capacity=cap)
-    out = psum(out, group).view(B, S, d)
+    out, _ = moe_local(p, xg.reshape(B * S, d), cfg, e_off=e_off,
+                       num_local=num_local, capacity=cap)
+    out = region_out(out.view(B, S, d), group)
     if cfg.shared_expert_ff:
         out = out + moe.shared(x)
     return out

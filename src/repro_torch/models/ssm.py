@@ -14,7 +14,8 @@ compute it: rank r computes heads [r·nh/n, (r+1)·nh/n) and the B/C groups
 they read (``layers.split_heads``; every configuration has one group, so
 all of B and C).  ``w_out`` keeps its "model" rows, which are those heads'
 channels (``model_dims``), and its product is summed over "model"
-(``psum``, in the activations' dtype).  Every other leaf is gathered whole
+(``collectives.region_out``: ``psum`` in the activations' dtype; under
+Megatron-SP the rank's rows of it).  Every other leaf is gathered whole
 and narrowed to the rank's share, its gradient summed over "model"
 (``sum_grads``): ``w_in``'s columns of z, x and dt of those heads and of
 their B and C (the reference's contiguous "model" shard of the
@@ -40,7 +41,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor
 from torch.nn import functional as F
 
-from ..distributed.collectives import psum, sum_grads
+from ..distributed.collectives import region_in, region_out, sum_grads
 from ..distributed.context import (current_mesh, model_axis_size,
                                    model_group, model_rank)
 from ..kernels import ssd_chunk
@@ -169,18 +170,18 @@ class SSM(nn.Module):
         return rmsnorm_split(p.norm, y, eps, self.cfg.d_inner, sh.group)
 
     def _out(self, y: torch.Tensor, sh: HeadShard | None) -> torch.Tensor:
-        out = y @ self.w_out
-        return out if sh is None else psum(out, sh.group)
+        return region_out(y @ self.w_out, None if sh is None else sh.group)
 
     def forward(self, x: torch.Tensor):
         """Prefill forward.  x: (B, S, d_model).  Returns (out, {"state",
         "conv"}): the final recurrent state (B, nh, hp, ds) in f32 and the
         pre-activation conv tail (B, K-1, conv_dim); under a
-        tensor-parallel mesh, the rank's heads and channels."""
+        tensor-parallel mesh, the rank's heads and channels.  Under
+        Megatron-SP ``x`` and the output are this rank's rows of the
+        sequence (``region_in``, ``region_out``)."""
         cfg = self.cfg
         sh = self.head_shard()
-        if sh is not None:
-            x = sum_grads(x, sh.group)
+        x = region_in(x, None if sh is None else sh.group)
         p = self._leaves(sh)
         z, xBC_raw, dt = self._split_proj(x, p)
         w = p.conv_w.float()                            # (K, conv_dim)

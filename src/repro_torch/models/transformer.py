@@ -42,12 +42,18 @@ from typing import Any
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.profiler import record_function
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from ..distributed.context import (batch_axes, constrain_batch,
-                                   constrain_tokens, current_mesh, use_mesh)
+from ..distributed.collectives import (all_gather_dim, all_reduce_max, psum,
+                                       region_in, region_out, seq_partial,
+                                       sum_grads)
+from ..distributed.context import (axis_names, batch_axes, constrain_batch,
+                                   constrain_tokens, current_mesh,
+                                   model_axis_size, model_group, model_rank,
+                                   use_mesh, use_seq_shard)
 from ..distributed.sharding import gathered
 from .config import ArchConfig
 from .layers import (MLA, MLP, Attention, Init, RMSNorm, _dtype, _linear,
@@ -84,22 +90,27 @@ class Block(nn.Module):
             self.ln2 = RMSNorm(cfg.d_model, dt, init)
             self.mlp = MLP(cfg, init)
 
+    def _ln(self, ln: RMSNorm, x: torch.Tensor) -> torch.Tensor:
+        """One of the layer's norms on the residual stream: under
+        Megatron-SP on this rank's rows, so its scale's gradient is summed
+        over "model" (``seq_partial``)."""
+        return rmsnorm(seq_partial(ln.scale), x, self.cfg.norm_eps)
+
     def _mix(self, attn, ssm) -> torch.Tensor:
         """The token mixer's residual update from the attention and/or SSM
         branch outputs (hybrid: both, normalised and averaged)."""
-        eps = self.cfg.norm_eps
         if self.cfg.family == "hybrid":
-            return 0.5 * (self.ln_attn_out(attn, eps)
-                          + self.ln_ssm_out(ssm, eps))
+            return 0.5 * (self._ln(self.ln_attn_out, attn)
+                          + self._ln(self.ln_ssm_out, ssm))
         return ssm if self.cfg.uses_ssm else attn
 
     def _ffn(self, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.uses_moe:
-            x = x + moe_block(self.moe, self.ln2(x, self.cfg.norm_eps),
-                              self.cfg, mesh=current_mesh(),
+            x = x + moe_block(self.moe, self._ln(self.ln2, x), self.cfg,
+                              mesh=current_mesh(),
                               batch_axes=batch_axes() or ("data",))
         elif self.cfg.d_ff:
-            x = x + self.mlp(self.ln2(x, self.cfg.norm_eps))
+            x = x + self.mlp(self._ln(self.ln2, x))
         return x
 
     def out_weight(self) -> torch.Tensor | None:
@@ -125,18 +136,19 @@ class Block(nn.Module):
         attention, MLA, SSM and MLP leaves keep their "model" shards (each
         module's ``model_dims``), everything else at its full value; with
         no such axis, everything at its full value."""
-        mesh = current_mesh()
-        tp = mesh is not None and "model" in (mesh.mesh_dim_names or ())
-        return gathered(self, keep=("model",) if tp else ())
+        return gathered(self, keep=_model_keep())
 
     def forward(self, x: torch.Tensor, *, window: int = 0,
                 seq_shard: bool = False):
         """Full-sequence forward; returns (x, this layer's cache entry).
-        ``seq_shard`` asks for the reference's training-path layout of the
-        residual stream (``constrain_tokens``); prefill's is the batch's."""
+        ``seq_shard``: Megatron-SP, the reference's training-path layout of
+        the residual stream (``constrain_tokens``): ``x`` and the output
+        are this rank's S/n rows, gathered into each tensor-parallel region
+        and scattered out of it (the caller decides: a "model" axis of n >
+        1 ranks that divides the sequence); prefill's is the batch's."""
         cfg = self.cfg
-        with self._gathered():
-            h = self.ln1(x, cfg.norm_eps)
+        with self._gathered(), use_seq_shard(seq_shard):
+            h = self._ln(self.ln1, x)
             entry: dict = {}
             a = s = None
             if not cfg.is_attention_free:
@@ -153,7 +165,7 @@ class Block(nn.Module):
         """One token; updates this layer's cache views in place."""
         cfg = self.cfg
         with self._gathered():
-            h = self.ln1(x, cfg.norm_eps)
+            h = self._ln(self.ln1, x)
             a = s = None
             if not cfg.is_attention_free:
                 a = self.attn.decode(h, cache, pos, window=window)
@@ -162,17 +174,24 @@ class Block(nn.Module):
             return self._ffn(x + self._mix(a, s))
 
 
+def _model_keep() -> tuple[str, ...]:
+    """``gathered``'s ``keep`` under the installed mesh: the "model" shards
+    where it has that axis."""
+    mesh = current_mesh()
+    return ("model",) if mesh is not None and "model" in axis_names(mesh) \
+        else ()
+
+
 def _block_out(blk: Block, x: torch.Tensor, window: int,
-               mesh=None) -> torch.Tensor:
+               mesh=None, seq_shard: bool = False) -> torch.Tensor:
     """``blk``'s output under ``mesh``: remat's recompute runs in the
     backward, on the autograd engine's own thread for CUDA tensors, where
     ``use_mesh``'s context variable is not set, so the mesh of the
-    forward is passed along.  A ``record_function`` range,
-    ``transformer.layer``, lets a trace tell the layers' forward and
-    recompute from the backward."""
+    forward (and its Megatron-SP decision) is passed along.  A
+    ``record_function`` range, ``transformer.layer``, lets a trace tell the
+    layers' forward and recompute from the backward."""
     with use_mesh(mesh), record_function("transformer.layer"):
-        return blk(x, window=window,
-                   seq_shard=blk.cfg.seq_shard_activations)[0]
+        return blk(x, window=window, seq_shard=seq_shard)[0]
 
 
 def _dots_policy(blk: Block):
@@ -191,33 +210,62 @@ def _dots_contexts(blk: Block):
     return create_selective_checkpoint_contexts(_dots_policy(blk))
 
 
-def _chunk_xent(hx: torch.Tensor, lx: torch.Tensor, w32: torch.Tensor):
+def _chunk_xent(hx: torch.Tensor, lx: torch.Tensor, w32: torch.Tensor,
+                v0: int = 0, group=None):
     """(sum of -log p(label), number of labels >= 0) over one chunk of
-    tokens; logits in f32, as the reference's f32-accumulated head."""
-    logits = hx.to(F32) @ w32
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(1, lx.clamp(min=0)[:, None])[:, 0]
+    tokens; logits in f32, as the reference's f32-accumulated head.  With a
+    ``group``, ``w32`` holds the vocab columns [v0, v0 + its width) of a
+    head split over it: the log-sum-exp is taken against the group's
+    maximum of each row (no gradient) and the exponentials' sums summed
+    over the group, and the label logit is the reference's masked sum over
+    the rank's vocab ids (the one column a label in [v0, v1) selects,
+    else 0), summed over the group.  The chunk's f32 hidden states enter
+    through ``sum_grads``: each rank's gradient of them covers its columns,
+    and is summed in f32 before it is rounded to the activations' dtype,
+    as the unsplit head's is."""
+    h32 = hx.to(F32)
+    if group is not None:
+        h32 = sum_grads(h32, group)
+    logits = h32 @ w32
+    if group is None:
+        lse = torch.logsumexp(logits, dim=-1)
+    else:
+        m = all_reduce_max(logits.detach().amax(dim=-1), group)
+        lse = m + torch.log(psum(torch.exp(logits - m[:, None]).sum(-1),
+                                 group))
+    local = lx - v0
+    mine = (local >= 0) & (local < logits.shape[1])
+    ll = torch.where(mine, logits.gather(
+        1, local.clamp(0, logits.shape[1] - 1)[:, None])[:, 0], 0.0)
+    if group is not None:
+        ll = psum(ll, group)
     valid = (lx >= 0).to(F32)
     return ((lse - ll) * valid).sum(), valid.sum()
 
 
 def chunked_xent(h: torch.Tensor, labels: torch.Tensor, w_head: torch.Tensor,
-                 chunk: int) -> torch.Tensor:
+                 chunk: int, vocab: tuple | None = None) -> torch.Tensor:
     """Mean softmax cross-entropy of hidden states ``h`` (T, d) through the
     head ``w_head`` (d, V) against ``labels`` (T,), labels < 0 ignored:
     ``chunk`` tokens at a time, each chunk's (chunk, V) f32 logits
     recomputed in the backward when autograd records, so no (T, V) logits
-    are ever held.  The head is widened to f32 once, not per chunk."""
+    are ever held.  The head is widened to f32 once, not per chunk.
+    ``vocab`` = (v0, group): ``w_head`` is this rank's columns [v0, v0 +
+    its width) of a vocab split over ``group`` (``Model``'s vocab-parallel
+    head): each rank computes its columns' logits, and the loss and ``h``'s
+    gradient (each rank's covers its columns) are summed over the group
+    (``_chunk_xent``)."""
+    v0, group = vocab if vocab is not None else (0, None)
     w32 = w_head.to(F32)
     loss_sum = torch.zeros((), dtype=F32, device=h.device)
     count = torch.zeros((), dtype=F32, device=h.device)
     for i in range(0, h.shape[0], chunk):
         hx, lx = h[i:i + chunk], labels[i:i + chunk]
         if torch.is_grad_enabled():
-            part, n = checkpoint(_chunk_xent, hx, lx, w32,
+            part, n = checkpoint(_chunk_xent, hx, lx, w32, v0, group,
                                  use_reentrant=False)
         else:
-            part, n = _chunk_xent(hx, lx, w32)
+            part, n = _chunk_xent(hx, lx, w32, v0, group)
         loss_sum = loss_sum + part
         count = count + n
     return loss_sum / torch.clamp(count, min=1.0)
@@ -243,10 +291,12 @@ def _layer_windows(cfg: ArchConfig) -> list[int]:
 def _gathering(method):
     """Run ``method`` with the model's ``DTensor`` parameters outside its
     layers (embedding, head, final norm, adapter) at their full values
-    (``distributed.sharding.gathered``); each layer gathers its own."""
+    (``distributed.sharding.gathered``), but for the embedding's and the
+    head's vocab shard over "model" (``Model.model_dims``); each layer
+    gathers its own."""
     @functools.wraps(method)
     def wrapper(self, *args, **kwargs):
-        with gathered(self, skip="layers."):
+        with gathered(self, skip="layers.", keep=_model_keep()):
             return method(self, *args, **kwargs)
     return wrapper
 
@@ -266,7 +316,30 @@ class Model(nn.Module):
     "model" shards a layer computes on (``Block._gathered``: attention's,
     MLA's and the SSM's heads and the MLP's columns, tensor-parallel; the
     MoE's experts).
+
+    The vocabulary is split over "model" the same way where it divides
+    the axis (the rules' ``embed`` ("model", fsdp) and ``lm_head`` (fsdp,
+    "model"); ``_vocab`` decides): a rank holds the embedding rows and
+    head columns [v0, v1) through every call.  The embedding looks up the
+    ids in [v0, v1) and sums the lookups over "model" (a single non-zero
+    term per token: exact); the serving head computes the rank's V/n f32
+    columns and gathers them along V, so callers get whole logits; the
+    loss sums its parts over "model" (``chunked_xent``).  Where the vocab
+    does not divide "model" the leaves are gathered whole, as before.
+
+    ``loss`` and ``hidden_states`` run Megatron-SP where
+    ``cfg.seq_shard_activations`` is set, the mesh's "model" axis has n >
+    1 ranks and n divides the sequence (decided once a forward): the
+    residual stream between the tensor-parallel regions, and so what remat
+    "full" keeps of each layer, is this rank's S/n rows of it; the
+    embedding's lookups are summed (or taken whole) and cut to the rank's
+    rows, the final hidden states gathered.  Prefill and decode keep the
+    batch's layout.
     """
+
+    # the dim of the vocab each leaf keeps sharded over "model" under a
+    # mesh (``distributed.sharding.gathered``)
+    model_dims = {"embed": 0, "lm_head": 1}
 
     def __init__(self, cfg: ArchConfig, *, device="cuda",
                  generator: torch.Generator | None = None):
@@ -300,25 +373,62 @@ class Model(nn.Module):
 
     # ---- forward ----------------------------------------------------------
 
+    def _vocab(self) -> tuple[int, Any] | None:
+        """(v0, the "model" group) where the embedding holds this rank's
+        vocab rows [v0, v0 + its rows) as a call sees it (a "model" axis
+        of n > 1 ranks that divides the vocab); None where it holds them
+        all.  The head's columns follow: the rules split them alike."""
+        mesh = current_mesh()
+        rows = (self.embed.to_local() if isinstance(self.embed, DTensor)
+                else self.embed).shape[0]
+        if model_axis_size(mesh) == 1 or rows == self.cfg.vocab_size:
+            return None
+        return model_rank(mesh) * rows, model_group(mesh)
+
     def embed_inputs(self, batch: dict) -> torch.Tensor:
         """Token ids (B, S) or, for a stub frontend, embeddings (B, S, d):
-        torch tensors or anything ``np.asarray`` takes."""
+        torch tensors or anything ``np.asarray`` takes.  Under Megatron-SP
+        (``use_seq_shard``) this rank's rows of the sequence."""
         key = "embeds" if self.cfg.frontend != "none" else "tokens"
         x = batch[key]
         if not isinstance(x, torch.Tensor):
             x = torch.as_tensor(np.asarray(x))
+        vocab = self._vocab() if key == "tokens" else None
         if key == "embeds":
             x = _linear(x.to(self.device, _dtype(self.cfg)), self.adapter)
-        else:
+        elif vocab is None:
             x = self.embed[x.to(self.device, torch.long)]
-        return constrain_batch(x)
+        else:
+            rows = self.embed.shape[0]
+            local = x.to(self.device, torch.long) - vocab[0]
+            mine = (local >= 0) & (local < rows)
+            x = torch.where(mine[..., None],
+                            self.embed[local.clamp(0, rows - 1)], 0.0)
+        return constrain_batch(region_out(
+            x, None if vocab is None else vocab[1]))
 
     def unembed(self) -> torch.Tensor:
+        """The head (d, V), or this rank's (d, V/n) columns of it where the
+        vocab is split over "model" (``_vocab``)."""
         return self.embed.T if self.cfg.tie_embeddings else self.lm_head
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
+        """Serving's f32 logits (..., V): where the vocab is split, this
+        rank's columns gathered along V over "model" (no gradient)."""
         h = rmsnorm(self.final_norm.scale, x, self.cfg.norm_eps)
-        return h.float() @ self.unembed().float()
+        logits = h.float() @ self.unembed().float()
+        vocab = self._vocab()
+        return logits if vocab is None else all_gather_dim(logits, -1,
+                                                           vocab[1])
+
+    def _seq_shard(self, batch: dict) -> bool:
+        """Whether a training forward of ``batch`` runs Megatron-SP: the
+        config asks for it and the installed mesh's "model" axis has n > 1
+        ranks that divide the sequence."""
+        key = "embeds" if self.cfg.frontend != "none" else "tokens"
+        n = model_axis_size()
+        return (self.cfg.seq_shard_activations and n > 1
+                and np.shape(batch[key])[1] % n == 0)
 
     @_gathering
     def hidden_states(self, batch: dict) -> torch.Tensor:
@@ -328,23 +438,32 @@ class Model(nn.Module):
         if remat not in REMATS:
             raise ValueError(f"{self.cfg.name}: remat={remat!r}, not one of "
                              f"{REMATS}")
-        x = self.embed_inputs(batch)
-        for blk, w in zip(self.layers, self.windows):
-            if remat != "none" and torch.is_grad_enabled():
-                kw = ({"context_fn": functools.partial(_dots_contexts, blk)}
-                      if remat == "dots" else {})
-                x = checkpoint(_block_out, blk, x, w, current_mesh(),
-                               use_reentrant=False, **kw)
-            else:
-                x = _block_out(blk, x, w, current_mesh())
-        return rmsnorm(self.final_norm.scale, x, self.cfg.norm_eps)
+        sp = self._seq_shard(batch)
+        with use_seq_shard(sp):
+            x = self.embed_inputs(batch)
+            for blk, w in zip(self.layers, self.windows):
+                if remat != "none" and torch.is_grad_enabled():
+                    kw = ({"context_fn": functools.partial(_dots_contexts,
+                                                           blk)}
+                          if remat == "dots" else {})
+                    x = checkpoint(_block_out, blk, x, w, current_mesh(), sp,
+                                   use_reentrant=False, **kw)
+                else:
+                    x = _block_out(blk, x, w, current_mesh(), sp)
+            h = rmsnorm(seq_partial(self.final_norm.scale), x,
+                        self.cfg.norm_eps)
+            # under SP, the rows gathered: the whole hidden states on
+            # every rank, as without it
+            return region_in(h, None)
 
     @_gathering
     def loss(self, batch: dict) -> torch.Tensor:
         """Chunked softmax cross-entropy over ``batch["labels"]`` (B, S),
         labels < 0 ignored: ``cfg.loss_chunk`` tokens at a time, each
         chunk's (chunk, V) f32 logits recomputed in the backward, so no
-        (T, V) logits are ever held.  Mean over the kept labels, f32."""
+        (T, V) logits are ever held (V/n columns a rank where the vocab is
+        split over "model", ``chunked_xent`` summing the parts).  Mean
+        over the kept labels, f32."""
         h = self.hidden_states(batch)
         B, S, d = h.shape
         labels = batch["labels"]
@@ -352,7 +471,8 @@ class Model(nn.Module):
             labels = torch.as_tensor(np.asarray(labels))
         return chunked_xent(h.reshape(B * S, d),
                             labels.to(h.device, torch.long).reshape(B * S),
-                            self.unembed(), min(self.cfg.loss_chunk, B * S))
+                            self.unembed(), min(self.cfg.loss_chunk, B * S),
+                            self._vocab())
 
     @torch.no_grad()
     @_gathering

@@ -12,7 +12,7 @@ parameters come from the reference's inits at ``PRNGKey(0)`` and are
 written beside the results, as float32 (bf16 values widen exactly).
 
 TASK is one of ``moe``, ``model``, ``shards``, ``psum``, ``tp``,
-``tp_mixers``.
+``tp_mixers``, ``tp_vocab``, ``tp_seq``.
 """
 import os
 import sys
@@ -29,9 +29,11 @@ from jax.sharding import Mesh, PartitionSpec as P  # noqa: E402
 from repro.configs import get_tiny_config  # noqa: E402
 from repro.models import Model, moe as ref_moe  # noqa: E402
 
-from _mesh_cases import (DECODE_STEPS, MODEL_SHAPE, MOE_ARCHS,  # noqa: E402
-                         MOE_CAPACITY, MOE_DTYPES, MOE_MESHES, MOE_SHAPE,
-                         PSUM_SHAPE, TP_ARCHS, TP_MESHES, TP_MIXER_ARCHS)
+from _mesh_cases import (DECODE_STEPS, LABEL_IDS, LABEL_SEED,  # noqa: E402
+                         MODEL_SHAPE, MOE_ARCHS, MOE_CAPACITY, MOE_DTYPES,
+                         MOE_MESHES, MOE_SHAPE, PSUM_SHAPE, SEQ_CASES,
+                         TP_ARCHS, TP_MESHES, TP_MIXER_ARCHS, VOCAB_CASES,
+                         case_config)
 
 
 def mesh_of(shape, axes=("data", "model")) -> Mesh:
@@ -152,29 +154,42 @@ def model_inputs(cfg) -> tuple[np.ndarray, np.ndarray]:
             rng.integers(0, cfg.vocab_size, (DECODE_STEPS, B, 1)))
 
 
-def task_tp(out: dict, archs=TP_ARCHS) -> None:
-    """Each of ``archs`` at its tiny config, its parameters placed by the
+def task_tp(out: dict, cases=TP_ARCHS, serve: bool = True,
+            loss: bool = False) -> None:
+    """Each of ``cases`` (a tiny configuration, or one with its fields
+    changed: ``_mesh_cases.case_config``), its parameters placed by the
     reference's ``param_shardings`` on each of ``TP_MESHES`` (so XLA
-    computes attention, the MLP, the SSM and MLA tensor-parallel over
-    "model"): prefill logits, decode logits and the final cache (each
-    entry but ``pos``)."""
+    computes attention, the MLP, the SSM, MLA and the vocab-parallel head
+    tensor-parallel over "model"): where ``serve``, prefill logits, decode
+    logits and the final cache (each entry but ``pos``); where ``loss``,
+    the loss of the prompt against labels drawn from ``LABEL_SEED`` (the
+    port's tests draw the same), the mean over the whole batch."""
     from repro.distributed.context import use_mesh
     from repro.distributed.sharding import param_shardings
     from repro.launch.specs import param_specs
-    for arch in archs:
-        cfg = get_tiny_config(arch)
+    for case in cases:
+        arch, fields = case_config(case)
+        cfg = dataclasses.replace(get_tiny_config(arch), **fields)
         model = Model(cfg)
         params = model.init(jax.random.PRNGKey(0))
-        out.update({f"params/{arch}/{k}": v for k, v in flat(params).items()})
+        out.update({f"params/{case}/{k}": v for k, v in flat(params).items()})
         prompt, steps = model_inputs(cfg)
-        out[f"{arch}/prompt"], out[f"{arch}/steps"] = prompt, steps
+        labels = np.random.default_rng(LABEL_SEED).integers(
+            0, LABEL_IDS, prompt.shape[:2])
+        out[f"{case}/prompt"], out[f"{case}/steps"] = prompt, steps
         key = "embeds" if cfg.frontend != "none" else "tokens"
         for shape in TP_MESHES:
             mesh = mesh_of(shape)
-            tag = f"{arch}/{shape[0]}x{shape[1]}"
+            tag = f"{case}/{shape[0]}x{shape[1]}"
             placed = jax.device_put(params, param_shardings(
                 param_specs(cfg), mesh))
             with use_mesh(mesh):
+                if loss:
+                    out[f"{tag}/loss"] = np.asarray(jax.jit(model.loss)(
+                        placed, {key: jnp.asarray(prompt),
+                                 "labels": jnp.asarray(labels)}))
+                if not serve:
+                    continue
                 logits, cache = jax.jit(model.prefill)(
                     placed, {key: jnp.asarray(prompt)})
                 out[f"{tag}/prefill"] = np.asarray(logits)
@@ -247,7 +262,9 @@ if __name__ == "__main__":
     task, path = sys.argv[1], sys.argv[2]
     result: dict = {}
     {"moe": task_moe, "model": task_model, "shards": task_shards,
-     "psum": task_psum, "tp": task_tp, "tp_mixers": task_tp_mixers}[task](
-         result)
+     "psum": task_psum, "tp": task_tp, "tp_mixers": task_tp_mixers,
+     "tp_vocab": lambda out: task_tp(out, VOCAB_CASES, loss=True),
+     "tp_seq": lambda out: task_tp(out, SEQ_CASES, serve=False, loss=True)
+     }[task](result)
     np.savez(path, **result)
     print("OK", len(result))

@@ -22,8 +22,9 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from _mesh_cases import (DECODE_STEPS, MOE_ARCHS, MOE_CAPACITY, MOE_DTYPES,
-                         TP_ARCHS, TP_DTYPES, TP_MIXER_ARCHS)
+from _mesh_cases import (DECODE_STEPS, LABEL_IDS, LABEL_SEED, MOE_ARCHS,
+                         MOE_CAPACITY, MOE_DTYPES, TP_ARCHS, TP_DTYPES,
+                         TP_MIXER_ARCHS, case_config)
 
 
 def _entry(fn, rank: int, world: int, store: str, args: tuple) -> None:
@@ -290,13 +291,17 @@ class LeafShapes:
         layers.Attention.qkv, layers.MLP.forward = self.saved
 
 
-def tp_model(ref: dict, arch: str, dtype: str = "float32", mesh=None):
-    """Tiny ``arch`` in ``dtype`` holding the reference's parameters
-    (``_jax_mesh_ref.py tp``), placed on ``mesh`` where one is given."""
+def tp_model(ref: dict, arch: str, dtype: str = "float32", mesh=None,
+             **fields):
+    """Tiny ``arch`` (or a case of ``_mesh_cases.case_config``) in ``dtype``
+    with ``fields`` changed, holding the reference's parameters
+    (``_jax_mesh_ref.py``), placed on ``mesh`` where one is given."""
     from repro_torch.configs import get_tiny_config
     from repro_torch.distributed.sharding import shard_params
     from repro_torch.models.convert import params_from_reference
-    cfg = dataclasses.replace(get_tiny_config(arch), dtype=dtype)
+    base, changed = case_config(arch)
+    cfg = dataclasses.replace(get_tiny_config(base), dtype=dtype,
+                              **{**changed, **fields})
     model = params_from_reference(cfg, nested(ref, f"params/{arch}/"),
                                   device="cpu")
     return model if mesh is None else shard_params(model, mesh)
@@ -306,8 +311,8 @@ def tp_batch(ref: dict, arch: str, rows: slice) -> dict:
     """A training batch: the reference's prompt (ids or embeddings) and
     labels drawn from a seed, rows ``rows``."""
     model_in = ref[f"{arch}/prompt"]
-    labels = np.random.default_rng(7).integers(
-        0, 97, model_in.shape[:2])
+    labels = np.random.default_rng(LABEL_SEED).integers(
+        0, LABEL_IDS, model_in.shape[:2])
     key = "embeds" if model_in.ndim == 3 else "tokens"
     return {key: torch.from_numpy(model_in[rows]),
             "labels": torch.from_numpy(labels[rows])}
@@ -529,11 +534,13 @@ MIXER_EDGES = {
 }
 
 
-def mixer_edge(arch: str, fields: dict, shape: tuple) -> dict:
+def mixer_edge(arch: str, fields: dict, shape: tuple, recorder=None,
+               seq: int = 8) -> dict:
     """Tiny ``arch`` with ``fields`` changed and seeded weights, on
     ``shape``'s mesh and unsharded: prefill, decode steps, the cache and a
     float32 training step of this rank's batch shard (the unsharded run
-    over every shard, as ``tp_train``), and the shares the layers saw."""
+    over every shard, as ``tp_train``) of ``seq`` tokens a row, and the
+    shares the layers saw (``recorder``'s rows; ``every_share``)."""
     from repro_torch.configs import get_tiny_config
     from repro_torch.distributed.context import use_mesh
     from repro_torch.distributed.sharding import local_slice, shard_params
@@ -541,7 +548,7 @@ def mixer_edge(arch: str, fields: dict, shape: tuple) -> dict:
     cfg = dataclasses.replace(get_tiny_config(arch), **fields)
     mesh = _mesh(shape)
     rng = np.random.default_rng(9)
-    tokens = torch.from_numpy(rng.integers(0, 97, (4, 9)))
+    tokens = torch.from_numpy(rng.integers(0, 97, (4, seq + 1)))
     steps = torch.from_numpy(rng.integers(0, 97, (DECODE_STEPS, 4, 1)))
     n = shape[0]
     i = mesh.get_local_rank("data")
@@ -554,7 +561,8 @@ def mixer_edge(arch: str, fields: dict, shape: tuple) -> dict:
         if on:
             shard_params(model, mesh)
         part = (lambda t: t[mine]) if on else (lambda t: t)
-        with every_share() as seen, use_mesh(mesh if on else None):
+        with (recorder or every_share)() as seen, \
+                use_mesh(mesh if on else None):
             logits, cache = model.prefill({"tokens": part(tokens)[:, :-1]})
             run = {"prefill": logits}
             cache = model.extend_cache(cache, DECODE_STEPS)
@@ -749,3 +757,147 @@ def dryrun_ranks(rank: int, world: int, out: str, cells: list) -> None:
             "collective_bytes": acc["collective_bytes"],
             "argument_bytes": dryrun.tensor_bytes(cell.arguments)}
     _save(out, "dryrun", rank, result)
+
+
+# ---------------------------------------------------------------------------
+# The vocab-parallel embedding, head and loss; Megatron-SP
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class VocabRows:
+    """Wraps ``Model.embed_inputs``, ``Model._head`` and ``transformer.
+    chunked_xent`` and keeps, per call, the vocab rows or columns it
+    computed on: ("embed", the embedding's rows; token ids only), ("head",
+    the serving head's columns), ("loss", the loss head's columns)."""
+    rows: list = dataclasses.field(default_factory=list)
+
+    def __enter__(self):
+        from repro_torch.models import transformer
+        model = transformer.Model
+        self.saved = (model.embed_inputs, model._head,
+                      transformer.chunked_xent)
+
+        def embed(mod, batch):
+            if mod.cfg.frontend == "none":
+                self.rows.append(("embed", mod.embed.shape[0]))
+            return self.saved[0](mod, batch)
+
+        def head(mod, x):
+            self.rows.append(("head", mod.unembed().shape[1]))
+            return self.saved[1](mod, x)
+
+        def xent(h, labels, w, *args, **kwargs):
+            self.rows.append(("loss", w.shape[1]))
+            return self.saved[2](h, labels, w, *args, **kwargs)
+
+        model.embed_inputs, model._head = embed, head
+        transformer.chunked_xent = xent
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer
+        (transformer.Model.embed_inputs, transformer.Model._head,
+         transformer.chunked_xent) = self.saved
+
+
+@dataclasses.dataclass
+class SeqRows:
+    """Wraps ``transformer._block_out`` (each layer of the training path,
+    and remat's recompute of it) and keeps, per call, ("layer", the rows
+    of the residual stream it takes, its Megatron-SP flag) and, where the
+    call returns (remat's recompute stops early), ("layer-out", the rows it
+    gives): what remat "full" holds of a layer is its input."""
+    rows: list = dataclasses.field(default_factory=list)
+
+    def __enter__(self):
+        from repro_torch.models import transformer
+        self.saved = transformer._block_out
+
+        def block_out(blk, x, window, mesh=None, seq_shard=False):
+            self.rows.append(("layer", x.shape[1], seq_shard))
+            y = self.saved(blk, x, window, mesh, seq_shard)
+            self.rows.append(("layer-out", y.shape[1]))
+            return y
+
+        transformer._block_out = block_out
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer
+        transformer._block_out = self.saved
+
+
+@contextlib.contextmanager
+def model_rows():
+    """``VocabRows`` and ``SeqRows`` at once; yields their rows."""
+    with VocabRows() as a, SeqRows() as b:
+        rows: list = []
+        yield rows
+    rows.extend(a.rows + b.rows)
+
+
+def _meshes(world: int) -> list:
+    return [(1, 2)] if world == 2 else [(2, 2), (1, 4)]
+
+
+def case_ranks(rank: int, world: int, ref_path: str, out: str, name: str,
+               cases, serve: bool, edges: dict) -> None:
+    """Each of ``cases`` (``_mesh_cases``) through ``shard_params`` on the
+    meshes of ``world`` ranks ((1, 2) on 2; (2, 2) and (1, 4) on 4):
+    where ``serve``, prefill and decode logits of this rank's batch shard
+    under ``use_mesh``; a training step in each of ``TP_DTYPES``
+    (``tp_train``); the vocab rows and the residual stream's rows the
+    calls saw (``model_rows``); then the cases of ``edges`` of its world
+    against the unsharded port (``mixer_edge``)."""
+    from repro_torch.distributed.context import use_mesh
+    ref = dict(np.load(ref_path))
+    result = {}
+    for shape in _meshes(world):
+        mesh = _mesh(shape)
+        i = mesh.get_local_rank("data")
+        for case in cases:
+            res = {"data": i, "model": mesh.get_local_rank("model")}
+            if serve:
+                prompt, steps = ref[f"{case}/prompt"], ref[f"{case}/steps"]
+                key = "embeds" if prompt.ndim == 3 else "tokens"
+                bl = prompt.shape[0] // shape[0]
+                rows = slice(i * bl, (i + 1) * bl)
+                model = tp_model(ref, case, mesh=mesh)
+                with model_rows() as seen, use_mesh(mesh):
+                    res["prefill"], cache = model.prefill(
+                        {key: torch.from_numpy(prompt[rows])})
+                    cache = model.extend_cache(cache, DECODE_STEPS)
+                    for t in range(DECODE_STEPS):
+                        res[f"decode/{t}"], cache = model.decode_step(
+                            cache, {key: torch.from_numpy(steps[t][rows])})
+                res["shapes"] = seen
+            for dtype in TP_DTYPES:
+                res[f"train/{dtype}"] = tp_train(ref, case, dtype, mesh,
+                                                 model_rows)
+            if case_config(case)[0] in MOE_ARCHS:
+                res["slots"] = seq_slots(ref, case, mesh)
+            result[f"{case}/{shape[0]}x{shape[1]}"] = res
+    result["edge"] = {case: mixer_edge(*edge[:3], recorder=model_rows,
+                                       **edge[3] if len(edge) > 3 else {})
+                      for case, edge in edges.items()
+                      if np.prod(edge[2]) == world}
+    _save(out, f"{name}{world}", rank, result)
+
+
+def seq_slots(ref: dict, case: str, mesh) -> dict:
+    """The kept (token, choice, expert, slot) rows of every ``moe_local``
+    call of a float32 loss of this rank's batch shard, with the case's
+    Megatron-SP and without it."""
+    from repro_torch.distributed.context import use_mesh
+    n = mesh.size(mesh.mesh_dim_names.index("data"))
+    i = mesh.get_local_rank("data")
+    bl = ref[f"{case}/prompt"].shape[0] // n
+    batch = tp_batch(ref, case, slice(i * bl, (i + 1) * bl))
+    slots = {}
+    for how, on in (("sp", True), ("plain", False)):
+        model = tp_model(ref, case, mesh=mesh, seq_shard_activations=on)
+        with SlotRecorder() as rec, use_mesh(mesh), torch.no_grad():
+            model.loss(batch)
+        slots[how] = rec.rows
+    return slots

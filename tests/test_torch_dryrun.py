@@ -202,10 +202,9 @@ def test_tensor_parallel_products_per_rank(arch):
     at the rank's batch (BATCH / 4 rows): per operator, K2's and K2-bwd's
     FLOPs are the unsharded ones / 2 ("model" = 2: each rank's heads), and
     so are the products' (attention's projections, the dense MLP's, the
-    shared expert's and the expert-parallel experts') once the products
-    every rank repeats are taken out of both: the loss head (8·T·d·V: the
-    chunk's forward, its recompute, dh and dW) and the MoE router (6·T·d·E
-    a MoE layer: forward, dx, dW), exactly."""
+    shared expert's, the expert-parallel experts' and the vocab-parallel
+    loss head's) once the products every rank repeats are taken out of
+    both: the MoE router (6·T·d·E a MoE layer: forward, dx, dW), exactly."""
     cfg = get_tiny_config(arch)
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
     try:
@@ -218,8 +217,7 @@ def test_tensor_parallel_products_per_rank(arch):
     assert set(tp) == set(whole)
     T, d = BATCH // 4 * SEQ, cfg.d_model
     moe_layers = (cfg.num_layers // cfg.moe_every if cfg.uses_moe else 0)
-    replicated = (8 * T * d * cfg.vocab_size
-                  + 6 * T * d * cfg.num_experts * moe_layers)
+    replicated = 6 * T * d * cfg.num_experts * moe_layers
     kernels = [op for op in whole if op.startswith("repro_torch.")]
     assert kernels
     for op in kernels:
