@@ -7,13 +7,14 @@ Phases, each printing its own lines (no phase catches its own failure; any
 failed check exits non-zero):
 
 1. env     — card name and power limit, torch/CUDA/nvcc versions.
-2. build   — compile the seven hand-written CUDA sources from the
-             checkout (K1, K2 on both routes, K3, K2-bwd on both routes,
-             K3-bwd; all but K2's forward sources include
-             ``csrc/sm90_tf32x3.cuh``), one ``nvcc`` each, all started
-             together; ptxas's registers and spills for each kernel (K2-bwd's
-             ``sm90`` instantiations, up to head dim 256, must spill 0
-             bytes) and any wgmma serialisation it reports.
+2. build   — compile the nine hand-written CUDA sources from the
+             checkout (K1, K2 on its three routes, K3, K2-bwd on its three
+             routes, K3-bwd; all but K2's ``sm90`` and ``simt`` forward
+             sources include ``csrc/sm90_tf32x3.cuh``), one ``nvcc`` each,
+             all started together; ptxas's registers and spills for each
+             kernel and instantiation (K2-bwd's ``sm90`` instantiations, up
+             to head dim 256, must spill 0 bytes) and any wgmma
+             serialisation it reports.
 3. kernel  — every kernel against its plain PyTorch version on the card, at
              test shapes and at the main path's shapes, with times beside
              the card's bound and a PyTorch library call.  Every K1 and K3
@@ -21,13 +22,18 @@ failed check exits non-zero):
              3xTF32 on wgmma, bf16 on bf16 wgmma; K3: 3xTF32 on wgmma, bf16
              inputs widened), and one K1 row at the i1 depth K = 30000 is
              held against float64 at the unscaled gate.  K2 runs bf16 at
-             head dims that are multiples of 16 on its tensor-core route
-             (``sm90``), and float32 and bf16 at other head dims on its
-             CUDA-core route (``simt``); every row prints its route and
-             fails if it is not the rule's.  K2 also runs at query offsets
-             (``q_offset``, off the 64-row tile, with and without a
-             window, Skv = q_offset + Sq and beyond it, one shape whose
-             last rows keep no key and must be 0) on both routes.
+             head dims that are multiples of 16 on its bf16 tensor-core
+             route (``sm90``), float32 on its 3xTF32 tensor-core route
+             (``tf32x3``: at head dims 32, 40, 64, 96/64, 128, 160 and 256,
+             each row also timing ``simt``'s float32 entry at its shape and
+             printing its bound at 3xTF32 and at the 67 TFLOP/s CUDA-core
+             rate; 128, 96/64 and 160 also at 2 x 1024 tokens), and bf16 at
+             other head dims on its CUDA-core route
+             (``simt``); every row prints its route and fails if it is not
+             the rule's.  K2 also runs at query offsets (``q_offset``, off
+             the 64-row tile, with and without a window, Skv = q_offset +
+             Sq and beyond it, one shape whose last rows keep no key and
+             must be 0) on the ``tf32x3`` and ``sm90`` routes.
 4. predict — fit the node (host CPU + card) with ``Profiler``/``fit_linear``
              and a timed host->device copy; no rate is hard-coded.
 5. main    — ``HGemms(fitted, device="cuda").execute`` on the paper's
@@ -35,7 +41,7 @@ failed check exits non-zero):
              invariants of the measured timeline held, sampled rows of C
              checked against float64, then the card alone for comparison.
 6. serve   — hymba-1.5B at full width (weights from a seed): (a) in float32,
-             prefill through K2 (``simt``)/K3 against decode through plain
+             prefill through K2 (``tf32x3``)/K3 against decode through plain
              torch on a 1300-token prompt, K2 launches counted per route;
              (b) in bfloat16, eight requests dispatched by
              ``PoasDispatcher`` over two groups and served by
@@ -52,17 +58,21 @@ failed check exits non-zero):
              not ``route_bwd``'s: bf16 ``sm90`` rows (bf16 wgmma) are held
              against the plain backward that rounds P and dS to bf16 where
              the kernel does, and at relative norm 1e-2 against the float32
-             plain backward; float32 rows run ``simt`` at 1e-4.  The
-             training-shape rows run each kernel twice and require
-             bit-equal gradients; phase 3's offset shapes run through
-             K2-bwd on both routes too, ``sm90`` twice, bit-equal; bf16 at
+             plain backward; float32 rows run ``tf32x3`` at 1e-4 (head
+             dims 32, 40, 64, 96/64, 128, 160 and 256; 128, 96/64 and 160
+             also at 2 x 1024 tokens), ``simt``'s float32 entry timed beside
+             each.  The training-shape rows run each
+             kernel twice and require bit-equal gradients; phase 3's offset
+             shapes run through K2-bwd on both routes too, twice,
+             bit-equal; bf16 at
              head dims in (128, 256] runs ``sm90``'s two-warpgroup kernels
              (144, 160 with GQA 32:8, 192/128, 256 with a window, ragged
              rows and a ``q_offset`` whose last rows keep no key, their dq
              exactly 0), twice, bit-equal, the shared memory the source
              reckons equal to the wrapper's figure; one bf16 row at head
              dim 40 keeps ``simt``'s bf16 entry.  K2's ``lse`` output on
-             both routes against the plain version's at the training shape, K2
+             both tensor-core routes against the plain version's at the
+             training shape, K2
              forward and K2-bwd chained through autograd there against
              the plain backward, and K2's forward timed with and without
              ``lse``; (b) a float32 gradient gate: at full width cut to 2
@@ -79,7 +89,7 @@ failed check exits non-zero):
              the next step's loss equal to the uninterrupted run's.
 8. moe     — dbrx-132B (16 experts, top-4) at full width, weights from a
              seed: (a) in float32 cut to 1 layer, a 512-token prefill on
-             the card (K2 ``simt``) against the same weights moved to the
+             the card (K2 ``tf32x3``) against the same weights moved to the
              CPU (plain versions): last-token logits at rtol/atol 3e-3 and
              every (token, choice)'s kept (expert, slot) identical; (b) in
              bfloat16 cut to 8 of 40 layers (~54.6 GB of weights), phase 6
@@ -116,7 +126,7 @@ failed check exits non-zero):
              twice that of phase 8 (a)'s host float32 logits from the
              card's (allclose at rtol = atol = 1e-5 printed), every kept
              (token, choice)'s (expert, slot) identical and each rank
-             keeping only its own experts' pairs, K2 ``simt`` launches per
+             keeping only its own experts' pairs, K2 ``tf32x3`` launches per
              rank, each rank's peak memory (no time: the two share the
              card and gloo stages the sum through the host); its attention
              is tensor-parallel too (24/4 heads a rank); (c) the same two
@@ -128,7 +138,7 @@ failed check exits non-zero):
              float32 prefill of the cut, a training step's loss
              (1e-4) and each rank's gradient shards (1e-3) against the
              unsharded step's slices, K2 and K2-bwd once a rank on
-             ``simt``; in bf16 the logits in K2's bf16 band, K2 and K2-bwd
+             ``tf32x3``; in bf16 the logits in K2's bf16 band, K2 and K2-bwd
              once a rank on ``sm90``; the heads K2 saw, parameter bytes
              held (equal to the dry run's) and prefill peak per rank
              beside the dry run's prediction (mesh (1, 2), fake ``cuda``
@@ -183,7 +193,7 @@ failed check exits non-zero):
 11. moe-train — MoE training, remat "dots", llama4 served: (a) a float32
              gradient gate of dbrx-132B at full width cut to 1 layer, phase 8
              (a)'s 512-token prompt: the loss and every parameter gradient on
-             the card (K2 and K2-bwd ``simt``) against the same weights moved
+             the card (K2 and K2-bwd ``tf32x3``) against the same weights moved
              to the host (plain versions) at phase 7 (b)'s gates, every kept
              (expert, slot) identical; (b) dbrx-132B in bfloat16 cut to 2 of
              40 layers, batch 2 x 2048 (1 x 2048 if the dry run's predicted
@@ -215,7 +225,7 @@ failed check exits non-zero):
              64, absorbed-matmul decode over the latent cache): (a) float32
              at full width cut to 2 layers, a 1100-token prefill's
              last-token logits and one loss with every parameter gradient
-             on the card (K2 and K2-bwd ``simt``) against the same weights
+             on the card (K2 and K2-bwd ``tf32x3``) against the same weights
              on the host (plain versions), then the cut's prefill against
              its decode (phase 6 (a)'s check); (b) bf16 at full width and
              depth (62 layers, 4.26 B params), phase 6 (b)'s traffic
@@ -309,11 +319,13 @@ from repro_torch.kernels import (flash_attention,  # noqa: E402
                                  ssd_chunk_bwd)
 from repro_torch.kernels.flash_attention import build as build_k2  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    MAX_HEAD_DIM, _forward as k2_forward, _launch_bwd as k2b_launch,
-    band_pairs, build_bwd as build_k2_bwd,
-    build_bwd_sm90 as build_k2_bwd_sm90, bwd_sm90_kernel_smem_bytes,
-    bwd_sm90_smem_bytes, build_sm90 as build_k2_sm90,
-    reset_counts as reset_k2_counts, route, route_bwd, sm90_smem_bytes)
+    MAX_HEAD_DIM, ROUTES as K2_ROUTES, _forward as k2_forward,
+    _launch as k2_launch, _launch_bwd as k2b_launch, band_pairs,
+    build_bwd as build_k2_bwd, build_bwd_sm90 as build_k2_bwd_sm90,
+    build_bwd_tf32x3 as build_k2_bwd_tf32x3, bwd_sm90_kernel_smem_bytes,
+    bwd_sm90_smem_bytes, bwd_tf32x3_smem_bytes, build_sm90 as build_k2_sm90,
+    build_tf32x3 as build_k2_tf32x3, reset_counts as reset_k2_counts, route,
+    route_bwd, sm90_smem_bytes, tf32x3_kernel_smem_bytes, tf32x3_smem_bytes)
 from repro_torch.kernels.matmul import build  # noqa: E402
 from repro_torch.kernels.matmul import entry as k1_entry  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
@@ -479,9 +491,10 @@ LLAMA4_TOL = 2e-2
 # does, as a multiple of those the library's bf16 attention (sdpa) moves
 LLAMA4_MOVED_FACTOR = 2
 # Phases 3 and 7 (a): K2 and K2-bwd with query row i at position q_offset
-# + i, on both routes.  Offsets off the 64-row tile; Skv = q_offset + Sq
+# + i, on every route.  Offsets off the 64-row tile; Skv = q_offset + Sq
 # (chunked prefill) and Skv > q_offset + Sq (keys after the last query);
-# "empty-rows" keeps no key for its last 17 rows (both write 0 there).
+# the "empty-rows" rows keep no key for their last 17 rows (all write 0
+# there); at the ragged head dim 40, route() sends bf16 to simt itself.
 # label, B, S, H, KH, Dk, Dv, window, causal, q_offset, Skv
 K2_OFFSET_ROWS = (
     ("offset-chunk", 1, 200, 8, 2, 64, 64, 0, True, 37, 237),
@@ -489,8 +502,17 @@ K2_OFFSET_ROWS = (
     ("offset-mla-window-beyond", 1, 333, 8, 8, 96, 64, 256, True, 1000,
      1410),
     ("offset-empty-rows", 1, 130, 4, 2, 64, 64, 64, True, 300, 350),
+    ("offset-empty-rows-40", 1, 130, 4, 2, 40, 40, 64, True, 300, 350),
     ("offset-noncausal-window", 1, 100, 4, 4, 32, 32, 30, False, 45, 150),
 )
+# Phases 3 and 7 (a): K2 and K2-bwd in float32 (tf32x3, simt's float32
+# entry timed beside) at the zoo's other head dims, at a prefill's and a
+# step's size: 2 x 1024 tokens, window 0 (dbrx, qwen2, deepseek, internvl2
+# at 128; minicpm3's MLA at 96/64; stablelm at 160).
+# label, B, S, H, KH, Dk, Dv
+F32_ZOO_ROWS = (("f32-dk128", 2, 1024, 32, 8, 128, 128),
+                ("f32-mla", 2, 1024, 40, 40, 96, 64),
+                ("f32-dk160", 2, 1024, 32, 8, 160, 160))
 # Phase 7 (a): K2-bwd bf16 at head dims in (128, 256], the sm90 route's
 # two-warpgroup kernels (NB = 3 or 4 blocks of 64 columns); the last rows of
 # "wide-256-window-offset" keep no key (as "offset-empty-rows").
@@ -596,8 +618,16 @@ def bound_ms(m: int, k: int, n: int, peak: str) -> tuple[float, str]:
     return roofline(2.0 * m * n * k, size * (m * k + k * n + m * n), peak)
 
 
-def k2_counts() -> tuple[int, int]:
-    return flash_attention.launches_sm90, flash_attention.launches_simt
+def k2_counts() -> tuple[int, int, int]:
+    """K2's launches per route, in ``K2_ROUTES`` order (sm90, tf32x3,
+    simt)."""
+    return tuple(getattr(flash_attention, f"launches_{r}")
+                 for r in K2_ROUTES)
+
+
+def once_on(kind: str) -> list[int]:
+    """``k2_counts``' growth for one launch on route ``kind``."""
+    return [int(r == kind) for r in K2_ROUTES]
 
 
 def band_mask(S: int, skv: int, causal: bool, window: int,
@@ -616,31 +646,46 @@ def band_mask(S: int, skv: int, causal: bool, window: int,
 
 def flash_row(label, gen, B, S, H, KH, Dk, Dv, window, dtype,
               causal=True, q_offset: int = 0, skv: int | None = None,
-              phase: str = "kernel") -> dict:
+              phase: str = "kernel", kind: str | None = None) -> dict:
     """K2 against its plain version on the same card tensors, then kernel,
     plain version and ``scaled_dot_product_attention`` timed (at window 0
     and offset 0, also sdpa's ``is_causal`` form, which needs no mask
-    tensor and may take PyTorch's flash backend).  ``q_offset``: query row
-    i at position ``q_offset + i`` over ``skv`` keys (default S); rows that
-    keep no key must be 0 in both.  Fails if the launch did not take the
-    route that ``route`` names, or bf16 at head dims that are multiples of
-    16 did not run on the tensor cores."""
+    tensor and may take PyTorch's flash backend); a ``tf32x3`` row also
+    times ``simt``'s float32 entry at its shape (``simt_ms``) and gives its
+    bound at the 67 TFLOP/s CUDA-core rate beside the 3xTF32 one.
+    ``q_offset``: query row i at position ``q_offset + i`` over ``skv``
+    keys (default S); rows that keep no key must be 0 in both.  Fails if
+    the launch did not take the route that ``route`` names, or bf16 at head
+    dims that are multiples of 16 did not run on ``sm90``, or float32 on
+    ``tf32x3``.  ``kind`` names a kernel to run in the route's place (the
+    entry called directly, as ``simt``'s float32 entry is timed)."""
     name = DTYPE_NAME[dtype]
     skv = S if skv is None else skv
     q, k, v = (torch.randn(shape, generator=gen, device=DEV).to(dtype)
                for shape in ((B, S, H, Dk), (B, skv, KH, Dk),
                              (B, skv, KH, Dv)))
-    kind = route(dtype, Dk, Dv)
+    named = kind is not None
+    kind = kind or route(dtype, Dk, Dv)
+
+    def run():
+        if named:
+            return k2_launch(kind, q, k, v, causal, window, None, False,
+                             q_offset)[0]
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
+
     before = k2_counts()
-    out = flash_attention(q, k, v, causal=causal, window=window,
-                          q_offset=q_offset)
+    out = run()
     torch.cuda.synchronize()
-    ran = [r for r, a, b in zip(("sm90", "simt"), k2_counts(), before)
-           if a > b]
-    check(ran == [kind], f"K2 {label}: launched on {ran}, route says {kind}")
-    if dtype == torch.bfloat16 and Dk % 16 == 0 and Dv % 16 == 0:
+    ran = [r for r, a, b in zip(K2_ROUTES, k2_counts(), before) if a > b]
+    check(ran == [kind], f"K2 {label}: launched on {ran}, not {kind}")
+    if not named and dtype == torch.bfloat16 and Dk % 16 == 0 \
+            and Dv % 16 == 0:
         check(kind == "sm90", f"K2 {label}: bf16 at Dk {Dk}, Dv {Dv} did not "
               f"take the tensor-core route")
+    if not named and dtype == torch.float32:
+        check(kind == "tf32x3", f"K2 {label}: float32 did not take the "
+              f"3xTF32 tensor-core route")
     plain = flash_attention_ref(q, k, v, causal=causal, window=window,
                                 q_offset=q_offset)
     diff = (out.float() - plain.float()).abs()
@@ -655,8 +700,13 @@ def flash_row(label, gen, B, S, H, KH, Dk, Dv, window, dtype,
                                 + (plain[:, empty] != 0).sum())}
     del out, plain, diff
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    row["kernel_ms"] = cuda_ms(lambda: flash_attention(
-        q, k, v, causal=causal, window=window, q_offset=q_offset))
+    row["kernel_ms"] = cuda_ms(run)
+    simt_text = ""
+    if kind == "tf32x3":
+        row["simt_ms"] = cuda_ms(lambda: k2_launch(
+            "simt", q, k, v, causal, window, None, False, q_offset))
+        simt_text = (f" simt_ms={row['simt_ms']:.4f} (simt's float32 entry, "
+                     f"{row['simt_ms'] / row['kernel_ms']:.2f}x)")
     row["plain_ms"] = cuda_ms(lambda: flash_attention_ref(
         q, k, v, causal=causal, window=window, q_offset=q_offset))
     row["library_ms"] = cuda_ms(
@@ -675,10 +725,19 @@ def flash_row(label, gen, B, S, H, KH, Dk, Dv, window, dtype,
     ops = 2.0 * B * H * band_pairs(S, skv, causal, window, q_offset) * (
         Dk + Dv)
     nbytes = size * (B * S * H * (Dk + Dv) + B * skv * KH * (Dk + Dv))
-    row["peak"] = name
-    row["bound_ms"], row["bound_by"] = roofline(ops, nbytes, name)
+    row["peak"] = "tf32x3" if kind == "tf32x3" else name
+    row["bound_ms"], row["bound_by"] = roofline(ops, nbytes, row["peak"])
     smem = (f", {sm90_smem_bytes(Dk, Dv) / 1024:.0f} KiB dynamic shared "
             f"memory" if kind == "sm90" else "")
+    if kind == "tf32x3":
+        row["fma_bound_ms"], _ = roofline(ops, nbytes, "float32")
+        got = tf32x3_kernel_smem_bytes(Dk, Dv)[0]
+        check(got == tf32x3_smem_bytes(Dk, Dv), f"K2 {label}: the source "
+              f"reckons {got} bytes of shared memory, the wrapper "
+              f"{tf32x3_smem_bytes(Dk, Dv)}")
+        smem = (f", {got} B dynamic shared memory (the wrapper's figure); "
+                f"bound at the 67 TFLOP/s f32 CUDA-core rate "
+                f"{row['fma_bound_ms']:.4f} ms")
     offset = (f" q_offset {q_offset} Skv {skv} ({row['empty_rows']} rows "
               f"keep no key, nonzero there: {row['empty_nonzero']})"
               if q_offset or skv != S else "")
@@ -688,7 +747,7 @@ def flash_row(label, gen, B, S, H, KH, Dk, Dv, window, dtype,
         f"violations={row['violations']} (rtol=atol={tol}); kernel_ms="
         f"{row['kernel_ms']:.4f} plain_ms={row['plain_ms']:.4f} library_ms="
         f"{row['library_ms']:.4f} (sdpa, bool mask, enable_gqa)"
-        f"{causal_text} " + bound_text(row))
+        f"{causal_text}{simt_text} " + bound_text(row))
     check(row["violations"] == 0, f"K2 disagrees with its plain version: "
           f"{row}")
     check(row["empty_nonzero"] == 0, f"K2 {label}: rows that keep no key "
@@ -1107,12 +1166,12 @@ def serve(gen) -> tuple[dict, dict, dict]:
     t0 = time.perf_counter()
     reset_k2_counts()
     prefill_matches_decode(cfg)
-    sm90_a, simt_a = k2_counts()
+    sm90_a, f32_a, simt_a = k2_counts()
     say("serve", f"(a) done in {time.perf_counter() - t0:.1f} s; K2 launches "
-        f"sm90 {sm90_a}, simt {simt_a}")
-    check(sm90_a == 0 and simt_a == 5 * cfg.num_layers,
-          f"(a) five float32 prefills launched K2 sm90 {sm90_a}, simt "
-          f"{simt_a} times, not 0 and {5 * cfg.num_layers}")
+        f"sm90 {sm90_a}, tf32x3 {f32_a}, simt {simt_a}")
+    check(sm90_a == 0 and simt_a == 0 and f32_a == 5 * cfg.num_layers,
+          f"(a) five float32 prefills launched K2 sm90 {sm90_a}, tf32x3 "
+          f"{f32_a}, simt {simt_a} times, not 0, {5 * cfg.num_layers} and 0")
 
     model = Model(cfg, device=DEV,
                   generator=torch.Generator(DEV).manual_seed(0))
@@ -1123,35 +1182,39 @@ def serve(gen) -> tuple[dict, dict, dict]:
     reset_launches()
     shapes = serve_buckets("serve", engine.generate, buckets, cfg)
     launches = {"flash_attention/sm90": flash_attention.launches_sm90,
-                "flash_attention/simt": simt_a,
+                "flash_attention/tf32x3": f32_a,
                 "ssd_chunk": ssd_chunk.launches}
-    say("serve", f"(b) main path launches: {launches} (K2 simt: phase (a), "
-        f"float32; sm90 and K3: phase (b))")
+    say("serve", f"(b) main path launches: {launches} (K2 tf32x3: phase "
+        f"(a), float32; sm90 and K3: phase (b))")
     check(all(n > 0 for n in launches.values()),
           "the serve path launched no K2 or K3")
-    check(flash_attention.launches_simt == 0,
-          "the bf16 serve path launched the simt K2")
+    check(flash_attention.launches_simt == 0
+          and flash_attention.launches_tf32x3 == 0,
+          "the bf16 serve path launched a float32 or CUDA-core K2")
     MEASURED["prefill_busy_s"] = profile_serve("serve", model,
                                                max(buckets, key=len))
     del model, engine
     torch.cuda.empty_cache()
 
-    # (c) K2 and K3 at the largest bucket's prefill shapes; K2's simt route
-    # at phase (a)'s float32 prompt.
+    # (c) K2 and K3 at the largest bucket's prefill shapes; K2's tf32x3
+    # route at phase (a)'s float32 prompt, and simt's float32 entry there.
     _, B, S = max(shapes)
     k2 = flash_row("serve-path", gen, B, S, cfg.num_heads, cfg.num_kv_heads,
                    cfg.head_dim, cfg.head_dim, cfg.window, torch.bfloat16)
     flash_row("serve-path", gen, B, S, cfg.num_heads, cfg.num_kv_heads,
               cfg.head_dim, cfg.head_dim, 0, torch.bfloat16)
+    k2_f32 = flash_row("serve-a", gen, 1, SERVE_A_PROMPT, cfg.num_heads,
+                       cfg.num_kv_heads, cfg.head_dim, cfg.head_dim,
+                       cfg.window, torch.float32)
     k2_simt = flash_row("serve-a", gen, 1, SERVE_A_PROMPT, cfg.num_heads,
                         cfg.num_kv_heads, cfg.head_dim, cfg.head_dim,
-                        cfg.window, torch.float32)
+                        cfg.window, torch.float32, kind="simt")
     Q = min(cfg.ssm_chunk, S)
     k3 = ssd_row("serve-path", gen, B, -(-S // Q), Q, cfg.ssm_heads,
                  cfg.ssm_groups, cfg.ssm_head_dim, cfg.ssm_state,
                  torch.float32)
     torch.cuda.empty_cache()
-    return {"sm90": k2, "simt": k2_simt}, k3, launches
+    return {"sm90": k2, "tf32x3": k2_f32, "simt": k2_simt}, k3, launches
 
 
 def sdpa_bwd_ms(q, k, v, do, window: int, causal: bool = True,
@@ -1198,14 +1261,16 @@ def rel_norms(got, want) -> list[float]:
             for g, w in zip(got, want)]
 
 
-def k2b_counts() -> tuple[int, int]:
-    return flash_attention_bwd.launches_sm90, flash_attention_bwd.launches_simt
+def k2b_counts() -> tuple[int, int, int]:
+    """K2-bwd's launches per route, in ``K2_ROUTES`` order."""
+    return tuple(getattr(flash_attention_bwd, f"launches_{r}")
+                 for r in K2_ROUTES)
 
 
 def flash_bwd_row(label, gen, B, S, H, KH, Dk, Dv, window, dtype,
                   twice: bool = False, phase: str = "train",
                   part: str = "(a)", causal: bool = True, q_offset: int = 0,
-                  skv: int | None = None) -> dict:
+                  skv: int | None = None, kind: str | None = None) -> dict:
     """K2-bwd against its plain backward on the same card tensors (q, k, v,
     dO random; o and lse from the plain forward), then kernel, plain
     version and sdpa's backward timed.  Fails if the launch did not take
@@ -1216,7 +1281,9 @@ def flash_bwd_row(label, gen, B, S, H, KH, Dk, Dv, window, dtype,
     query row i at position ``q_offset + i`` over ``skv`` keys (default
     S).  Bound: the five products over the band's pairs, 2 * pairs * (3 Dk
     + 2 Dv) per head, and the bytes of q, k, v, o, dO, lse read and dq,
-    dk, dv written."""
+    dk, dv written; a ``tf32x3`` row's at 3xTF32, with ``simt``'s float32
+    entry timed at its shape (``simt_ms``).  ``kind`` names a kernel to
+    run in the route's place (its entry called directly)."""
     name = DTYPE_NAME[dtype]
     skv = S if skv is None else skv
     q, k, v, do = (torch.randn(shape, generator=gen, device=DEV).to(dtype)
@@ -1224,18 +1291,27 @@ def flash_bwd_row(label, gen, B, S, H, KH, Dk, Dv, window, dtype,
                                  (B, skv, KH, Dv), (B, S, H, Dv)))
     mask = dict(causal=causal, window=window, q_offset=q_offset)
     o, lse = flash_attention_ref(q, k, v, return_lse=True, **mask)
-    kind = route_bwd(dtype, Dk, Dv)
+    named = kind is not None
+    kind = kind or route_bwd(dtype, Dk, Dv)
+
+    def run():
+        if named:
+            return k2b_launch(kind, q, k, v, o, do, lse, causal, window,
+                              None, q_offset)
+        return flash_attention_bwd(q, k, v, o, do, lse, **mask)
+
     before = k2b_counts()
-    got = flash_attention_bwd(q, k, v, o, do, lse, **mask)
+    got = run()
     torch.cuda.synchronize()
-    ran = [r for r, a, b in zip(("sm90", "simt"), k2b_counts(), before)
-           if a > b]
-    check(ran == [kind], f"K2-bwd {label}: launched on {ran}, route_bwd "
-          f"says {kind}")
-    if dtype == torch.bfloat16 and Dk % 16 == 0 and Dv % 16 == 0 \
-            and max(Dk, Dv) <= MAX_HEAD_DIM:
+    ran = [r for r, a, b in zip(K2_ROUTES, k2b_counts(), before) if a > b]
+    check(ran == [kind], f"K2-bwd {label}: launched on {ran}, not {kind}")
+    if not named and dtype == torch.bfloat16 and Dk % 16 == 0 \
+            and Dv % 16 == 0 and max(Dk, Dv) <= MAX_HEAD_DIM:
         check(kind == "sm90", f"K2-bwd {label}: bf16 at Dk {Dk}, Dv {Dv} "
               f"did not take the tensor-core route")
+    if not named and dtype == torch.float32:
+        check(kind == "tf32x3", f"K2-bwd {label}: float32 did not take the "
+              f"3xTF32 tensor-core route")
     # Query rows that keep no key: their dq is exactly 0.
     empty = ~band_mask(S, skv, causal, window, q_offset).any(1)
     row_empty = int(empty.sum())
@@ -1259,13 +1335,17 @@ def flash_bwd_row(label, gen, B, S, H, KH, Dk, Dv, window, dtype,
                  f"dv = {', '.join(f'{x:.3e}' for x in norms)} (<= "
                  f"{K2B_NORM})")
     if twice:
-        again = flash_attention_bwd(q, k, v, o, do, lse, **mask)
+        again = run()
         row["bit_equal"] = all(torch.equal(a, b) for a, b in zip(got, again))
         extra += f"; second run bit-equal {row['bit_equal']}"
         del again
     del got, want
-    row["kernel_ms"] = cuda_ms(lambda: flash_attention_bwd(
-        q, k, v, o, do, lse, **mask))
+    row["kernel_ms"] = cuda_ms(run)
+    if kind == "tf32x3":
+        row["simt_ms"] = cuda_ms(lambda: k2b_launch(
+            "simt", q, k, v, o, do, lse, causal, window, None, q_offset))
+        extra += (f"; simt_ms={row['simt_ms']:.4f} (simt's float32 entry, "
+                  f"{row['simt_ms'] / row['kernel_ms']:.2f}x)")
     row["plain_ms"] = cuda_ms(lambda: flash_attention_bwd_ref(
         q, k, v, o, do, lse, **mask))
     row["library_ms"] = sdpa_bwd_ms(q, k, v, do, window, causal, q_offset)
@@ -1275,8 +1355,8 @@ def flash_bwd_row(label, gen, B, S, H, KH, Dk, Dv, window, dtype,
     nbytes = (size * (B * S * H * 2 * (Dk + Dv)
                       + B * skv * KH * 2 * (Dk + Dv))
               + 4 * B * H * S)   # q, o, dO, dq; k, v, dk, dv; lse
-    row["peak"] = name
-    row["bound_ms"], row["bound_by"] = roofline(ops, nbytes, name)
+    row["peak"] = "tf32x3" if kind == "tf32x3" else name
+    row["bound_ms"], row["bound_by"] = roofline(ops, nbytes, row["peak"])
     row["fma_bound_ms"], _ = roofline(ops, nbytes, "float32")
     row["tc_bound_ms"], _ = roofline(ops, nbytes, "bfloat16")
     smem = ""
@@ -1287,6 +1367,13 @@ def flash_bwd_row(label, gen, B, S, H, KH, Dk, Dv, window, dtype,
               f"{bwd_sm90_smem_bytes(Dk, Dv)}")
         smem = (f", {smem} B dynamic shared memory (the larger kernel; "
                 f"the wrapper's figure)")
+    elif kind == "tf32x3":
+        smem = tf32x3_kernel_smem_bytes(Dk, Dv)[1]
+        check(smem == bwd_tf32x3_smem_bytes(Dk, Dv), f"K2-bwd {label}: the "
+              f"source reckons {smem} bytes of shared memory, the wrapper "
+              f"{bwd_tf32x3_smem_bytes(Dk, Dv)}")
+        smem = (f", {smem} B dynamic shared memory (the dK/dV kernel; the "
+                f"wrapper's figure)")
     if row_empty:
         smem += f"; the {row_empty} rows that keep no key: dq 0"
     offset = (f" q_offset {q_offset} Skv {skv}" if q_offset or skv != S
@@ -1409,20 +1496,21 @@ def train_qkv(gen, cfg, dtype, dv: bool = False, batch: int = TRAIN_BATCH):
 
 def k2_lse(gen, cfg, batch: int = TRAIN_BATCH, phase: str = "train",
            part: str = "(a)") -> None:
-    """K2's ``lse`` output at ``cfg``'s training shape, on both routes
-    (bf16 -> sm90, float32 -> simt), against the plain version's
+    """K2's ``lse`` output at ``cfg``'s training shape, on both tensor-core
+    routes (bf16 -> sm90, float32 -> tf32x3), against the plain version's
     log-sum-exp on the same card tensors; then sm90's forward timed with
     and without ``lse``, in turns (without, with, with, without)."""
-    for dtype, kind in ((torch.bfloat16, "sm90"), (torch.float32, "simt")):
+    for dtype, kind in ((torch.bfloat16, "sm90"),
+                        (torch.float32, "tf32x3")):
         q, k, v = train_qkv(gen, cfg, dtype, batch=batch)
         for window in dict.fromkeys((cfg.window, 0)):
             before = k2_counts()
             _, lse = k2_forward(q, k, v, True, window, None, True)
             torch.cuda.synchronize()
             ran = [a - b for a, b in zip(k2_counts(), before)]
-            check(ran == ([1, 0] if kind == "sm90" else [0, 1]),
-                  f"K2 lse {DTYPE_NAME[dtype]}: launched sm90/simt {ran}, "
-                  f"not the {kind} route once")
+            check(ran == once_on(kind),
+                  f"K2 lse {DTYPE_NAME[dtype]}: launched sm90/tf32x3/simt "
+                  f"{ran}, not the {kind} route once")
             want = flash_attention_ref(q, k, v, window=window,
                                        return_lse=True)[1]
             diff = (lse - want).abs()
@@ -1465,8 +1553,9 @@ def flash_autograd_row(gen, cfg, window: int, batch: int = TRAIN_BATCH,
     out.backward(do)
     torch.cuda.synchronize()
     ran = [a - b for a, b in zip(k2_counts() + k2b_counts(), before)]
-    check(ran == [1, 0, 1, 0], f"K2 autograd: launched forward sm90/simt, "
-          f"backward sm90/simt {ran}, not 1/0/1/0")
+    check(ran == once_on("sm90") * 2, f"K2 autograd: launched forward "
+          f"sm90/tf32x3/simt, backward sm90/tf32x3/simt {ran}, not "
+          f"{once_on('sm90') * 2}")
     o, lse = flash_attention_ref(q, k, v, window=window, return_lse=True)
     tol = K2_TOL["bfloat16"]
     diff = (out.detach().float() - o.float()).abs()
@@ -1502,7 +1591,7 @@ def gradient_gate(cfg) -> int:
     windowed) and one sequence longer than the window: the loss and every
     parameter gradient through the kernels on the card against the same
     weights through the plain versions on the CPU.  Returns the K2-bwd
-    (simt) launches of the card's step, counted from 0."""
+    (tf32x3) launches of the card's step, counted from 0."""
     cut = dataclasses.replace(cfg, num_layers=2, global_layers=(0,),
                               dtype="float32", remat="none")
     t0 = time.perf_counter()
@@ -1515,8 +1604,8 @@ def gradient_gate(cfg) -> int:
     card = Model(cut, device=DEV)
     card.load_state_dict(host.state_dict())
     reset_launches()
-    before = (flash_attention.launches_simt,
-              flash_attention_bwd.launches_simt, ssd_chunk.launches,
+    before = (flash_attention.launches_tf32x3,
+              flash_attention_bwd.launches_tf32x3, ssd_chunk.launches,
               ssd_chunk_bwd.launches)
     for where, model in (("host", host), ("card", card)):
         model.requires_grad_(True)
@@ -1526,16 +1615,15 @@ def gradient_gate(cfg) -> int:
         result[where] = (float(loss.detach()),
                          {n: p.grad.detach().double().cpu()
                           for n, p in model.named_parameters()})
-    after = (flash_attention.launches_simt,
-             flash_attention_bwd.launches_simt, ssd_chunk.launches,
+    after = (flash_attention.launches_tf32x3,
+             flash_attention_bwd.launches_tf32x3, ssd_chunk.launches,
              ssd_chunk_bwd.launches)
     check([a - b for a, b in zip(after, before)] == [2, 2, 2, 2]
-          and flash_attention.launches_sm90 == 0
-          and flash_attention_bwd.launches_sm90 == 0,
-          f"(b) the card's step launched K2 (simt), K2-bwd (simt), K3, "
+          and k2_counts()[::2] == (0, 0) and k2b_counts()[::2] == (0, 0),
+          f"(b) the card's step launched K2 (tf32x3), K2-bwd (tf32x3), K3, "
           f"K3-bwd {[a - b for a, b in zip(after, before)]} times, not 2 "
-          f"each, or a float32 K2/K2-bwd on sm90")
-    launches = flash_attention_bwd.launches_simt
+          f"each, or a float32 K2/K2-bwd on sm90 or simt")
+    launches = flash_attention_bwd.launches_tf32x3
     (loss_h, g_h), (loss_c, g_c) = result["host"], result["card"]
     rel = {n: float((g_c[n] - g_h[n]).norm() / g_h[n].norm().clamp(
         min=1e-30)) for n in g_h}
@@ -1563,10 +1651,10 @@ def reset_launches() -> None:
 
 
 def launch_counts() -> dict:
-    return {"flash_attention/sm90": flash_attention.launches_sm90,
-            "flash_attention/simt": flash_attention.launches_simt,
-            "flash_attention_bwd/sm90": flash_attention_bwd.launches_sm90,
-            "flash_attention_bwd/simt": flash_attention_bwd.launches_simt,
+    return {**{f"flash_attention/{r}": n
+               for r, n in zip(K2_ROUTES, k2_counts())},
+            **{f"flash_attention_bwd/{r}": n
+               for r, n in zip(K2_ROUTES, k2b_counts())},
             "ssd_chunk": ssd_chunk.launches,
             "ssd_chunk_bwd": ssd_chunk_bwd.launches}
 
@@ -1608,7 +1696,9 @@ def profile_step(job, state, batch, phase: str = "train",
         say(phase, f"{part}   {t:.4f} s ({t / busy * 100:.1f} % of busy) "
             f"x{e.count} {e.key[:90]}")
     groups = (("hand-written K2 sm90", ("flash_sm90_kernel",)),
+              ("hand-written K2 tf32x3", ("flash_tf32x3_fwd",)),
               ("hand-written K2-bwd sm90", ("flash_bwd_sm90_",)),
+              ("hand-written K2-bwd tf32x3", ("flash_bwd_tf32x3_",)),
               ("hand-written K2-bwd simt", ("flash_bwd_",)),
               ("hand-written K3", ("ssd_chunk_tf32x3",)),
               ("hand-written K3-bwd", ("ssd_bwd_",)),
@@ -1864,13 +1954,23 @@ def train(gen) -> tuple[dict, dict, dict]:
                 ("test-head-dim-160", 1, 130, 8, 2, 160, 160, 0),
                 ("test-head-dim-40-window", 2, 200, 4, 2, 40, 40, 16)):
             flash_bwd_row(label, gen, B, S, H, KH, Dk, Dv, window, dt)
-    # K2-bwd with q_offset on both routes; sm90 bit-equal on rerun.
+    # float32 at the head dims the sm90 rows below cover in bf16
+    for label, B, S, H, KH, Dk, Dv, window in (
+            ("test-head-dim-128", 1, 200, 8, 2, 128, 128, 0),
+            ("test-head-dim-256-window", 2, 130, 4, 2, 256, 256, 64)):
+        flash_bwd_row(label, gen, B, S, H, KH, Dk, Dv, window, f32,
+                      twice=True)
+    for label, B, S, H, KH, Dk, Dv in F32_ZOO_ROWS:
+        flash_bwd_row(label, gen, B, S, H, KH, Dk, Dv, 0, f32, twice=True)
+    # K2-bwd with q_offset on both routes and on simt's two entries named
+    # (as phase 3 runs K2), bit-equal on rerun.
     for label, B, S, H, KH, Dk, Dv, window, causal, off, skv in \
             K2_OFFSET_ROWS:
         for dt in (f32, bf16):
-            flash_bwd_row(label, gen, B, S, H, KH, Dk, Dv, window, dt,
-                          twice=dt == bf16, causal=causal, q_offset=off,
-                          skv=skv)
+            for kind in (None, "simt"):
+                flash_bwd_row(label, gen, B, S, H, KH, Dk, Dv, window, dt,
+                              twice=True, causal=causal, q_offset=off,
+                              skv=skv, kind=kind)
     # K2-bwd sm90 at head dims in (128, 256]: the two-warpgroup kernels.
     for label, B, S, H, KH, Dk, Dv, window, off, skv in K2B_WIDE_ROWS:
         flash_bwd_row(label, gen, B, S, H, KH, Dk, Dv, window, bf16,
@@ -1887,6 +1987,10 @@ def train(gen) -> tuple[dict, dict, dict]:
         cfg.num_kv_heads, cfg.head_dim, cfg.head_dim, window, dt,
         twice=True)
         for dt in (bf16, f32) for window in (cfg.window, 0)}
+    k2b_simt = flash_bwd_row(
+        "train-path", gen, TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads,
+        cfg.num_kv_heads, cfg.head_dim, cfg.head_dim, cfg.window, f32,
+        kind="simt")
     torch.cuda.empty_cache()
     k3b = ssd_bwd_row("train-path", gen, TRAIN_BATCH,
                       TRAIN_SEQ // cfg.ssm_chunk, cfg.ssm_chunk,
@@ -1897,12 +2001,12 @@ def train(gen) -> tuple[dict, dict, dict]:
         flash_autograd_row(gen, cfg, window)
     torch.cuda.empty_cache()
     say("train", f"(a) done in {time.perf_counter() - t0:.1f} s")
-    launches = {"flash_attention_bwd/simt": gradient_gate(cfg)}
+    launches = {"flash_attention_bwd/tf32x3": gradient_gate(cfg)}
     launches.update((k, v) for k, v in train_path(cfg).items()
-                    if k != "flash_attention_bwd/simt")
+                    if k != "flash_attention_bwd/tf32x3")
     checkpoint_round_trip(cfg)
     return {"sm90": k2b[(bf16, cfg.window)],
-            "simt": k2b[(f32, cfg.window)]}, k3b, launches
+            "tf32x3": k2b[(f32, cfg.window)], "simt": k2b_simt}, k3b, launches
 
 # ---------------------------------------------------------------------------
 # Phase 8: dbrx-132B (MoE) served at full width, depth cut
@@ -1986,11 +2090,11 @@ def kept_dropped(cfg, records) -> tuple[int, int]:
 
 def moe_gate(cfg, card: str) -> int:
     """(a) float32, full width cut to 1 layer, one seeded prompt: the
-    prefill on the card (K2 simt, the MoE on cuBLAS) against the same
+    prefill on the card (K2 tf32x3, the MoE on cuBLAS) against the same
     weights moved to the CPU (the plain versions); the last-token logits
     at ``PREFILL_DECODE_TOL`` and the (expert, slot) of every (token,
     choice) identical.  The host's logits are kept for phase 9 (b)'s
-    gate.  Returns K2's simt launches."""
+    gate.  Returns K2's tf32x3 launches."""
     cut = dataclasses.replace(cfg, num_layers=1, dtype="float32")
     prompt = torch.as_tensor(np.random.default_rng(1).integers(
         1, cfg.vocab_size, MOE_GATE_TOKENS)[None])
@@ -2011,9 +2115,10 @@ def moe_gate(cfg, card: str) -> int:
         times[where] = time.perf_counter() - t0
     hook.remove()
     MEASURED["moe_host_logits"] = logits["cpu"]
-    sm90, simt = k2_counts()
-    check(sm90 == 0 and simt == 1, f"(a) the card's float32 prefill "
-          f"launched K2 sm90 {sm90}, simt {simt} times, not 0 and 1")
+    sm90, f32, simt = k2_counts()
+    check((sm90, f32, simt) == (0, 1, 0), f"(a) the card's float32 prefill "
+          f"launched K2 sm90 {sm90}, tf32x3 {f32}, simt {simt} times, not 0, "
+          f"1 and 0")
     err = float((logits["cuda"] - logits["cpu"]).abs().max())
     ok = torch.allclose(logits["cuda"], logits["cpu"],
                         rtol=PREFILL_DECODE_TOL, atol=PREFILL_DECODE_TOL)
@@ -2038,7 +2143,7 @@ def moe_gate(cfg, card: str) -> int:
     del model, seen
     gc.collect()
     torch.cuda.empty_cache()
-    return simt
+    return f32
 
 
 def moe_breakdown(phase: str, label: str, result, part: str) -> None:
@@ -2243,7 +2348,7 @@ def moe_phase(gen, fitted, card: str) -> tuple[dict, dict]:
         f"mem_get_info free {torch.cuda.mem_get_info()[0] / 1e9:.3f} GB; "
         f"{card}")
     t0 = time.perf_counter()
-    simt = moe_gate(cfg, card)
+    f32 = moe_gate(cfg, card)
     sm90, B, S = moe_serve(cfg, card)
     # (d) K2 at the serving path's dbrx shape (the larger bucket)
     row = flash_row("dbrx-serve-path", gen, B, S, cfg.num_heads,
@@ -2253,7 +2358,7 @@ def moe_phase(gen, fitted, card: str) -> tuple[dict, dict]:
     moe_graph(fitted, card)
     moe_remesh(get_config(SERVE_ARCH))
     say("moe", f"done in {time.perf_counter() - t0:.1f} s")
-    return row, {"flash_attention/sm90": sm90, "flash_attention/simt": simt}
+    return row, {"flash_attention/sm90": sm90, "flash_attention/tf32x3": f32}
 
 
 
@@ -2327,7 +2432,7 @@ def serve_run(label: str, model, engine, buckets, warm, card: str) -> dict:
     with MoeCalls() as calls:
         done = [engine.generate(b) for b in buckets]
     peak = torch.cuda.max_memory_allocated()
-    sm90, simt = k2_counts()
+    sm90, f32, simt = k2_counts()
     del model.prefill
     big = max(buckets, key=len)
     tokens = bucket_tokens(big)
@@ -2342,14 +2447,16 @@ def serve_run(label: str, model, engine, buckets, warm, card: str) -> dict:
             f"{d[0].prefill_s:.4f} s, decode {SERVE_MAX_NEW - 1} steps "
             f"{d[0].decode_s:.4f} s; first completion "
             f"{d[0].tokens.tolist()}")
-    say("shard", f"(a) {label}: K2 launches sm90 {sm90}, simt {simt} over "
+    say("shard", f"(a) {label}: K2 launches sm90 {sm90}, tf32x3 {f32}, "
+        f"simt {simt} over "
         f"{len(buckets)} prefills; MoE calls {len(calls.calls)}, kept "
         f"{sum(c['kept'] for c in calls.calls)}, dropped "
         f"{sum(c['dropped'] for c in calls.calls)}; peak "
         f"max_memory_allocated {peak / 2**30:.3f} GiB; {card}")
     return {"logits": logits, "tokens": [[c.tokens for c in d] for d in done],
             "calls": [(c["tokens"], c["kept"], c["dropped"])
-                      for c in calls.calls], "sm90": sm90, "simt": simt,
+                      for c in calls.calls], "sm90": sm90, "tf32x3": f32,
+            "simt": simt,
             "busy": result[2]}
 
 
@@ -2405,9 +2512,9 @@ def shard_world1(card: str) -> int:
               "(a) the mesh keeps or drops other MoE pairs")
         for run in (plain, ep):
             check(run["sm90"] == SHARD_LAYERS * len(buckets)
-                  and run["simt"] == 0, f"(a) K2 launched sm90 "
-                  f"{run['sm90']}, simt {run['simt']} times, not "
-                  f"{SHARD_LAYERS} sm90 a prefill")
+                  and run["simt"] == run["tf32x3"] == 0, f"(a) K2 launched "
+                  f"sm90 {run['sm90']}, tf32x3 {run['tf32x3']}, simt "
+                  f"{run['simt']} times, not {SHARD_LAYERS} sm90 a prefill")
         del model, engine
         gc.collect()
         torch.cuda.empty_cache()
@@ -2496,7 +2603,7 @@ def shard_rank(rank: int, world: int, store: str, out: str) -> None:
 
 def shard_two_ranks(card: str) -> int:
     """(b) ``SHARD_RANKS`` spawned ranks on the one card over gloo; the
-    gates on what each wrote.  Returns their K2 simt launches."""
+    gates on what each wrote.  Returns their K2 tf32x3 launches."""
     cfg = get_config(MOE_ARCH)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2522,7 +2629,7 @@ def shard_two_ranks(card: str) -> int:
     num_local = cfg.num_experts // SHARD_RANKS
     plain_slots = ranks[0]["plain"][0]["slots"]
     union = set()
-    simt = 0
+    f32 = 0
     for r, res in enumerate(ranks):
         _, j = res["coord"]
         err = float((res["got"] - res["want"]).abs().max())
@@ -2533,8 +2640,8 @@ def shard_two_ranks(card: str) -> int:
         got = res["ep"][0]["slots"]
         union |= got
         own = all(j * num_local <= s[2] < (j + 1) * num_local for s in got)
-        sm90, n = res["k2"]
-        simt += n
+        sm90, n, simt = res["k2"]
+        f32 += n
         say("shard", f"(b) rank {r} at {res['coord']}: experts "
             f"[{j * num_local}, {(j + 1) * num_local}) of {cfg.num_experts}; "
             f"holds {res['held'] / 1e9:.3f} GB of parameters; last-token "
@@ -2542,20 +2649,20 @@ def shard_two_ranks(card: str) -> int:
             f"(std {float(res['want'].std()):.3e}) {tol}; kept "
             f"{len(got)} pairs, all its own={own}, "
             f"identical to the unsharded run's={got == mine}; K2 launches "
-            f"sm90 {sm90}, simt {n}; peak max_memory_allocated "
+            f"sm90 {sm90}, tf32x3 {n}, simt {simt}; peak max_memory_allocated "
             f"{res['peak'] / 2**30:.3f} GiB; {card}")
         check(bool(torch.isfinite(res["got"]).all()),
               f"(b) rank {r}: logits are not finite")
         check(ok, f"(b) rank {r}: the sharded prefill disagrees")
         check(own, f"(b) rank {r} kept pairs of another rank's experts")
         check(got == mine, f"(b) rank {r}: kept (expert, slot) pairs differ")
-        check(sm90 == 0 and n == 1, f"(b) rank {r}: K2 launched sm90 {sm90},"
-              f" simt {n} times, not 0 and 1")
+        check((sm90, n, simt) == (0, 1, 0), f"(b) rank {r}: K2 launched "
+              f"sm90 {sm90}, tf32x3 {n}, simt {simt} times, not 0, 1 and 0")
     check(union == plain_slots, "(b) the ranks' kept pairs are not the "
           "unsharded run's")
     say("shard", f"(b) the {SHARD_RANKS} ranks keep {len(union)} pairs, the "
         f"unsharded run's {len(plain_slots)}")
-    return simt
+    return f32
 
 
 def tp_cut(part: str, dtype: str):
@@ -2822,7 +2929,7 @@ def tp_kernels(part: str, dtype: str) -> dict:
     if cfg.uses_ssm:
         return {"prefill": {"ssd_chunk": L},
                 "step": {"ssd_chunk": L, "ssd_chunk_bwd": L}}
-    r = "sm90" if dtype == "bfloat16" else "simt"
+    r = "sm90" if dtype == "bfloat16" else "tf32x3"
     return {"prefill": {f"flash_attention/{r}": L},
             "step": {f"flash_attention/{r}": L,
                      f"flash_attention_bwd/{r}": L}}
@@ -3001,10 +3108,11 @@ def shard_phase(card: str) -> dict:
     """Phase 9: the sharded layer on the card."""
     t0 = time.perf_counter()
     sm90 = shard_world1(card)
-    simt = shard_two_ranks(card)
+    f32 = shard_two_ranks(card)
     launches = shard_tp(card)
     launches["flash_attention/sm90"] += sm90
-    launches["flash_attention/simt"] += simt
+    launches["flash_attention/tf32x3"] = (
+        launches.get("flash_attention/tf32x3", 0) + f32)
     say("shard", f"done in {time.perf_counter() - t0:.1f} s")
     return launches
 
@@ -3421,7 +3529,7 @@ def host_available() -> int:
 def moe_train_gate(cfg, card: str) -> dict:
     """(a) float32, full width cut to 1 layer, phase 8 (a)'s 512-token
     prompt (labels: the next token): the loss and every parameter gradient
-    on the card (K2 and K2-bwd ``simt``) against the same weights moved to
+    on the card (K2 and K2-bwd ``tf32x3``) against the same weights moved to
     the host (the plain versions), at phase 7 (b)'s gates, and every
     (token, choice)'s kept (expert, slot) identical.  Returns the launches
     of the card's step, counted from 0."""
@@ -3456,10 +3564,9 @@ def moe_train_gate(cfg, card: str) -> dict:
         if where == "card":
             torch.cuda.synchronize()
             launches = launch_counts()
-    check(launches == {"flash_attention/sm90": 0, "flash_attention/simt": 1,
-                       "flash_attention_bwd/sm90": 0,
-                       "flash_attention_bwd/simt": 1, "ssd_chunk": 0,
-                       "ssd_chunk_bwd": 0},
+    check(launches == {**dict.fromkeys(launch_counts(), 0),
+                       "flash_attention/tf32x3": 1,
+                       "flash_attention_bwd/tf32x3": 1},
           f"(a) the card's float32 step launched {launches}")
     rel = {}
     for (name, pc), (_, ph) in zip(card_m.named_parameters(),
@@ -3951,7 +4058,7 @@ def model_gate(cfg, phase: str, card: str, layers: int, tokens: int) -> dict:
     """(a) float32, full width cut to ``layers`` layers, one ``tokens``-long
     sequence of ``SyntheticLM`` (seed 0; embeddings for a stub frontend):
     the prefill's last-token logits and the loss with every parameter
-    gradient on the card (K2 and K2-bwd ``simt``, K3 and K3-bwd) against
+    gradient on the card (K2 and K2-bwd ``tf32x3``, K3 and K3-bwd) against
     the same weights moved to the host (the plain versions), at phase 8
     (a)'s and phase 7 (b)'s gates, every card gradient finite; then the
     same cut's prefill against its decode (``prefill_matches_decode``).
@@ -4466,8 +4573,9 @@ def main() -> None:
     drawing = threading.Thread(target=draw_i1)
     drawing.start()
     t0 = time.perf_counter()
-    builders = (build, build_k2, build_k2_sm90, build_k3, build_k2_bwd,
-                build_k2_bwd_sm90, build_k3_bwd)
+    builders = (build, build_k2, build_k2_sm90, build_k2_tf32x3, build_k3,
+                build_k2_bwd, build_k2_bwd_sm90, build_k2_bwd_tf32x3,
+                build_k3_bwd)
     with ThreadPoolExecutor(len(builders)) as pool:
         infos = list(pool.map(lambda f: f(), builders))
     for builder, info in zip(builders, infos):
@@ -4539,6 +4647,12 @@ def main() -> None:
         flash_row("gqa-window-ragged", gen, 2, 1037, 25, 5, 64, 64, 256, dt)
         flash_row("mla", gen, 2, 300, 8, 8, 96, 64, 0, dt)
         flash_row("head-dim-160", gen, 1, 333, 8, 2, 160, 160, 0, dt)
+    # float32 at the widest head dim and a ragged one (tf32x3 zero-fills
+    # the k8 step), as phase 7 (a) runs K2-bwd there
+    flash_row("head-dim-256-window", gen, 1, 333, 4, 2, 256, 256, 128, f32)
+    flash_row("head-dim-40", gen, 2, 257, 8, 2, 40, 40, 0, f32)
+    for label, B, S, H, KH, Dk, Dv in F32_ZOO_ROWS:
+        flash_row(label, gen, B, S, H, KH, Dk, Dv, 0, f32)
     # bf16 at head dims that are not multiples of 16 takes the CUDA-core
     # kernel's bf16 entry; no configuration has such dims.
     for label, B, S, H, KH, Dk, Dv, window in (
@@ -4548,12 +4662,16 @@ def main() -> None:
         row = flash_row(label, gen, B, S, H, KH, Dk, Dv, window, bf16)
         check(row["route"] == "simt", f"K2 {label}: bf16 at Dk {Dk}, Dv {Dv} "
               f"ran {row['route']}, not the CUDA-core route")
-    # K2 with q_offset on both routes (float32 -> simt, bf16 -> sm90).
+    # K2 with q_offset on both routes (float32 -> tf32x3, bf16 -> sm90),
+    # and on simt's two entries named, which route() reaches with any
+    # offset for bf16 at head dims that are not multiples of 16: its offset
+    # masks and its rows that keep no key are held here.
     for label, B, S, H, KH, Dk, Dv, window, causal, off, skv in \
             K2_OFFSET_ROWS:
         for dt in (f32, bf16):
-            flash_row(label, gen, B, S, H, KH, Dk, Dv, window, dt,
-                      causal=causal, q_offset=off, skv=skv)
+            for kind in (None, "simt"):
+                flash_row(label, gen, B, S, H, KH, Dk, Dv, window, dt,
+                          causal=causal, q_offset=off, skv=skv, kind=kind)
     # K3 at the shapes of tests/test_kernels_ssd.py, a ragged Q, and the
     # chunk shapes of hymba-1.5B and mamba2-2.7b at ssm_chunk 256.
     for label, shape, dt in (
@@ -4761,6 +4879,9 @@ def main() -> None:
             ("flash_attention/sm90", k2_rows["sm90"],
              "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
              "src/repro/kernels/flash_attention.py:70"),
+            ("flash_attention/tf32x3", k2_rows["tf32x3"],
+             "src/repro_torch/kernels/csrc/flash_attention_tf32x3.cu",
+             "src/repro/kernels/flash_attention.py:70"),
             ("flash_attention/simt", k2_rows["simt"],
              "src/repro_torch/kernels/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:70"),
@@ -4768,7 +4889,7 @@ def main() -> None:
              "src/repro/kernels/ssd_chunk.py:56")):
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
-                        "launches": serve_launches[name],
+                        "launches": serve_launches.get(name, 0),
                         "max_abs_err": row["max_abs_err"],
                         "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],
@@ -4778,6 +4899,9 @@ def main() -> None:
             ("flash_attention_bwd/sm90", k2b_rows["sm90"],
              "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
              "src/repro/models/layers.py:90"),
+            ("flash_attention_bwd/tf32x3", k2b_rows["tf32x3"],
+             "src/repro_torch/kernels/csrc/flash_attention_bwd_tf32x3.cu",
+             "src/repro/models/layers.py:90"),
             ("flash_attention_bwd/simt", k2b_rows["simt"],
              "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
              "src/repro/models/layers.py:90"),
@@ -4786,12 +4910,18 @@ def main() -> None:
              "src/repro/models/ssm.py:67")):
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
-                        "launches": train_launches[name],
+                        "launches": train_launches.get(name, 0),
                         "max_abs_err": row["max_abs_err"],
                         "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"]})
+    # simt runs bf16 at head dims that are not multiples of 16, which no
+    # configuration has: its rows (float32 entry, at the tf32x3 rows'
+    # shapes) count no main-path launch; every other kernel must have one.
+    idle = [k["name"] for k in kernels if k["launches"] == 0]
+    check(idle == ["flash_attention/simt", "flash_attention_bwd/simt"],
+          f"kernels the main path never launched: {idle}")
     print(smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

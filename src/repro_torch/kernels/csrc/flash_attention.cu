@@ -13,17 +13,19 @@
 // is written as 0: masked scores are dropped, so its l stays 0 and
 // acc / max(l, 1e-30) is 0 (the reference gives it a mean of V, C0d).
 //
-// Route: the wrapper sends float32 here (IEEE f32, which the 2e-5 gate
-// needs and TF32 cannot meet) and bf16 only at head dims that are not
-// multiples of 16; bf16 at multiples of 16 runs on the tensor cores in
-// flash_attention_sm90.cu.
+// Route: the wrapper sends bf16 here at head dims that are not multiples
+// of 16 (bf16 at multiples of 16 runs on the tensor cores in
+// flash_attention_sm90.cu, float32 as 3xTF32 in flash_attention_tf32x3.cu).
+// Its float32 entry, the first design of the float32 route, is reached only
+// by a caller that names the route "simt" (the wrapper's _launch), to time
+// it beside flash_attention_tf32x3.cu.
 //
 // What bounds it on this card: at hymba-1.5B's prefill (25 query heads,
 // head_dim 64, prompts of a few thousand tokens) the two products do
 // ~4 * Sq * band * Dk operations per head against ~2 * S * D bytes per head
 // read and written, hundreds of operations per byte: it is operation bound,
-// by the 67 TFLOP/s f32 CUDA-core peak for float32 inputs.  It keeps the
-// Pallas kernel's f32 arithmetic.
+// by the 67 TFLOP/s f32 CUDA-core peak.  It keeps the Pallas kernel's f32
+// arithmetic.
 //
 // What the design does about it:
 //  * One block per (q-tile of 64 rows, q-head, batch); the TPU's sequential

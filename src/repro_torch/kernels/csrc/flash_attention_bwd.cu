@@ -17,6 +17,13 @@
 //   P = exp(S * scale - lse) on kept pairs, dV = P^T dO, dP = dO V^T,
 //   D = rowsum(dO o O), dS = P o (dP - D), dQ = scale dS K, dK = scale dS^T Q
 //
+// Route: the wrapper sends bf16 here at head dims that are not multiples
+// of 16 (bf16 at multiples of 16 runs in flash_attention_bwd_sm90.cu,
+// float32 as 3xTF32 in flash_attention_bwd_tf32x3.cu).  Its float32 entry,
+// the first design of the float32 route, is reached only by a caller that
+// names the route "simt" (the wrapper's _launch_bwd), to time it beside
+// flash_attention_bwd_tf32x3.cu.
+//
 // What bounds it on this card: at hymba-1.5B's training shape (4 x 2048
 // tokens, 25 / 5 heads of 64, window 1024) the five products over the
 // band's pairs are ~2 * pairs * (3 Dk + 2 Dv) operations against a few

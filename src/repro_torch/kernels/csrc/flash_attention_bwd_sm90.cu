@@ -19,9 +19,10 @@
 //   D = rowsum(dO o O), dS = P o (dP - D), dQ = scale dS K, dK = scale dS^T Q
 //
 // This source takes bf16 with Dk, Dv multiples of 16 up to 256, as the
-// forward's csrc/flash_attention_sm90.cu does; csrc/flash_attention_bwd.cu
-// (f32 on the CUDA cores) takes float32, whose 1e-4 gate bf16 operands
-// cannot meet, and bf16 at other head dims.  The wrapper's route_bwd() says
+// forward's csrc/flash_attention_sm90.cu does; float32, whose 1e-4 gate
+// bf16 operands cannot meet, runs as 3xTF32 in
+// csrc/flash_attention_bwd_tf32x3.cu, and bf16 at other head dims on the CUDA
+// cores in csrc/flash_attention_bwd.cu.  The wrapper's route_bwd() says
 // which, by that rule and nothing else.
 //
 // What bounds it on this card.  At hymba-1.5B's training shape (4 x 2048

@@ -11,9 +11,10 @@
 // stack's flash_attention takes it), keys at 0..Skv-1; a row that keeps no
 // key is written as 0 (its l stays 0; the reference gives it a mean of V,
 // C0d).  This source takes the bf16 inputs whose head dims
-// Dk, Dv are multiples of 16 up to 256; csrc/flash_attention.cu (IEEE f32 on
-// the CUDA cores) takes float32 and every other bf16 shape.  The wrapper's
-// route() says which, by that rule and nothing else.
+// Dk, Dv are multiples of 16 up to 256; csrc/flash_attention_tf32x3.cu
+// (3xTF32 wgmma) takes float32 and csrc/flash_attention.cu (IEEE f32 on the
+// CUDA cores) every other bf16 shape.  The wrapper's route() says which, by
+// that rule and nothing else.
 //
 // What bounds it on this card.  At hymba-1.5B's prefill (5 x 2776 tokens,
 // 25 query / 5 KV heads of 64, window 1024) the band holds 2.90e8

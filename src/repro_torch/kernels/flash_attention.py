@@ -1,24 +1,29 @@
 """K2: the hand-written Hopper flash attention — wrappers and launch counts.
 
 Replaces ``src/repro/kernels/flash_attention.py::flash_attention_pallas``
-with two CUDA C++ kernels for ``sm_90a`` (each source's header says what
+with three CUDA C++ kernels for ``sm_90a`` (each source's header says what
 bounds it on an H100 and what its design does about it), built at their
 first CUDA launch by ``_nvcc``:
 
 * ``csrc/flash_attention_sm90.cu`` — bf16 on the tensor cores (wgmma, a
   cp.async ring of K/V tiles); route ``"sm90"``.
+* ``csrc/flash_attention_tf32x3.cu`` — float32 on the tensor cores, each
+  product as three TF32 products (3xTF32, f32 accuracy for the 2e-5 gate
+  that one TF32 product cannot meet), K and V streamed in 64 x 64 chunks;
+  route ``"tf32x3"``.
 * ``csrc/flash_attention.cu`` — IEEE f32 arithmetic on the CUDA cores, for
-  float32 (whose 2e-5 gate TF32 cannot meet) and bf16 at head dims the
-  tensor-core kernel does not take; route ``"simt"``.
+  bf16 at head dims the tensor-core kernel does not take; route
+  ``"simt"``.  Its float32 entry is reached only by a caller that names
+  ``"simt"`` (``_launch``), to time it beside ``"tf32x3"``.
 
 ``route(dtype, dk, dv)`` is the whole rule.  CPU tensors take the plain
 version (``ref.flash_attention_ref``); CUDA tensors launch the kernel of
-their route or raise — there is no fallback from one kernel to the other.
+their route or raise — there is no fallback from one kernel to another.
 
 Gradients: when autograd records the call, ``flash_attention`` runs as a
 ``torch.autograd.Function`` whose forward also writes each row's
-log-sum-exp (an optional output of both forward kernels, null on the
-serving path) and whose backward is ``flash_attention_bwd``.  It has two
+log-sum-exp (an optional output of the forward kernels, null on the
+serving path) and whose backward is ``flash_attention_bwd``.  It has three
 kernels too, and ``route_bwd(dtype, dk, dv)`` is their rule, the same as
 ``route``'s:
 
@@ -26,9 +31,12 @@ kernels too, and ``route_bwd(dtype, dk, dv)`` is their rule, the same as
   product on wgmma; P and dS rounded to bf16 only as MMA operands), one
   warpgroup per dK/dV block up to head dim 128 and two above; route
   ``"sm90"``.
+* ``csrc/flash_attention_bwd_tf32x3.cu`` — float32 on the tensor cores,
+  every product as 3xTF32 (for the 1e-4 gate), deterministic; route
+  ``"tf32x3"``.
 * ``csrc/flash_attention_bwd.cu`` — f32 arithmetic on the CUDA cores, for
-  float32 (whose 1e-4 gate bf16 operands cannot meet) and bf16 at other
-  head dims; route ``"simt"``.
+  bf16 at other head dims; route ``"simt"``.  Its float32 entry is
+  reached only by a caller that names ``"simt"`` (``_launch_bwd``).
 
 CPU tensors take ``ref.flash_attention_bwd_ref``.  It is the gradient of
 the reference model's ``flash_attention`` (``src/repro/models/layers.py:90``),
@@ -67,7 +75,10 @@ SOURCE = _nvcc.CSRC / "flash_attention.cu"
 SOURCE_SM90 = _nvcc.CSRC / "flash_attention_sm90.cu"
 SOURCE_BWD = _nvcc.CSRC / "flash_attention_bwd.cu"
 SOURCE_BWD_SM90 = _nvcc.CSRC / "flash_attention_bwd_sm90.cu"
-MAX_HEAD_DIM = 256       # both kernels' shared-memory budget at BQ = BK = 64
+SOURCE_TF32X3 = _nvcc.CSRC / "flash_attention_tf32x3.cu"
+SOURCE_BWD_TF32X3 = _nvcc.CSRC / "flash_attention_bwd_tf32x3.cu"
+MAX_HEAD_DIM = 256       # the kernels' shared-memory budget at BQ = BK = 64
+ROUTES = ("sm90", "tf32x3", "simt")
 _ENTRY = {torch.float32: "poas_flash_f32",
           torch.bfloat16: "poas_flash_bf16"}
 _ENTRY_SM90 = "poas_flash_sm90_bf16"
@@ -79,6 +90,9 @@ _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 7
 _ENTRIES = {n: _ARGTYPES for n in _ENTRY.values()}
 _ENTRIES_SM90 = {_ENTRY_SM90: _ARGTYPES,
                  "poas_flash_sm90_smem": [ctypes.c_int64] * 2}
+_ENTRY_TF32X3 = "poas_flash_tf32x3_f32"
+_ENTRIES_TF32X3 = {_ENTRY_TF32X3: _ARGTYPES,
+                   "poas_flash_tf32x3_smem": [ctypes.c_int64] * 2}
 _ENTRY_BWD = {torch.float32: "poas_flash_bwd_f32",
               torch.bfloat16: "poas_flash_bwd_bf16"}
 # q, k, v, o, do, lse, dq, dk, dv, D (scratch), shapes, strides of
@@ -91,6 +105,10 @@ _ENTRIES_BWD = {n: _ARGTYPES_BWD for n in _ENTRY_BWD.values()}
 _ENTRY_BWD_SM90 = "poas_flash_bwd_sm90_bf16"
 _ENTRIES_BWD_SM90 = {_ENTRY_BWD_SM90: _ARGTYPES_BWD,
                      "poas_flash_bwd_sm90_smem": [ctypes.c_int64] * 2}
+# The same arguments; float32 only, dq, dk, dv in float32.
+_ENTRY_BWD_TF32X3 = "poas_flash_bwd_tf32x3_f32"
+_ENTRIES_BWD_TF32X3 = {_ENTRY_BWD_TF32X3: _ARGTYPES_BWD,
+                       "poas_flash_bwd_tf32x3_smem": [ctypes.c_int64] * 2}
 
 _count_lock = threading.Lock()
 
@@ -113,6 +131,48 @@ def build_bwd() -> _nvcc.BuildInfo:
 def build_bwd_sm90() -> _nvcc.BuildInfo:
     """Compile ``csrc/flash_attention_bwd_sm90.cu`` into ``_build/``."""
     return _nvcc.build(SOURCE_BWD_SM90)
+
+
+def build_tf32x3() -> _nvcc.BuildInfo:
+    """Compile ``csrc/flash_attention_tf32x3.cu`` into ``_build/``."""
+    return _nvcc.build(SOURCE_TF32X3)
+
+
+def build_bwd_tf32x3() -> _nvcc.BuildInfo:
+    """Compile ``csrc/flash_attention_bwd_tf32x3.cu`` into ``_build/``."""
+    return _nvcc.build(SOURCE_BWD_TF32X3)
+
+
+def tf32x3_smem_bytes(dk: int, dv: int) -> int:
+    """Dynamic shared memory a ``tf32x3`` forward launch at head dims
+    ``dk``, ``dv`` requests, by the rule its source states: 1024 bytes of
+    alignment, Q's hi and lo (32 KiB per 64-column block of Dk) and a ring
+    of two 32 KiB slots that K's and V's 64 x 64 chunks stream through;
+    the same at every ``dv``."""
+    return 1024 + 32768 * -(-dk // 64) + 2 * 32768
+
+
+def bwd_tf32x3_smem_bytes(dk: int, dv: int) -> int:
+    """Dynamic shared memory the larger (dK/dV) kernel of the ``tf32x3``
+    backward requests, by the rule its source states: 1024 bytes of
+    alignment, then, where Dk and Dv take at most four 64-column blocks
+    together, the block's own K and V kept split (32 KiB a block) and a
+    ring of two 32 KiB slots (the walked chunk, hi and lo), else a ring of
+    two 64 KiB slots (a chunk pair); and two stages of the walked tile's
+    lse and D."""
+    res = -(-dk // 64) + -(-dv // 64)
+    if res > 4:
+        res = 0
+    return 1024 + 32768 * res + 2 * (32768 if res else 65536) + 2 * 2 * 64 * 4
+
+
+def tf32x3_kernel_smem_bytes(dk: int, dv: int) -> tuple[int, int]:
+    """(forward, backward) shared memory as the two ``tf32x3`` sources
+    compute it (builds them)."""
+    fwd = _nvcc.load(SOURCE_TF32X3, _ENTRIES_TF32X3)
+    bwd = _nvcc.load(SOURCE_BWD_TF32X3, _ENTRIES_BWD_TF32X3)
+    return (fwd.poas_flash_tf32x3_smem(dk, dv),
+            bwd.poas_flash_bwd_tf32x3_smem(dk, dv))
 
 
 def bwd_sm90_smem_bytes(dk: int, dv: int) -> int:
@@ -148,9 +208,13 @@ def sm90_smem_bytes(dk: int, dv: int) -> int:
 
 
 def route(dtype: torch.dtype, dk: int, dv: int) -> str:
-    """Which kernel a CUDA call runs: ``"sm90"`` (bf16 on the tensor cores)
-    for bfloat16 with Dk and Dv multiples of 16 up to 256, else ``"simt"``
-    (IEEE f32 on the CUDA cores): float32, and bf16 at other head dims."""
+    """Which kernel a CUDA call runs: ``"tf32x3"`` (3xTF32 on the tensor
+    cores) for float32 at every head dim; ``"sm90"`` (bf16 on the tensor
+    cores) for bfloat16 with Dk and Dv multiples of 16 up to 256; else
+    ``"simt"`` (f32 arithmetic on the CUDA cores): bf16 at other head
+    dims."""
+    if dtype == torch.float32:
+        return "tf32x3"
     if dtype == torch.bfloat16 and all(
             0 < d <= MAX_HEAD_DIM and d % 16 == 0 for d in (dk, dv)):
         return "sm90"
@@ -159,19 +223,23 @@ def route(dtype: torch.dtype, dk: int, dv: int) -> str:
 
 def route_bwd(dtype: torch.dtype, dk: int, dv: int) -> str:
     """Which backward kernel a CUDA call runs, by ``route``'s rule:
-    ``"sm90"`` (bf16 on the tensor cores; one warpgroup per dK/dV block up
-    to 128, two above) for bfloat16 with Dk and Dv multiples of 16 up to
-    256, else ``"simt"`` (f32 on the CUDA cores): float32, and bf16 at
-    other head dims."""
+    ``"tf32x3"`` for float32; ``"sm90"`` (bf16 on the tensor cores; one
+    warpgroup per dK/dV block up to 128, two above) for bfloat16 with Dk
+    and Dv multiples of 16 up to 256; else ``"simt"`` (f32 on the CUDA
+    cores): bf16 at other head dims."""
     return route(dtype, dk, dv)
 
 
 def _aligned16(x: torch.Tensor) -> torch.Tensor:
-    """``x`` if its rows start on 16-byte boundaries (what the sm90 kernel's
-    16-byte copies need), else a contiguous copy of it."""
+    """``x`` if its rows start on 16-byte boundaries (what the tensor-core
+    kernels' 16-byte copies need), else a contiguous copy of it whose
+    rows are padded to 16 bytes, returned as a view of ``x``'s shape."""
     step = 16 // x.element_size()
     if x.data_ptr() % 16 or any(st % step for st in x.stride()[:3]):
-        return x.clone(memory_format=torch.contiguous_format)
+        last = x.shape[-1]
+        buf = x.new_empty((*x.shape[:-1], last + (-last) % step))
+        buf[..., :last] = x
+        return buf[..., :last]
     return x
 
 
@@ -244,6 +312,16 @@ def _forward(q, k, v, causal: bool, window: int, scale, with_lse: bool,
                                    scale=scale, q_offset=q_offset), None
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    return _launch(route(q.dtype, q.shape[3], v.shape[3]), q, k, v, causal,
+                   window, scale, with_lse, q_offset)
+
+
+def _launch(kind: str, q, k, v, causal: bool, window: int, scale,
+            with_lse: bool, q_offset: int = 0):
+    """(o, lse or None) from the forward kernel ``kind`` ("sm90", "tf32x3"
+    or "simt") on CUDA tensors: ``_forward`` passes ``route``'s; a caller
+    may name ``"simt"`` at a shape the rule sends elsewhere (to time the
+    two)."""
     B, Sq, H, Dk = q.shape
     Skv, KH, Dv = k.shape[1], k.shape[2], v.shape[3]
     _check_strides("flash_attention", q=q, k=k, v=v)
@@ -251,9 +329,11 @@ def _forward(q, k, v, causal: bool, window: int, scale, with_lse: bool,
         raise ValueError(f"flash_attention: B={B}, H={H} exceed the grid")
     if scale is None:
         scale = 1.0 / math.sqrt(Dk)
-    kind = route(q.dtype, Dk, Dv)
     if kind == "sm90":   # built, or raises, before anything is allocated
         entry = getattr(_nvcc.load(SOURCE_SM90, _ENTRIES_SM90), _ENTRY_SM90)
+    elif kind == "tf32x3":
+        entry = getattr(_nvcc.load(SOURCE_TF32X3, _ENTRIES_TF32X3),
+                        _ENTRY_TF32X3)
     else:
         entry = getattr(_nvcc.load(SOURCE, _ENTRIES), _ENTRY[q.dtype])
     o = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
@@ -261,7 +341,7 @@ def _forward(q, k, v, causal: bool, window: int, scale, with_lse: bool,
            if with_lse else None)
     if o.numel() == 0:
         return o, lse
-    if kind == "sm90":
+    if kind != "simt":
         q, k, v = _aligned16(q), _aligned16(k), _aligned16(v)
     strides = (ctypes.c_int64 * 12)(*(s for x in (q, k, v, o)
                                       for s in x.stride()[:3]))
@@ -273,10 +353,8 @@ def _forward(q, k, v, causal: bool, window: int, scale, with_lse: bool,
     _nvcc.check(err, f"flash_attention ({kind})")
     with _count_lock:
         flash_attention.launches += 1
-        if kind == "sm90":
-            flash_attention.launches_sm90 += 1
-        else:
-            flash_attention.launches_simt += 1
+        setattr(flash_attention, f"launches_{kind}",
+                getattr(flash_attention, f"launches_{kind}") + 1)
     return o, lse
 
 
@@ -318,8 +396,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and the rows' log-sum-exp ``lse`` (B, H, Sq) float32.  CPU tensors run
     ``ref.flash_attention_bwd_ref``; CUDA tensors launch the kernel that
     ``route_bwd`` names on the current stream, or raise: ``sm90`` writes
-    bf16 gradients straight from its accumulators, ``simt`` writes float32
-    ones that are rounded to the inputs' dtypes here."""
+    bf16 gradients straight from its accumulators, ``tf32x3`` and ``simt``
+    write float32 ones that are rounded to the inputs' dtypes here."""
     window, q_offset = int(window), int(q_offset)
     _check(q, k, v, q_offset)
     B, Sq, H, Dk = q.shape
@@ -358,9 +436,10 @@ def _launch_bwd(kind: str, q: torch.Tensor, k: torch.Tensor,
                 lse: torch.Tensor, causal: bool, window: int,
                 scale: Optional[float], q_offset: int = 0
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) from the backward kernel ``kind`` ("sm90" or "simt") on
-    CUDA tensors: ``_backward`` passes ``route_bwd``'s; a caller may name
-    ``"simt"`` at a shape the rule sends to ``sm90`` (to time the two)."""
+    """(dq, dk, dv) from the backward kernel ``kind`` ("sm90", "tf32x3" or
+    "simt") on CUDA tensors: ``_backward`` passes ``route_bwd``'s; a caller
+    may name ``"simt"`` at a shape the rule sends elsewhere (to time the
+    two)."""
     B, Sq, H, Dk = q.shape
     Skv, KH, Dv = k.shape[1], k.shape[2], v.shape[3]
     o, do = o.to(q.dtype), do.to(q.dtype)
@@ -377,6 +456,11 @@ def _launch_bwd(kind: str, q: torch.Tensor, k: torch.Tensor,
                         _ENTRY_BWD_SM90)
         out = dict(dtype=q.dtype, device=q.device)
         q, k, v, o, do = (_aligned16(x) for x in (q, k, v, o, do))
+    elif kind == "tf32x3":
+        entry = getattr(_nvcc.load(SOURCE_BWD_TF32X3, _ENTRIES_BWD_TF32X3),
+                        _ENTRY_BWD_TF32X3)
+        out = dict(dtype=torch.float32, device=q.device)
+        q, k, v, do = (_aligned16(x) for x in (q, k, v, do))
     else:
         entry = getattr(_nvcc.load(SOURCE_BWD, _ENTRIES_BWD),
                         _ENTRY_BWD[q.dtype])
@@ -401,29 +485,25 @@ def _launch_bwd(kind: str, q: torch.Tensor, k: torch.Tensor,
     _nvcc.check(err, f"flash_attention_bwd ({kind})")
     with _count_lock:
         flash_attention_bwd.launches += 1
-        if kind == "sm90":
-            flash_attention_bwd.launches_sm90 += 1
-        else:
-            flash_attention_bwd.launches_simt += 1
+        setattr(flash_attention_bwd, f"launches_{kind}",
+                getattr(flash_attention_bwd, f"launches_{kind}") + 1)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-# Kernel launches, forward and backward: per route, and ``launches`` =
-# their sum (reset all six together).
-flash_attention.launches = 0
-flash_attention.launches_sm90 = 0
-flash_attention.launches_simt = 0
-flash_attention_bwd.launches = 0
-flash_attention_bwd.launches_sm90 = 0
-flash_attention_bwd.launches_simt = 0
-
-
 def reset_counts() -> None:
-    """Set the three launch counts of ``flash_attention`` and of
-    ``flash_attention_bwd`` to 0."""
+    """Set the four launch counts of ``flash_attention`` and of
+    ``flash_attention_bwd`` to 0: per route (``launches_sm90``,
+    ``launches_tf32x3``, ``launches_simt``) and ``launches``, their sum."""
     with _count_lock:
         for fn in (flash_attention, flash_attention_bwd):
-            fn.launches = fn.launches_sm90 = fn.launches_simt = 0
+            fn.launches = 0
+            for kind in ROUTES:
+                setattr(fn, f"launches_{kind}", 0)
+
+
+# Kernel launches, forward and backward: per route, and ``launches`` =
+# their sum (reset all eight together).
+reset_counts()
 
 
 def band_pairs(sq: int, skv: int, causal: bool, window: int,

@@ -151,13 +151,13 @@ def test_k2_round_to_none_is_the_plain_backward():
 ])
 def test_route_bwd(dk, dv, bf16_route):
     assert fa.route_bwd(torch.bfloat16, dk, dv) == bf16_route
-    assert fa.route_bwd(torch.float32, dk, dv) == "simt"
+    assert fa.route_bwd(torch.float32, dk, dv) == "tf32x3"
 
 
 def test_route_bwd_is_the_forward_rule():
     """bf16 with Dk and Dv multiples of 16 up to MAX_HEAD_DIM (256) take
-    sm90, any other bf16 head dim and float32 take simt: the forward's
-    ``route``, with no separate backward limit left."""
+    sm90, any other bf16 head dim takes simt and float32 takes tf32x3: the
+    forward's ``route``, with no separate backward limit left."""
     assert fa.MAX_HEAD_DIM == 256
     assert not hasattr(fa, "MAX_HEAD_DIM_BWD_SM90")
     for dk in range(1, 273):
@@ -167,7 +167,7 @@ def test_route_bwd_is_the_forward_rule():
             assert fa.route_bwd(torch.bfloat16, dk, dv) == want, (dk, dv)
             assert fa.route_bwd(torch.bfloat16, dk, dv) == fa.route(
                 torch.bfloat16, dk, dv)
-            assert fa.route_bwd(torch.float32, dk, dv) == "simt"
+            assert fa.route_bwd(torch.float32, dk, dv) == "tf32x3"
 
 
 # ---- K2-bwd: the sm90 source's shared memory --------------------------------

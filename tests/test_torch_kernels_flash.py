@@ -2,9 +2,9 @@
 the JAX package's Pallas flash kernel (interpret mode) and its oracle, on
 the CPU.
 
-On CPU tensors the wrapper runs its plain version; the two CUDA kernels
-(routes ``sm90`` and ``simt``) are held against that plain version on the
-card by ``chip_smoke.py``.  Here: the route rule, and what the wrapper does
+On CPU tensors the wrapper runs its plain version; the three CUDA kernels
+(routes ``sm90``, ``tf32x3`` and ``simt``) are held against that plain
+version on the card by ``chip_smoke.py``.  Here: the route rule, and what the wrapper does
 around the kernels.  Inputs
 are made with numpy from a seed and handed to both packages.  Tolerances
 are the reference's own (``tests/test_kernels_flash.py``): 2e-5 in float32,
@@ -149,8 +149,8 @@ def test_cuda_without_a_card_raises(monkeypatch, tmp_path):
 
 
 ROUTES = {   # dtype, Dk, Dv -> route
-    "f32-64": (torch.float32, 64, 64, "simt"),
-    "f32-256": (torch.float32, 256, 256, "simt"),
+    "f32-64": (torch.float32, 64, 64, "tf32x3"),
+    "f32-256": (torch.float32, 256, 256, "tf32x3"),
     "bf16-64": (torch.bfloat16, 64, 64, "sm90"),
     "bf16-mla-96-64": (torch.bfloat16, 96, 64, "sm90"),
     "bf16-160": (torch.bfloat16, 160, 160, "sm90"),
@@ -164,8 +164,9 @@ ROUTES = {   # dtype, Dk, Dv -> route
 @pytest.mark.parametrize("case", sorted(ROUTES))
 def test_route_rule(case):
     """bf16 at head dims that are multiples of 16 up to 256 goes to the
-    tensor-core kernel; float32 (IEEE, for the 2e-5 gate) and bf16 at any
-    other dims go to the CUDA-core kernel."""
+    bf16 tensor-core kernel, float32 (3xTF32, for the 2e-5 gate) to the
+    float32 tensor-core kernel at every head dim, and bf16 at any other
+    dims to the CUDA-core kernel."""
     dtype, dk, dv, want = ROUTES[case]
     assert route(dtype, dk, dv) == want
 
