@@ -405,8 +405,11 @@ MOE_ARCH = "dbrx-132b"
 MOE_LAYERS = 8
 MOE_GATE_TOKENS = 512     # phase 8 (a): one float32 prompt, also run on the host
 MOE_RANGES = ("moe.router", "moe.dispatch", "moe.experts", "moe.combine")
-# record_function ranges: their device rows in a trace are spans, not kernels
-RANGES = MOE_RANGES + ("transformer.layer", "train_step.optimizer")
+# the port's spans (repro_torch.tracing), record_function ranges: their
+# device rows in a trace are spans, not kernels
+RANGES = MOE_RANGES + ("transformer.layer", "train_step.forward",
+                       "train_step.backward", "train_step.optimizer",
+                       "model.decode_step")
 # Phase 9 (a): 4 of dbrx's 40 layers in bf16 (4 x 6.52 GB + 2.47 GB of
 # embedding and head, ~28.6 GB), served twice: no mesh, then the mesh.
 SHARD_LAYERS = 4

@@ -17,7 +17,7 @@ the sum); without one it is ``MoE.forward``, all experts.
 
 Everything here is PyTorch's own ops (matmul, sort, gathers, ``bmm``), as
 the reference computes it with ``jnp`` ops outside any Pallas kernel.  The
-four stages run under ``torch.profiler.record_function`` ranges
+four stages run under ``tracing.span`` ranges
 (``moe.router``, ``moe.dispatch``, ``moe.experts``, ``moe.combine``), so a
 trace attributes the device time of each.  Three choices keep the two
 packages equal:
@@ -39,8 +39,8 @@ import math
 import torch
 from torch import nn
 from torch.nn import functional as F
-from torch.profiler import record_function
 
+from ..tracing import span
 from .config import ArchConfig
 from .layers import MLP, Init, _dtype
 
@@ -110,9 +110,9 @@ def moe_local(p: dict, x: torch.Tensor, cfg: ArchConfig, *, e_off: int,
     statistics)."""
     T, d = x.shape
     k, C = cfg.experts_per_token, capacity
-    with record_function("moe.router"):
+    with span("moe.router"):
         top_w, top_i = route(x, p["router"], k)
-    with record_function("moe.dispatch"):
+    with span("moe.dispatch"):
         slot, keep = dispatch(top_i, e_off=e_off, num_local=num_local,
                               capacity=C)
         # Scatter into the (num_local + 1, C) slot table the id of the
@@ -127,10 +127,10 @@ def moe_local(p: dict, x: torch.Tensor, cfg: ArchConfig, *, e_off: int,
                           num_local * C)] = tok
         xpad = torch.cat([x, x.new_zeros((1, d))])
         xe = xpad[table[:num_local * C]].view(num_local, C, d)
-    with record_function("moe.experts"):
+    with span("moe.experts"):
         h = F.silu(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_in"])
         y = torch.bmm(h, p["w_out"]).view(num_local * C, d)    # (n*C, d)
-    with record_function("moe.combine"):
+    with span("moe.combine"):
         # A dropped or non-local pair gets weight 0: its slot 0 holds a
         # kept token's row of y or an empty slot's zero row, both finite,
         # so it adds exactly 0 (the reference masks the product instead).

@@ -43,7 +43,6 @@ import numpy as np
 import torch
 from torch import nn
 from torch.distributed.tensor import DTensor
-from torch.profiler import record_function
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -55,6 +54,7 @@ from ..distributed.context import (axis_names, batch_axes, constrain_batch,
                                    model_axis_size, model_group, model_rank,
                                    use_mesh, use_seq_shard)
 from ..distributed.sharding import gathered
+from ..tracing import span
 from .config import ArchConfig
 from .layers import (MLA, MLP, Attention, Init, RMSNorm, _dtype, _linear,
                      rmsnorm)
@@ -187,10 +187,10 @@ def _block_out(blk: Block, x: torch.Tensor, window: int,
     """``blk``'s output under ``mesh``: remat's recompute runs in the
     backward, on the autograd engine's own thread for CUDA tensors, where
     ``use_mesh``'s context variable is not set, so the mesh of the
-    forward (and its Megatron-SP decision) is passed along.  A
-    ``record_function`` range, ``transformer.layer``, lets a trace tell the
+    forward (and its Megatron-SP decision) is passed along.  A span
+    (``tracing``), ``transformer.layer``, lets a trace tell the
     layers' forward and recompute from the backward."""
-    with use_mesh(mesh), record_function("transformer.layer"):
+    with use_mesh(mesh), span("transformer.layer"):
         return blk(x, window=window, seq_shard=seq_shard)[0]
 
 
@@ -553,10 +553,13 @@ class Model(nn.Module):
                     ) -> tuple[torch.Tensor, dict]:
         """One token for every sequence.  batch: {"tokens": (B, 1)} or
         {"embeds": (B, 1, d)}.  Returns (logits (B, V), cache): the cache's
-        tensors are updated in place and its ``pos`` advanced by one."""
-        x = self.embed_inputs(batch)
-        pos = int(cache["pos"])
-        for i, (blk, w) in enumerate(zip(self.layers, self.windows)):
-            layer = {kk: vv[i] for kk, vv in cache.items() if kk != "pos"}
-            x = blk.decode(x, layer, pos, window=w)
-        return self._head(x)[:, 0], dict(cache, pos=pos + 1)
+        tensors are updated in place and its ``pos`` advanced by one.  The
+        step runs under the span ``model.decode_step`` (``tracing``)."""
+        with span("model.decode_step"):
+            x = self.embed_inputs(batch)
+            pos = int(cache["pos"])
+            for i, (blk, w) in enumerate(zip(self.layers, self.windows)):
+                layer = {kk: vv[i] for kk, vv in cache.items()
+                         if kk != "pos"}
+                x = blk.decode(x, layer, pos, window=w)
+            return self._head(x)[:, 0], dict(cache, pos=pos + 1)

@@ -10,11 +10,11 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
-from torch.profiler import record_function
 
 from ..models import Model
 from ..models.config import ArchConfig
 from ..models.convert import layer_groups
+from ..tracing import span
 from .optim import AdamW, FactoredAdam, cosine_schedule
 
 
@@ -38,19 +38,22 @@ def init_state(model: Model, optimizer) -> dict:
 
 def make_train_step(model: Model, optimizer) -> Callable:
     """``train_step(state, batch) -> (state, metrics)``: zero the grads, run
-    ``model.loss`` and its backward, apply the optimizer in place (under a
-    ``record_function`` range, ``train_step.optimizer``, so a trace
-    attributes its device time); metrics are the optimizer's
-    (``grad_norm``, ``lr``) plus ``loss``, as 0-d tensors on the model's
-    device."""
+    ``model.loss`` and its backward, apply the optimizer in place; metrics
+    are the optimizer's (``grad_norm``, ``lr``) plus ``loss``, as 0-d
+    tensors on the model's device.  The three phases run under the spans
+    ``train_step.forward``, ``train_step.backward`` and
+    ``train_step.optimizer`` (``tracing``), so a trace attributes their
+    device time."""
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         params = state["params"]
         for p in params.values():
             p.grad = None
-        loss = model.loss(batch)
-        loss.backward()
+        with span("train_step.forward"):
+            loss = model.loss(batch)
+        with span("train_step.backward"):
+            loss.backward()
         grads = {k: p.grad for k, p in params.items()}
-        with record_function("train_step.optimizer"):
+        with span("train_step.optimizer"):
             new_params, new_opt, metrics = optimizer.update(
                 grads, state["opt"], params)
         for p in params.values():

@@ -23,7 +23,8 @@ PORT = SRC / "repro_torch"
     "repro_torch.models.moe", "repro_torch.distributed.context",
     "repro_torch.distributed.sharding", "repro_torch.distributed.collectives",
     "repro_torch.launch.mesh", "repro_torch.launch.specs",
-    "repro_torch.launch.dryrun", "repro_torch.launch.hlo_costs"])
+    "repro_torch.launch.dryrun", "repro_torch.launch.hlo_costs",
+    "repro_torch.tracing"])
 def test_import_pulls_in_no_jax_and_no_reference(module):
     code = (f"import json, sys; import {module}; "
             "print(json.dumps(sorted(sys.modules)))")
