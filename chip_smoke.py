@@ -9,12 +9,13 @@ failed check exits non-zero):
 1. env     — card name and power limit, torch/CUDA/nvcc versions.
 2. build   — compile the nine hand-written CUDA sources from the
              checkout (K1, K2 on its three routes, K3, K2-bwd on its three
-             routes, K3-bwd; all but K2's ``sm90`` and ``simt`` forward
-             sources include ``csrc/sm90_tf32x3.cuh``), one ``nvcc`` each,
-             all started together; ptxas's registers and spills for each
-             kernel and instantiation (K2-bwd's ``sm90`` instantiations, up
-             to head dim 256, must spill 0 bytes) and any wgmma
-             serialisation it reports.
+             routes, K3-bwd; all but K2's ``simt`` forward source include
+             ``csrc/sm90_tf32x3.cuh``), one ``nvcc`` each, all started
+             together; ptxas's registers and spills for each kernel and
+             instantiation (K2-bwd's ``sm90`` instantiations, up to head dim
+             256, must spill 0 bytes; K2's ``sm90`` instantiations must
+             get 168 registers, what their setmaxnreg split needs) and any
+             wgmma serialisation it reports.
 3. kernel  — every kernel against its plain PyTorch version on the card, at
              test shapes and at the main path's shapes, with times beside
              the card's bound and a PyTorch library call.  Every K1 and K3
@@ -23,13 +24,14 @@ failed check exits non-zero):
              inputs widened), and one K1 row at the i1 depth K = 30000 is
              held against float64 at the unscaled gate.  K2 runs bf16 at
              head dims that are multiples of 16 on its bf16 tensor-core
-             route (``sm90``), float32 on its 3xTF32 tensor-core route
-             (``tf32x3``: at head dims 32, 40, 64, 96/64, 128, 160 and 256,
-             each row also timing ``simt``'s float32 entry at its shape and
-             printing its bound at 3xTF32 and at the 67 TFLOP/s CUDA-core
-             rate; 128, 96/64 and 160 also at 2 x 1024 tokens), and bf16 at
-             other head dims on its CUDA-core route
-             (``simt``); every row prints its route and fails if it is not
+             route (``sm90``, each row with the K/V tile and ring depth
+             ``sm90_plan`` gives it), float32 on its 3xTF32 tensor-core
+             route (``tf32x3``: at head dims 32, 40, 64, 96/64, 128, 160
+             and 256, each row also timing ``simt``'s float32 entry at its
+             shape and printing its bound at 3xTF32 and at the 67 TFLOP/s
+             CUDA-core rate; 128, 96/64 and 160 also at 2 x 1024 tokens),
+             and bf16 at other head dims on its CUDA-core route (``simt``);
+             every row prints its route and fails if it is not
              the rule's.  K2 also runs at query offsets (``q_offset``, off
              the 64-row tile, with and without a window, Skv = q_offset +
              Sq and beyond it, one shape whose last rows keep no key and
@@ -237,9 +239,12 @@ failed check exits non-zero):
              "full": launches per step, ms/step, tokens/s, model TFLOP/s,
              peak, a traced step, the dry run held as phase 10 (a) holds
              its cells, loss and gradients twice from one state,
-             bit-equal; (d) K2 at (b)'s larger prefill and K2-bwd at (c)'s
-             step against their plain versions, timed beside their bounds
-             and sdpa, and which of sdpa's backends take Dk != Dv.
+             bit-equal; (d) K2 at (b)'s larger prefill and at the
+             benchmark's serving cell (4 x 16384 tokens, 40 heads, window
+             0; its first 128 and last 256 rows held against the plain
+             version) and K2-bwd at (c)'s step against their plain
+             versions, timed beside their bounds and sdpa, and which of
+             sdpa's backends take Dk != Dv.
 13. zoo    — the six configurations no earlier phase runs as models:
              mamba2-2.7B (attention-free, 80 SSM heads at state 128),
              stablelm-12b (32/8 heads of 160), musicgen-medium (24/24
@@ -325,7 +330,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     build_bwd_tf32x3 as build_k2_bwd_tf32x3, bwd_sm90_kernel_smem_bytes,
     bwd_sm90_smem_bytes, bwd_tf32x3_smem_bytes, build_sm90 as build_k2_sm90,
     build_tf32x3 as build_k2_tf32x3, reset_counts as reset_k2_counts, route,
-    route_bwd, sm90_smem_bytes, tf32x3_kernel_smem_bytes, tf32x3_smem_bytes)
+    route_bwd, sm90_plan, tf32x3_kernel_smem_bytes, tf32x3_smem_bytes)
 from repro_torch.kernels.matmul import build  # noqa: E402
 from repro_torch.kernels.matmul import entry as k1_entry  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
@@ -539,6 +544,9 @@ K2B_WIDE_ROWS = (
 # allocator's cached blocks (NVIDIA H100 80GB HBM3, 700.00 W).
 MLA_ARCH, MLA_GATE_LAYERS = "minicpm3-4b", 2
 SERVE_WEIGHTS, TRAIN_PEAK = 64 * 2**30, 66 * 2**30
+# Phase 12 (d): K2 at the prefill of the benchmark's minicpm3-4b.serve-longdoc
+# cell (perfbench/): B, S of its padded batch at the longest prompts.
+MLA_CELL = (4, 16384)
 # Phase 13: the six configurations no earlier phase runs, in this order;
 # all are served, the first four trained (as the reference trains them).
 # ZOO_TRACED's serving is traced, and stablelm-12b's step (K2-bwd's share
@@ -649,15 +657,21 @@ def band_mask(S: int, skv: int, causal: bool, window: int,
 
 def flash_row(label, gen, B, S, H, KH, Dk, Dv, window, dtype,
               causal=True, q_offset: int = 0, skv: int | None = None,
-              phase: str = "kernel", kind: str | None = None) -> dict:
+              phase: str = "kernel", kind: str | None = None,
+              sample: bool = False) -> dict:
     """K2 against its plain version on the same card tensors, then kernel,
     plain version and ``scaled_dot_product_attention`` timed (at window 0
     and offset 0, also sdpa's ``is_causal`` form, which needs no mask
     tensor and may take PyTorch's flash backend); a ``tf32x3`` row also
     times ``simt``'s float32 entry at its shape (``simt_ms``) and gives its
-    bound at the 67 TFLOP/s CUDA-core rate beside the 3xTF32 one.
+    bound at the 67 TFLOP/s CUDA-core rate beside the 3xTF32 one; an
+    ``sm90`` row prints ``sm90_plan``'s tile, stages and shared memory.
     ``q_offset``: query row i at position ``q_offset + i`` over ``skv``
-    keys (default S); rows that keep no key must be 0 in both.  Fails if
+    keys (default S); rows that keep no key must be 0 in both.
+    ``sample``: a shape whose score matrix the plain version cannot hold
+    (causal, window 0): its first 128 and last 256 query rows are held
+    against the plain version run at their offsets, and neither the plain
+    version nor sdpa's mask form is timed.  Fails if
     the launch did not take the route that ``route`` names, or bf16 at head
     dims that are multiples of 16 did not run on ``sm90``, or float32 on
     ``tf32x3``.  ``kind`` names a kernel to run in the route's place (the
@@ -682,6 +696,7 @@ def flash_row(label, gen, B, S, H, KH, Dk, Dv, window, dtype,
     torch.cuda.synchronize()
     ran = [r for r, a, b in zip(K2_ROUTES, k2_counts(), before) if a > b]
     check(ran == [kind], f"K2 {label}: launched on {ran}, not {kind}")
+    plan = sm90_plan(Dk, Dv) if kind == "sm90" else None
     if not named and dtype == torch.bfloat16 and Dk % 16 == 0 \
             and Dv % 16 == 0:
         check(kind == "sm90", f"K2 {label}: bf16 at Dk {Dk}, Dv {Dv} did not "
@@ -689,19 +704,26 @@ def flash_row(label, gen, B, S, H, KH, Dk, Dv, window, dtype,
     if not named and dtype == torch.float32:
         check(kind == "tf32x3", f"K2 {label}: float32 did not take the "
               f"3xTF32 tensor-core route")
-    plain = flash_attention_ref(q, k, v, causal=causal, window=window,
-                                q_offset=q_offset)
-    diff = (out.float() - plain.float()).abs()
     tol = K2_TOL[name]
-    mask = band_mask(S, skv, causal, window, q_offset)
-    empty = ~mask.any(-1)
-    row = {"label": label, "dtype": name, "route": kind,
-           "max_abs_err": float(diff.max()),
-           "violations": int((diff > tol + tol * plain.float().abs()).sum()),
-           "tol": tol, "empty_rows": int(empty.sum()),
-           "empty_nonzero": int((out[:, empty] != 0).sum()
-                                + (plain[:, empty] != 0).sum())}
-    del out, plain, diff
+    row = {"label": label, "dtype": name, "route": kind, "tol": tol}
+
+    # against the plain version, all rows or (sample) the first 128 and
+    # the last 256, each run at its offset
+    row.update(max_abs_err=0.0, violations=0, empty_rows=0, empty_nonzero=0)
+    for r0, n in ((0, 128), (S - 256, 256)) if sample else ((0, S),):
+        plain = flash_attention_ref(q[:, r0:r0 + n], k, v, causal=causal,
+                                    window=window, q_offset=q_offset + r0)
+        empty = ~band_mask(n, skv, causal, window, q_offset + r0).any(-1)
+        part = out[:, r0:r0 + n]
+        diff = (part.float() - plain.float()).abs()
+        row["max_abs_err"] = max(row["max_abs_err"], float(diff.max()))
+        row["violations"] += int(
+            (diff > tol + tol * plain.float().abs()).sum())
+        row["empty_rows"] += int(empty.sum())
+        row["empty_nonzero"] += int((part[:, empty] != 0).sum()
+                                    + (plain[:, empty] != 0).sum())
+        del plain, diff
+    del out
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     row["kernel_ms"] = cuda_ms(run)
     simt_text = ""
@@ -710,12 +732,19 @@ def flash_row(label, gen, B, S, H, KH, Dk, Dv, window, dtype,
             "simt", q, k, v, causal, window, None, False, q_offset))
         simt_text = (f" simt_ms={row['simt_ms']:.4f} (simt's float32 entry, "
                      f"{row['simt_ms'] / row['kernel_ms']:.2f}x)")
-    row["plain_ms"] = cuda_ms(lambda: flash_attention_ref(
-        q, k, v, causal=causal, window=window, q_offset=q_offset))
-    row["library_ms"] = cuda_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, scale=1.0 / math.sqrt(Dk),
-            enable_gqa=True))
+    if sample:
+        row["plain_ms"] = row["library_ms"] = float("nan")
+        mask_text = "not timed (an S x S mask)"
+    else:
+        mask = band_mask(S, skv, causal, window, q_offset)
+        row["plain_ms"] = cuda_ms(lambda: flash_attention_ref(
+            q, k, v, causal=causal, window=window, q_offset=q_offset))
+        row["library_ms"] = cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, scale=1.0 / math.sqrt(Dk),
+                enable_gqa=True))
+        del mask
+        mask_text = f"{row['library_ms']:.4f}"
     causal_text = ""
     if causal and window == 0 and q_offset == 0 and skv == S:
         row["library_causal_ms"] = cuda_ms(
@@ -730,8 +759,9 @@ def flash_row(label, gen, B, S, H, KH, Dk, Dv, window, dtype,
     nbytes = size * (B * S * H * (Dk + Dv) + B * skv * KH * (Dk + Dv))
     row["peak"] = "tf32x3" if kind == "tf32x3" else name
     row["bound_ms"], row["bound_by"] = roofline(ops, nbytes, row["peak"])
-    smem = (f", {sm90_smem_bytes(Dk, Dv) / 1024:.0f} KiB dynamic shared "
-            f"memory" if kind == "sm90" else "")
+    smem = (f", {plan.keys} keys a tile, {plan.stages} stages, "
+            f"{plan.smem / 1024:.0f} KiB dynamic shared memory" if plan
+            else "")
     if kind == "tf32x3":
         row["fma_bound_ms"], _ = roofline(ops, nbytes, "float32")
         got = tf32x3_kernel_smem_bytes(Dk, Dv)[0]
@@ -744,13 +774,16 @@ def flash_row(label, gen, B, S, H, KH, Dk, Dv, window, dtype,
     offset = (f" q_offset {q_offset} Skv {skv} ({row['empty_rows']} rows "
               f"keep no key, nonzero there: {row['empty_nonzero']})"
               if q_offset or skv != S else "")
+    held = " (rows 0..127 and the last 256)" if sample else ""
     say(phase, f"K2 {label} B{B} S{S} H{H}/{KH} Dk{Dk} Dv{Dv} "
         f"window {window}{'' if causal else ' noncausal'}{offset} {name} "
-        f"route {kind}{smem}: vs plain max_abs_err={row['max_abs_err']:.3e} "
-        f"violations={row['violations']} (rtol=atol={tol}); kernel_ms="
-        f"{row['kernel_ms']:.4f} plain_ms={row['plain_ms']:.4f} library_ms="
-        f"{row['library_ms']:.4f} (sdpa, bool mask, enable_gqa)"
-        f"{causal_text}{simt_text} " + bound_text(row))
+        f"route {kind}{smem}: vs plain{held} max_abs_err="
+        f"{row['max_abs_err']:.3e} violations={row['violations']} "
+        f"(rtol=atol={tol}); kernel_ms={row['kernel_ms']:.4f} plain_ms="
+        f"{row['plain_ms']:.4f} library_ms={mask_text} (sdpa, bool mask, "
+        f"enable_gqa){causal_text}{simt_text} "
+        f"({100 * row['bound_ms'] / row['kernel_ms']:.1f} % of the bound) "
+        + bound_text(row))
     check(row["violations"] == 0, f"K2 disagrees with its plain version: "
           f"{row}")
     check(row["empty_nonzero"] == 0, f"K2 {label}: rows that keep no key "
@@ -4432,6 +4465,8 @@ def mla_phase(gen, card: str) -> dict:
     bf16 = torch.bfloat16
     k2 = flash_row("mla-serve-path", gen, B, S, H, H, Dk, Dv, 0, bf16,
                    phase="mla")
+    flash_row("mla-serve-cell", gen, *MLA_CELL, H, H, Dk, Dv, 0, bf16,
+              phase="mla", sample=True)
     k2b = flash_bwd_row("mla-train-path", gen, TRAIN_BATCH, TRAIN_SEQ, H, H,
                         Dk, Dv, 0, bf16, twice=True, phase="mla", part="(d)")
     check(k2["route"] == "sm90" and k2b["route"] == "sm90",
@@ -4583,10 +4618,21 @@ def main() -> None:
         infos = list(pool.map(lambda f: f(), builders))
     for builder, info in zip(builders, infos):
         say("build", f"{info.path.relative_to(ROOT)} in {info.seconds:.1f} s")
+        entry = ""
         for line in info.log.splitlines():   # ptxas -v, one kernel each
+            if "Compiling entry" in line:
+                entry = line
             if ("Compiling entry" in line or "Used" in line
                     or "spill" in line or "C7515" in line):
                 say("build", line.strip())
+            # K2's sm90 kernel hands registers from its producer to its
+            # consumers (setmaxnreg 24 / 240), which balances only at the
+            # 168 a thread that __launch_bounds__(384, 1) gives (its launch
+            # refuses any other count)
+            if (builder is build_k2_sm90 and "flash_sm90_kernel" in entry
+                    and "Used" in line):
+                check("Used 168 registers" in line, f"K2 sm90: ptxas "
+                      f"gave {line.strip()}, not 168 registers")
             if builder is build_k2_bwd_sm90 and "spill" in line:
                 check("0 bytes spill stores, 0 bytes spill loads" in line,
                       f"K2-bwd sm90: ptxas spills: {line.strip()}")

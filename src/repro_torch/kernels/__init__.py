@@ -4,7 +4,8 @@
                         float32 through 3xTF32 and bf16 on wgmma
 * ``flash_attention`` — K2, causal / windowed GQA attention for prefill:
                         bf16 on the tensor cores
-                        (``csrc/flash_attention_sm90.cu``), float32
+                        (``csrc/flash_attention_sm90.cu``: a TMA producer
+                        and two ping-pong consumer warpgroups), float32
                         through 3xTF32 on wgmma
                         (``csrc/flash_attention_tf32x3.cu``), bf16 at other
                         head dims on the CUDA cores
@@ -26,10 +27,10 @@
   Both are the backward of the ``torch.autograd.Function`` that K2 and K3
   run as when autograd records them.
 
-K1, K3, the two tensor-core backward sources and K2's float32 pair share
-``csrc/sm90_tf32x3.cuh``: the cp.async ring, the 128-byte swizzle, wgmma
-descriptors and issue, and the hi/lo TF32 split that keeps float32
-accuracy on the tensor cores; K2's float32 pair adds
+K1, K3, the two tensor-core backward sources, K2's bf16 source and its
+float32 pair share ``csrc/sm90_tf32x3.cuh``: the cp.async ring, the
+128-byte swizzle, wgmma descriptors and issue, and the hi/lo TF32 split
+that keeps float32 accuracy on the tensor cores; K2's float32 pair adds
 ``csrc/flash_tf32x3.cuh`` (64 x 64 chunks split K-major or transposed).
 
 Each kernel has a plain PyTorch version in ``ref.py``.  A wrapper runs the

@@ -33,6 +33,9 @@ from torch.utils.flop_counter import register_flop_formula
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
+# Bytes of shared memory one block may use on the H100 (the sources'
+# poas_sm90::kSmemLimit).
+SMEM_LIMIT = 232_448
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

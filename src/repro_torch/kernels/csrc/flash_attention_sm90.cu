@@ -1,5 +1,6 @@
 // K2 on Hopper's tensor cores: causal / sliding-window GQA flash attention
-// (forward) in bf16, with wgmma and a cp.async ring of K/V tiles, for sm_90a.
+// (forward) in bf16, with wgmma, for sm_90a: warp-specialised, a TMA
+// producer and two consumer warpgroups in ping-pong.
 //
 // Replaces src/repro/kernels/flash_attention.py::flash_attention_pallas
 // (:70, body _flash_kernel): a (B, H, Sq/bq, Skv/bk) grid whose sequential
@@ -16,71 +17,132 @@
 // CUDA cores) every other bf16 shape.  The wrapper's route() says which, by
 // that rule and nothing else.
 //
-// What bounds it on this card.  At hymba-1.5B's prefill (5 x 2776 tokens,
-// 25 query / 5 KV heads of 64, window 1024) the band holds 2.90e8
-// (query, key) pairs: 7.42e10 operations for the two products, 0.075 ms at
-// the 989 TFLOP/s bf16 tensor-core peak, against 107 MB of q, k, v, o
-// (0.032 ms at 3.35 TB/s) -- operation bound.  The softmax needs one exp
-// per pair, and exps run on the SFU (MUFU) at 16 a clock per SM: 2.90e8 of
-// them take ~0.075 ms at 1.83 GHz, as long as the tensor work.  So the
-// kernel has two bounds of the same size, and the exps matter.
+// What bounds it on this card.  A kept (query, key) pair costs 2 (Dk + Dv)
+// operations on the tensor cores (320 at MLA's 96 / 64: 3.2e-13 s at the
+// 989 TFLOP/s bf16 peak) and one exp on the SFU (MUFU, 16 a clock per SM:
+// 2.6e-13 s at 1.83 GHz over 132 SMs), 80 % of the tensor time; q, k, v, o
+// are read and written once per tile pass, far under HBM's rate.  So the
+// kernel has two bounds of nearly the same size.  Done one after the other
+// they cap it near 56 % of its roofline; done side by side, the tensor
+// cores alone bound it.
 //
-// What the design does about it:
-//  * One warpgroup (128 threads) per 64-row query tile of one head and
-//    batch; the TPU's sequential KV grid axis is a loop inside the block,
-//    over 64-key tiles.  Tiles wholly outside the causal/window band are
-//    skipped (exact), and the heaviest query tiles are launched first.
-//  * S = Q K^T on wgmma.m64n64k16 (bf16 in, f32 accumulate; products of
-//    bf16 are exact in f32, so only the order of the sums changes), Q and
-//    K read from shared memory in wgmma's K-major layout with the 128-byte
-//    swizzle, through descriptors built here (no library).
+// The arithmetic:
+//  * S = Q K^T on wgmma (bf16 in, f32 accumulate; products of bf16 are
+//    exact in f32, so only the order of the sums changes), Q and K read
+//    from shared memory in wgmma's K-major layout with the 128-byte swizzle
+//    (csrc/sm90_tf32x3.cuh), through descriptors built here (no library).
 //  * Online softmax in the accumulator's registers: each thread holds two
-//    rows x 16 columns; a row's max is reduced over its quad with two
+//    rows of the tile; a row's max is reduced over its quad with two
 //    shuffles, its sum only once at the end.  p = exp2(s * scale*log2e -
 //    m * scale*log2e), one FMA and one MUFU op (ex2.approx.ftz) per score,
 //    where exp2f's denormal handling would add three more.  Masks are
 //    selects (p = 0), applied only on tiles that cross the diagonal, the
-//    window edge or Skv; interior tiles do no mask arithmetic.
-//  * O += P V on wgmma with P as the register A operand: the f32 scores are
-//    rounded to bf16 in place (the accumulator layout of m64n16 is the A
-//    layout of m64k16), as the reference model stack's flash rounds P to
-//    V's dtype; V is the B operand in its natural [key][dv] layout, read
-//    MN-major (wgmma's transposed B for 16-bit types).
-//  * K and V tiles stream through a ring of two buffers in shared memory
-//    filled by 16-byte cp.async copies (zero-filled past Skv): tile t+1
-//    loads while tile t is in the tensor cores.  At Dk = Dv = 64 a block
-//    holds 40 KiB (Q 8 + two stages of K, V 16 each) and 128 registers a
-//    thread (the launch bound for four blocks an SM), so four blocks share
-//    an SM and one block's exps can overlap another's wgmma.
+//    window edge or Skv; interior tiles do no mask arithmetic, and tiles
+//    wholly outside the causal/window band are skipped (exact).  The
+//    heaviest query tiles (the longest causal rows) are launched first.
+//  * O += P V on wgmma with P as the register A operand: the softmax
+//    writes each score's weight rounded to bf16 straight into it (the
+//    accumulator layout of m64nN is the A layout of m64k16) and leaves S
+//    as it is, as the reference model stack's flash rounds P to V's dtype;
+//    V is the B operand in its natural [key][dv] layout, read MN-major
+//    (wgmma's transposed B for 16-bit types).
 //  * q, k, v are read through their (B, S, H, D) strides (16-byte aligned
-//    rows; the wrapper copies what is not), the output written in place.
-//  * Dk is a runtime loop of 16-deep steps; Dv is a template of 64-wide
-//    blocks (1-4), its padding columns computed and dropped.
+//    rows; the wrapper copies what is not), the output written in place
+//    from the accumulators.  Dk is a runtime loop of 16-deep steps; Dv is a
+//    template of 64-wide blocks (1-4), its padding columns computed and
+//    dropped.
 //  * For training, each row's log-sum-exp of its scaled scores,
 //    scale * m + ln l, is written to `lse` (B, H, Sq) f32 when the pointer
-//    is not null (flash_attention_bwd.cu reads it); the serving path
-//    passes null and pays one untaken branch per row.
-//  * Measured no faster at hymba's shape, so not kept: a ring of 3 or 4
-//    stages, and two or three warpgroups per block sharing one K/V ring
-//    (half or a third of the tile loads, at fewer blocks per SM).
+//    is not null (the backward kernels read it); the serving path passes
+//    null and pays one untaken branch per row.
 //
-// Later work: TMA loads (a descriptor over the strided (B, S, H, D) views
-// needs cuTensorMapEncodeTiled from libcuda, which the port does not bind),
-// a producer warp with mbarriers, two consumer warpgroups in ping-pong so
-// one's softmax hides the other's wgmma, and exp2 by polynomial on the FMA
-// pipe for part of each tile.
+// The design:
+//  * A block of 384 threads takes a 128-row query tile of one head and
+//    batch.  Warpgroup 0 is the producer: one thread keeps K/V tiles in
+//    flight through a ring of 2-4 stages (as many as shared memory holds)
+//    with TMA (cp.async.bulk.tensor over the (B, S, H, D) strided views;
+//    the descriptors come from cuTensorMapEncodeTiled, reached through the
+//    runtime's cudaGetDriverEntryPoint, since the port links no libcuda),
+//    each stage guarded by a full and an empty mbarrier.  Out-of-range rows
+//    and columns land as zeros.  It keeps 24 registers (setmaxnreg); the
+//    consumers take 240, which balances only if ptxas gave the kernel 168:
+//    the launch checks that count and fails where it differs.
+//  * Warpgroups 1 and 2 each own 64 rows of the tile and read every K/V
+//    tile once (half the K/V loads per query row of one warpgroup a tile).
+//    They never copy and never __syncthreads() in the loop.  Two named
+//    barriers order them in ping-pong: a warpgroup issues its products
+//    only after the other has issued its own, so one's softmax runs while
+//    the other's products hold the tensor cores.
+//  * Inside a consumer, tile t's S = Q K(t)^T and the previous tile's
+//    O += P(t-1) V(t-1) are issued together, and the wait is
+//    wgmma.wait_group 1: the softmax of tile t starts when S(t) lands,
+//    while PV(t-1) still runs, and writes P(t) into the other of two P
+//    buffers.  O is rescaled before the next pair is issued, while no
+//    product is in flight: ptxas serialises every wgmma of a kernel where
+//    other instructions write a live accumulator (its C7515 report).
+//  * Keys a tile and ring stages come from the wrapper (sm90_plan in
+//    flash_attention.py, by (Dk, Dv) alone: 128 keys, S on
+//    wgmma.m64n128k16, where Dk <= 128 and Dv <= 128, else 64; as many
+//    stages, 2-4, as fit); the entry checks that the launch fits a block's
+//    shared memory and that an instantiation takes that tile.
+//
+// It replaced one warpgroup per 64-row query tile over a two-stage
+// cp.async ring, with one __syncthreads() a tile and the products and the
+// softmax strictly in turn.  Measured on an H100 80GB HBM3 at 700 W
+// (chip_smoke.py's rows, CUDA events) against that loop: MLA's prefill of
+// 4 x 16384 tokens, 40 heads, 96 / 64, window 0, 14.3 ms against 33.4
+// (48.7 % of the 6.95 ms bound against 20.8; sdpa's is_causal 14.7);
+// 5 x 2776 at Dk 128 1.13 against 2.57, at 160 1.01 against 3.41; hymba's
+// window 1024 0.41 against 0.47, where a 128-row tile sees at most 10 key
+// tiles.
+//
+// What bounds it now.  At MLA's prefill the products alone take 6.95 ms
+// and the exps alone 5.6 (2.1e10 kept pairs at 16 a clock per SM); 14.3 ms
+// is near their sum, so the ping-pong hides only part of the softmax.  A
+// warpgroup's 64 x 128 tile holds the tensor cores ~640 clocks, and its
+// 8192 exps hold the SM's SFU, which both warpgroups share, ~512, beside
+// the softmax's FMAs, maxima, mask selects and bf16 packing in the same
+// issue slots: the two halves of a ping-pong are nearly equal, so a stall
+// in either shows in the other.  Which stall it is has not been measured.
+//
+// Measured and not kept: the softmax written over S in place (ptxas's
+// C7515 serialised the kernel: 19.3 ms at MLA's prefill); the S loop
+// unrolled over 16 steps (no faster); S(t) and PV(t-1) waited together
+// (wait_group 0), 5 % slower at MLA, even at Dk 128 and 160.  In the loop
+// it replaced, a ring of 3 or 4 stages, and two or three warpgroups per
+// block sharing one K/V ring that they load themselves and meet at
+// __syncthreads() (hymba's shape, window 1024).
+//
+// Later work: exp2 by polynomial on the FMA pipe for part of each tile;
+// a persistent grid, so one tile's epilogue overlaps the next one's loads;
+// the spills of the widest instantiations (ptxas, chip_smoke's build).
 #include <cstdint>
+#include <type_traits>
 
+#include <cuda.h>   // CUtensorMap and its enums (types only; no libcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "sm90_tf32x3.cuh"
+
 namespace {
 
-constexpr int BQ = 64;            // query rows per block (one wgmma M)
-constexpr int BK = 64;            // keys per tile (wgmma N of S, K of PV)
-constexpr int THREADS = 128;      // one warpgroup
-constexpr int ATOM = 64 * 128;    // 64 rows x 128 bytes: one swizzled block
-constexpr int STAGES = 2;         // K/V ring depth
+using namespace poas_sm90;
+
+constexpr int BQ = 128;           // query rows per block
+constexpr int THREADS = 384;      // producer + two consumer warpgroups
+constexpr int MIN_STAGES = 2, MAX_STAGES = 4;
+constexpr int BARRIERS = 256;     // bytes for the ring's and Q's mbarriers
+// Registers a thread is launched with, and what setmaxnreg gives
+// back: the producer's 128 threads drop to 24, the consumers' 256 rise to
+// 240, which balances only at (128 * 24 + 256 * 240) / 384 = 168 (the most
+// __launch_bounds__(384, 1) allows).  At any other count setmaxnreg.inc
+// would wait forever, so the launch checks it.
+constexpr int REGS = 168;
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+static_assert(128 * PRODUCER_REGS + 256 * CONSUMER_REGS == THREADS * REGS,
+              "setmaxnreg must balance");
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -88,109 +150,11 @@ struct Strides {   // element strides of a (B, S, H, D) tensor; D is unit
   int64_t b, s, h;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
 // 2^x on the SFU, denormal results flushed to 0 (weights below 2^-126).
 __device__ __forceinline__ float exp2_ftz(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-// 64 rows x d columns (d a multiple of 8) of a strided bf16 tensor into
-// ceil(d/64) blocks of ATOM bytes, each in wgmma's 128-byte-swizzle layout:
-// row r at r * 128 bytes, its 16-byte chunk c at (c ^ (r % 8)) * 16.
-__device__ __forceinline__ void load_rows(uint32_t dst,
-                                          const __nv_bfloat16* src,
-                                          int64_t row0, int64_t limit,
-                                          int64_t stride, int chunks,
-                                          int tid) {
-  for (int e = tid; e < BQ * chunks; e += THREADS) {
-    const int r = e / chunks, c = e - r * chunks;
-    const bool ok = row0 + r < limit;
-    const __nv_bfloat16* g = ok ? src + (row0 + r) * stride + c * 8 : src;
-    cp_async16(dst + (c >> 3) * ATOM + r * 128 + (((c & 7) ^ (r & 7)) << 4),
-               g, ok);
-  }
-}
-
-// wgmma shared-memory matrix descriptor, 128-byte swizzle.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keeps the compiler from moving reads of an accumulator above the wait.
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-// d (64 x 64, f32) {=, +=} A (64 x 16, K-major smem) * B (16 x 64, K-major
-// smem).
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 64, f32) += A (64 x 16, bf16 registers) * B (16 x 64, MN-major
-// smem, i.e. transposed B).
-__device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -204,31 +168,50 @@ __device__ __forceinline__ bool kept(int64_t qp, int64_t kp, int64_t skv,
          (window <= 0 || kp > qp - window);
 }
 
-// One tile of the online softmax on the S accumulator, in place: s becomes
-// P (unnormalised, f32); m, l are this thread's two rows' running max and
-// its partial sum over its own columns; corr the rows' rescale factors.
-// Accumulator layout (wgmma m64nN f32): s[4i + e] is row
-// row0 + 8 * (e >> 1), column 8i + 2 * (lane % 4) + (e & 1).
-template <bool EDGE>
-__device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2],
-                                             float (&l)[2], float (&corr)[2],
-                                             float sl2, int64_t row0,
-                                             int64_t col0, int64_t skv,
-                                             int causal, int64_t window) {
-  uint32_t keep = 0xffffffffu;
+// Whether a tile of keys k0..k0+bk-1 needs masks for the 64 rows at
+// positions qa0..qa0+63.
+__device__ __forceinline__ bool edge_tile(int64_t k0, int bk, int64_t qa0,
+                                          int64_t skv, int causal,
+                                          int64_t window) {
+  return k0 + bk > skv || (causal && k0 + bk - 1 > qa0) ||
+         (window > 0 && k0 <= qa0 + 63 - window);
+}
+
+// One tile of the online softmax on an S accumulator of N registers (N / 2
+// keys), which it only reads: P (unnormalised, rounded to bf16) goes to
+// pa, the A operand of N / 8 16-key steps of O += P V; m, l are this
+// thread's two rows' running max and its partial sum over its own
+// columns; corr the rows' rescale factors.  Accumulator layout (wgmma
+// m64nN f32): s[4i + e] is row row0 + 8 * (e >> 1), column
+// 8i + 2 * (lane % 4) + (e & 1); the A operand of a 16-key step kk holds
+// pa[kk][x] = the pair s[8kk + 2x], s[8kk + 2x + 1].  S stays untouched
+// because ptxas serialises wgmma when other instructions write a wgmma's
+// accumulator while another product is in flight.
+template <int N, bool EDGE>
+__device__ __forceinline__ void softmax_tile(const float (&s)[N],
+                                             uint32_t (&pa)[N / 8][4],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], float sl2,
+                                             int64_t row0, int64_t col0,
+                                             int64_t skv, int causal,
+                                             int64_t window) {
+  using Bits = std::conditional_t<(N > 32), uint64_t, uint32_t>;
+  Bits keep = ~Bits(0);
   if (EDGE) {
     keep = 0;
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
+    for (int j = 0; j < N; ++j) {
       const int64_t qp = row0 + 8 * ((j & 3) >> 1);
       const int64_t kp = col0 + 8 * (j >> 2) + (j & 1);
-      if (kept(qp, kp, skv, causal, window)) keep |= 1u << j;
-      else s[j] = NEG_INF;
+      keep |= Bits(kept(qp, kp, skv, causal, window)) << j;
     }
   }
   float mx[2] = {m[0], m[1]};
 #pragma unroll
-  for (int j = 0; j < 32; ++j) mx[(j & 3) >> 1] = fmaxf(mx[(j & 3) >> 1], s[j]);
+  for (int j = 0; j < N; ++j) {
+    const float x = EDGE && !((keep >> j) & 1) ? NEG_INF : s[j];
+    mx[(j & 3) >> 1] = fmaxf(mx[(j & 3) >> 1], x);
+  }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
@@ -239,153 +222,78 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2],
   const float b[2] = {mx[0] * sl2, mx[1] * sl2};
   float sum[2] = {0.f, 0.f};
 #pragma unroll
-  for (int j = 0; j < 32; ++j) {
-    const int r = (j & 3) >> 1;
-    float p = exp2_ftz(fmaf(s[j], sl2, -b[r]));
-    if (EDGE) p = (keep >> j) & 1u ? p : 0.f;
-    s[j] = p;
-    sum[r] += p;
-  }
+  for (int kk = 0; kk < N / 8; ++kk)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int j = 8 * kk + 2 * x, r = x & 1;
+      float p0 = exp2_ftz(fmaf(s[j], sl2, -b[r]));
+      float p1 = exp2_ftz(fmaf(s[j + 1], sl2, -b[r]));
+      if (EDGE) {
+        p0 = (keep >> j) & 1 ? p0 : 0.f;
+        p1 = (keep >> (j + 1)) & 1 ? p1 : 0.f;
+      }
+      sum[r] += p0;
+      sum[r] += p1;
+      pa[kk][x] = pack_bf16(p0, p1);
+    }
   l[0] = l[0] * corr[0] + sum[0];
   l[1] = l[1] * corr[1] + sum[1];
 }
 
-template <int DVB>
-__global__ void __launch_bounds__(THREADS, DVB == 1 ? 4 : 1)
-flash_sm90_kernel(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
-                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                  int64_t sq, int64_t skv,
-                  int64_t heads, int64_t kv_heads, int dk, int dv,
-                  Strides qs, Strides ks, Strides vs, Strides os, int causal,
-                  int64_t window, int64_t q_offset, float scale) {
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t q_smem = (smem_addr(smem_raw) + 1023u) & ~1023u;
-  const int dkb = (dk + 63) / 64;
-  const uint32_t stage_bytes = static_cast<uint32_t>(dkb + DVB) * ATOM;
-  const uint32_t ring = q_smem + dkb * ATOM;   // stage s: K, then V
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  // Launch the latest query tiles (the longest causal rows) first.
-  const int64_t q0 = static_cast<int64_t>(gridDim.x - 1 - blockIdx.x) * BQ;
-  const int64_t qa0 = q_offset + q0;   // position of the tile's row 0
-  const int64_t h = blockIdx.y, b = blockIdx.z;
-  const int64_t kh = h / (heads / kv_heads);
-  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
-  const __nv_bfloat16* kb = k + b * ks.b + kh * ks.h;
-  const __nv_bfloat16* vb = v + b * vs.b + kh * vs.h;
-
-  // The KV band this q-tile can see; tiles outside it are skipped.
-  const int64_t qa_last = q_offset + (q0 + BQ < sq ? q0 + BQ : sq) - 1;
-  int64_t kv_end = skv;
-  if (causal && qa_last + 1 < kv_end) kv_end = qa_last + 1;
-  int64_t kv_begin = 0;
-  if (window > 0 && qa0 - window + 1 > 0) kv_begin = qa0 - window + 1;
-  kv_begin -= kv_begin % BK;
-  const int n_tiles = kv_end > kv_begin
-      ? static_cast<int>((kv_end - kv_begin + BK - 1) / BK) : 0;
-
-  auto load_kv = [&](int t) {
-    const uint32_t st = ring + (t % STAGES) * stage_bytes;
-    const int64_t k0 = kv_begin + static_cast<int64_t>(t) * BK;
-    load_rows(st, kb, k0, skv, ks.s, dk / 8, tid);
-    load_rows(st + dkb * ATOM, vb, k0, skv, vs.s, dv / 8, tid);
-  };
-  load_rows(q_smem, qb, q0, sq, qs.s, dk / 8, tid);
-#pragma unroll
-  for (int t = 0; t < STAGES - 1; ++t) {
-    if (t < n_tiles) load_kv(t);
-    cp_async_commit();   // one group per tile, empty or not
-  }
-
-  float acc[DVB][32];
-#pragma unroll
-  for (int n = 0; n < DVB; ++n)
-#pragma unroll
-    for (int j = 0; j < 32; ++j) acc[n][j] = 0.f;
-  float s[32];
-#pragma unroll
-  for (int j = 0; j < 32; ++j) s[j] = 0.f;
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, corr[2];
-  const float sl2 = scale * LOG2E;
-  const int row = warp * 16 + lane / 4;      // and row + 8
-  const int cq = 2 * (lane % 4);
-  const int ksteps = dk / 16;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    cp_async_wait<STAGES - 2>();   // this thread's copies of tile t landed
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();   // everyone's landed; tile t-1's stage is free
-    if (t + STAGES - 1 < n_tiles) load_kv(t + STAGES - 1);
-    cp_async_commit();
-
-    const uint32_t k_st = ring + (t % STAGES) * stage_bytes;
-    const uint32_t v_st = k_st + dkb * ATOM;
-    const int64_t k0 = kv_begin + static_cast<int64_t>(t) * BK;
-
-    // S = Q K^T: K-major A and B, 16 deep a step.
-    wg_fence();
-    for (int kk = 0; kk < ksteps; ++kk) {
-      const uint32_t off = (kk >> 2) * ATOM + (kk & 3) * 32;
-      wgmma_ss(s, sw128_desc(q_smem + off, 16, 1024),
-               sw128_desc(k_st + off, 16, 1024), kk > 0);
-    }
-    wg_commit();
-    wg_wait0();
-    fence_regs(s);
-
-    const bool edge = k0 + BK > skv || (causal && k0 + BK - 1 > qa0) ||
-                      (window > 0 && k0 <= qa0 + BQ - 1 - window);
-    if (edge)
-      softmax_tile<true>(s, m, l, corr, sl2, qa0 + row, k0 + cq, skv, causal,
-                         window);
-    else
-      softmax_tile<false>(s, m, l, corr, sl2, qa0 + row, k0 + cq, skv, causal,
+template <int N>
+__device__ __forceinline__ void softmax(bool edge, const float (&s)[N],
+                                        uint32_t (&pa)[N / 8][4],
+                                        float (&m)[2], float (&l)[2],
+                                        float (&corr)[2], float sl2,
+                                        int64_t row0, int64_t col0,
+                                        int64_t skv, int causal,
+                                        int64_t window) {
+  if (edge)
+    softmax_tile<N, true>(s, pa, m, l, corr, sl2, row0, col0, skv, causal,
                           window);
+  else
+    softmax_tile<N, false>(s, pa, m, l, corr, sl2, row0, col0, skv, causal,
+                           window);
+}
 
-    uint32_t pa[4][4];   // P as the A operand, 16 keys a step
+// Keeps the compiler from reusing P's registers while a wgmma that reads
+// them may still run.
+template <int K>
+__device__ __forceinline__ void fence_p(uint32_t (&pa)[K][4]) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+  for (int kk = 0; kk < K; ++kk)
 #pragma unroll
-      for (int x = 0; x < 4; ++x)
-        pa[kk][x] = pack_bf16(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
-#pragma unroll
-    for (int n = 0; n < DVB; ++n)
-#pragma unroll
-      for (int j = 0; j < 32; ++j) acc[n][j] *= corr[(j & 3) >> 1];
+    for (int x = 0; x < 4; ++x) asm volatile("" : "+r"(pa[kk][x]) :: "memory");
+}
 
-    // O += P V: V tile [key][dv] read MN-major; 16 keys (2 KiB) a step,
-    // 8-key groups 1 KiB apart, 64-column blocks ATOM apart.
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int n = 0; n < DVB; ++n)
-        wgmma_rs(acc[n], pa[kk],
-                 sw128_desc(v_st + n * ATOM + kk * 2048, ATOM, 1024));
-    wg_commit();
-    wg_wait0();
-#pragma unroll
-    for (int n = 0; n < DVB; ++n) fence_regs(acc[n]);
-  }
-  cp_async_wait<0>();
-
+// The 64 rows' normaliser and log-sum-exp, then O written from the
+// accumulators: rows q_row0 + row and + 8 of (b, h), those below sq.
+template <int DVB>
+__device__ __forceinline__ void store_rows(const float (&acc)[DVB][32],
+                                           const float (&m)[2],
+                                           const float (&l)[2],
+                                           __nv_bfloat16* __restrict__ o,
+                                           float* __restrict__ lse,
+                                           int64_t q_row0, int row, int lane,
+                                           int64_t sq, int64_t b, int64_t h,
+                                           int64_t heads, int dv, Strides os,
+                                           float scale) {
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float x = l[r] + __shfl_xor_sync(0xffffffffu, l[r], 1);
     x += __shfl_xor_sync(0xffffffffu, x, 2);
     inv[r] = 1.f / fmaxf(x, 1e-30f);
-    const int64_t qp = q0 + row + 8 * r;
+    const int64_t qp = q_row0 + row + 8 * r;
     if (lse != nullptr && (lane & 3) == 0 && qp < sq)
       lse[(b * heads + h) * sq + qp] =
           x > 0.f ? m[r] * scale + logf(x) : NEG_INF;
   }
+  const int cq = 2 * (lane % 4);
   __nv_bfloat16* ob = o + b * os.b + h * os.h;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int64_t qp = q0 + row + 8 * r;
+    const int64_t qp = q_row0 + row + 8 * r;
     if (qp >= sq) continue;
 #pragma unroll
     for (int n = 0; n < DVB; ++n)
@@ -400,56 +308,404 @@ flash_sm90_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// Dynamic shared memory of one block: Q, then the K/V ring, in 64-column
-// blocks of ATOM bytes; + 1024 because the buffer is aligned up to the
-// swizzle's 1024-byte period.
-size_t smem_bytes(int dk, int dv) {
-  const int dkb = (dk + 63) / 64, dvb = (dv + 63) / 64;
-  return 1024 + static_cast<size_t>(ATOM) * (dkb + STAGES * (dkb + dvb));
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+// The producer's arrival on a full barrier, with the bytes its TMA loads
+// will bring.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+// An arrival by the threads whose `lane` is 0, predicated, not branched
+// (a branch between wgmma issues makes ptxas serialise them).
+__device__ __forceinline__ void mbar_arrive_lane0(uint32_t bar, int lane) {
+  asm volatile("{\n.reg .pred p;\nsetp.eq.s32 p, %1, 0;\n"
+               "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n"
+               :: "r"(bar), "r"(lane) : "memory");
+}
+// Waits until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile("{\n.reg .pred p;\n"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(bar), "r"(parity) : "memory");
 }
 
-template <int DVB>
-int launch_cfg(const void* q, const void* k, const void* v, void* o,
-               float* lse, int64_t batch, int64_t sq, int64_t skv,
-               int64_t heads, int64_t kv_heads, int dk, int dv, Strides qs,
-               Strides ks, Strides vs, Strides os, int causal,
-               int64_t window, int64_t q_offset, float scale,
-               cudaStream_t stream) {
-  const size_t smem = smem_bytes(dk, dv);
+// One box of a 4-D tensor map, (column, head, row, batch), into shared
+// memory; completion is counted on `bar` in bytes.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int col, int head, int row,
+                                         int batch, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(col),
+         "r"(head), "r"(row), "r"(batch), "r"(bar)
+      : "memory");
+}
+
+// Named barriers 1 and 2, one a consumer warpgroup: it waits on its own,
+// and the other warpgroup arrives there (256 threads in all).
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
+}
+
+// d (64 x 128, f32) {=, +=} A (64 x 16 bf16, K-major smem) * B (16 x 128
+// bf16, K-major smem).
+__device__ __forceinline__ void bf16_wgmma_n128_ss(float (&d)[64],
+                                                   uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+               "{" POAS_R64 "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+               : POAS_D64(0) : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// S (64 x KT) = Q K^T over dk / 16 steps; Q's 64-column blocks lie q_blk
+// bytes apart, K's k_blk.
+template <int KT>
+__device__ __forceinline__ void s_product(float (&s)[KT / 2], uint32_t qa,
+                                          uint32_t q_blk, uint32_t k_st,
+                                          uint32_t k_blk, int ksteps) {
+  for (int kk = 0; kk < ksteps; ++kk) {
+    const uint64_t da = kmajor_desc(qa, kk, q_blk);
+    const uint64_t db = kmajor_desc(k_st, kk, k_blk);
+    if constexpr (KT == 128) bf16_wgmma_n128_ss(s, da, db, kk > 0);
+    else bf16_wgmma_n64_ss(s, da, db, kk > 0);
+  }
+}
+
+// O += P V over KT keys: V's 64-column blocks lie KT * 128 bytes apart.
+template <int KT, int DVB>
+__device__ __forceinline__ void pv_product(float (&acc)[DVB][32],
+                                           const uint32_t (&pa)[KT / 16][4],
+                                           uint32_t v_st) {
+#pragma unroll
+  for (int kk = 0; kk < KT / 16; ++kk)
+#pragma unroll
+    for (int n = 0; n < DVB; ++n)
+      bf16_wgmma_n64_rs(acc[n], pa[kk],
+                        sw128_desc(v_st + n * KT * 128 + kk * 2048, KT * 128,
+                                   1024));
+}
+
+template <int KT, int DVB>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_sm90_kernel(__grid_constant__ const CUtensorMap tq,
+                  __grid_constant__ const CUtensorMap tk,
+                  __grid_constant__ const CUtensorMap tv,
+                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                  int64_t sq, int64_t skv, int64_t heads, int64_t kv_heads,
+                  int dk, int dv, Strides os, int causal, int64_t window,
+                  int64_t q_offset, float scale, int stages) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_smem = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const int dkb = (dk + 63) / 64;
+  const uint32_t q_blk = BQ * 128, kv_blk = KT * 128;
+  const uint32_t k_bytes = dkb * kv_blk;
+  const uint32_t stage_bytes = k_bytes + DVB * kv_blk;   // K, then V
+  const uint32_t ring = q_smem + dkb * q_blk;
+  const uint32_t bars = ring + stages * stage_bytes;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (MAX_STAGES + s); };
+  const uint32_t q_full = bars + 16 * MAX_STAGES;
+
+  // The warpgroup's index, read from lane 0 so that ptxas knows it is the
+  // same across the warp (its products are then issued on a uniform path).
+  const int tid = threadIdx.x;
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  // Launch the latest query tiles (the longest causal rows) first.
+  const int64_t q0 = static_cast<int64_t>(gridDim.x - 1 - blockIdx.x) * BQ;
+  const int64_t h = blockIdx.y, b = blockIdx.z;
+  const int64_t kh = h / (heads / kv_heads);
+
+  // The KV band the tile's 128 rows can see; tiles outside it are skipped.
+  const int64_t qa_last = q_offset + (q0 + BQ < sq ? q0 + BQ : sq) - 1;
+  int64_t kv_end = skv;
+  if (causal && qa_last + 1 < kv_end) kv_end = qa_last + 1;
+  int64_t kv_begin = 0;
+  if (window > 0 && q_offset + q0 - window + 1 > 0)
+    kv_begin = q_offset + q0 - window + 1;
+  kv_begin -= kv_begin % KT;
+  const int n_tiles = kv_end > kv_begin
+      ? static_cast<int>((kv_end - kv_begin + KT - 1) / KT) : 0;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full(s), 1);     // the producer's expect_tx
+      mbar_init(empty(s), 8);    // one lane of each consumer warp
+    }
+    mbar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {   // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(PRODUCER_REGS) : "memory");
+    if (tid == 0 && n_tiles > 0) {
+      mbar_expect_tx(q_full, dkb * q_blk);
+      for (int c = 0; c < dkb; ++c)
+        tma_load(q_smem + c * q_blk, &tq, 64 * c, static_cast<int>(h),
+                 static_cast<int>(q0), static_cast<int>(b), q_full);
+      int s = 0;
+      uint32_t phase = 0;
+      for (int t = 0; t < n_tiles; ++t) {
+        mbar_wait(empty(s), phase ^ 1);   // the first round finds it free
+        const uint32_t st = ring + s * stage_bytes;
+        const int k0 =
+            static_cast<int>(kv_begin + static_cast<int64_t>(t) * KT);
+        mbar_expect_tx(full(s), stage_bytes);
+        for (int c = 0; c < dkb; ++c)
+          tma_load(st + c * kv_blk, &tk, 64 * c, static_cast<int>(kh), k0,
+                   static_cast<int>(b), full(s));
+        for (int c = 0; c < DVB; ++c)
+          tma_load(st + k_bytes + c * kv_blk, &tv, 64 * c,
+                   static_cast<int>(kh), k0, static_cast<int>(b), full(s));
+        if (++s == stages) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // A consumer: warpgroup c + 1 owns rows 64c..64c+63 of the tile.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               :: "n"(CONSUMER_REGS) : "memory");
+  const int c = wg - 1;
+  const int ctid = tid - 128 * wg, warp = ctid / 32, lane = ctid % 32;
+  const int row = warp * 16 + lane / 4;      // and row + 8
+  const int cq = 2 * (lane % 4);
+  const int64_t q_row0 = q0 + 64 * c;
+  const int64_t qa0 = q_offset + q_row0;
+  const uint32_t qa = q_smem + c * 64 * 128;
+  const int ksteps = dk / 16;
+  const float sl2 = scale * LOG2E;
+  // Ping-pong: warpgroup c issues after waiting on barrier 1 + c, then
+  // lets the other one issue; warpgroup 1 goes first.
+  const int mine = 1 + c, other = 2 - c;
+  if (c == 1) named_arrive(other);
+
+  float acc[DVB][32];
+#pragma unroll
+  for (int n = 0; n < DVB; ++n)
+#pragma unroll
+    for (int j = 0; j < 32; ++j) acc[n][j] = 0.f;
+  float s[KT / 2];
+  uint32_t pa[2][KT / 16][4];   // P of tiles t-1 and t, alternately
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, corr[2] = {1.f, 1.f};
+  int st = 0;          // the ring stage of the newest tile
+  uint32_t phase = 0;
+
+  // Tile t (>= 1): O to tile t-1's running max, then S(t) and
+  // O += P(t-1) V(t-1) issued together; the softmax of tile t into p_next
+  // while PV(t-1), which reads p_prev, may still run.
+  auto step = [&](int t, uint32_t (&p_prev)[KT / 16][4],
+                  uint32_t (&p_next)[KT / 16][4]) {
+    const int prev = st;
+    if (++st == stages) {
+      st = 0;
+      phase ^= 1;
+    }
+    const int64_t k0 = kv_begin + static_cast<int64_t>(t) * KT;
+#pragma unroll
+    for (int n = 0; n < DVB; ++n) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j) acc[n][j] *= corr[(j & 3) >> 1];
+      fence_regs(acc[n]);
+    }
+    fence_regs(s);
+    mbar_wait(full(st), phase);
+    named_sync(mine);
+    wg_fence();
+    s_product<KT>(s, qa, q_blk, ring + st * stage_bytes, kv_blk, ksteps);
+    wg_commit();
+    pv_product<KT, DVB>(acc, p_prev, ring + prev * stage_bytes + k_bytes);
+    wg_commit();
+    named_arrive(other);
+    wg_wait<1>();   // S(t) has landed; PV(t-1) may still run
+    fence_regs(s);
+    softmax(edge_tile(k0, KT, qa0, skv, causal, window), s, p_next, m, l,
+            corr, sl2, qa0 + row, k0 + cq, skv, causal, window);
+    wg_wait<0>();
+#pragma unroll
+    for (int n = 0; n < DVB; ++n) fence_regs(acc[n]);
+    fence_p(p_prev);
+    mbar_arrive_lane0(empty(prev), lane);   // stage prev is read
+  };
+
+  if (n_tiles > 0) {
+    mbar_wait(q_full, 0);
+    mbar_wait(full(0), 0);
+    named_sync(mine);
+    fence_regs(s);
+    wg_fence();
+    s_product<KT>(s, qa, q_blk, ring, kv_blk, ksteps);
+    wg_commit();
+    named_arrive(other);
+    wg_wait<0>();
+    fence_regs(s);
+    softmax(edge_tile(kv_begin, KT, qa0, skv, causal, window), s, pa[0], m,
+            l, corr, sl2, qa0 + row, kv_begin + cq, skv, causal, window);
+    int t = 1;
+    for (; t + 1 < n_tiles; t += 2) {
+      step(t, pa[0], pa[1]);
+      step(t + 1, pa[1], pa[0]);
+    }
+    const bool odd = t < n_tiles;   // one tile left, P then in pa[1]
+    if (odd) step(t, pa[0], pa[1]);
+#pragma unroll
+    for (int n = 0; n < DVB; ++n) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j) acc[n][j] *= corr[(j & 3) >> 1];
+      fence_regs(acc[n]);
+    }
+    wg_fence();
+    const uint32_t v_st = ring + st * stage_bytes + k_bytes;
+    if (odd) pv_product<KT, DVB>(acc, pa[1], v_st);
+    else pv_product<KT, DVB>(acc, pa[0], v_st);
+    wg_commit();
+    wg_wait<0>();
+#pragma unroll
+    for (int n = 0; n < DVB; ++n) fence_regs(acc[n]);
+  }
+  // Warpgroup 2's last arrival on barrier 1 (its first, when the band is
+  // empty) meets this wait, so each barrier ends as it began.
+  if (c == 0) named_sync(mine);
+  store_rows(acc, m, l, o, lse, q_row0, row, lane, sq, b, h, heads, dv, os,
+             scale);
+}
+
+// ---- launch ---------------------------------------------------------------
+
+// Dynamic shared memory of a launch (bytes): 1024 for aligning the buffer
+// up to the swizzle's 1024-byte period, Q's 128 rows, `stages` stages of
+// K and V at `kt` keys, the mbarriers.
+int smem_bytes(int dk, int dv, int kt, int stages) {
+  const int dkb = (dk + 63) / 64, dvb = (dv + 63) / 64;
+  return 1024 + dkb * BQ * 128 + stages * (dkb + dvb) * kt * 128 + BARRIERS;
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (null if the
+// driver lacks it).
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+        ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-D map (D, H, S, B) of a strided bf16 (B, S, H, D) tensor whose box is
+// 64 columns x `rows` rows of one head and batch, landing in the 128-byte
+// swizzle; rows and columns past the tensor read as 0.
+bool tensor_map(CUtensorMap* map, const void* ptr, int64_t batch,
+                int64_t seq, int64_t heads, int64_t d, Strides st,
+                int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const int64_t ext[3] = {heads, seq, batch}, el[3] = {st.h, st.s, st.b};
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), 0, 0, 0};
+  cuuint64_t strides[3];
+  for (int i = 0; i < 3; ++i) {
+    dims[i + 1] = static_cast<cuuint64_t>(ext[i] > 0 ? ext[i] : 1);
+    // a dimension of extent 1 is never stepped: any stride will do
+    strides[i] = static_cast<cuuint64_t>(ext[i] > 1 ? el[i] * 2 : 16);
+  }
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+struct Args {
+  const void *q, *k, *v;
+  void* o;
+  float* lse;
+  int64_t batch, sq, skv, heads, kv_heads;
+  int dk, dv;
+  Strides qs, ks, vs, os;
+  int causal;
+  int64_t window, q_offset;
+  float scale;
+  int stages, smem;
+  cudaStream_t stream;
+};
+
+template <int KT, int DVB>
+int launch(const Args& a) {
+  // The registers ptxas gave this instantiation, read once (REGS).
+  static const int regs = [] {
+    cudaFuncAttributes attr{};
+    return cudaFuncGetAttributes(&attr, flash_sm90_kernel<KT, DVB>) ==
+        cudaSuccess ? attr.numRegs : -1;
+  }();
+  if (regs != REGS) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(&tq, a.q, a.batch, a.sq, a.heads, a.dk, a.qs, BQ) ||
+      !tensor_map(&tk, a.k, a.batch, a.skv, a.kv_heads, a.dk, a.ks, KT) ||
+      !tensor_map(&tv, a.v, a.batch, a.skv, a.kv_heads, a.dv, a.vs, KT))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_sm90_kernel<DVB>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      flash_sm90_kernel<KT, DVB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      a.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>((sq + BQ - 1) / BQ),
-                  static_cast<unsigned>(heads),
-                  static_cast<unsigned>(batch));
-  flash_sm90_kernel<DVB><<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      lse, sq, skv, heads, kv_heads, dk, dv, qs, ks, vs, os, causal, window,
-      q_offset, scale);
+  const dim3 grid(static_cast<unsigned>((a.sq + BQ - 1) / BQ),
+                  static_cast<unsigned>(a.heads),
+                  static_cast<unsigned>(a.batch));
+  flash_sm90_kernel<KT, DVB><<<grid, THREADS, a.smem, a.stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(a.o), a.lse, a.sq, a.skv,
+      a.heads, a.kv_heads, a.dk, a.dv, a.os, a.causal, a.window, a.q_offset,
+      a.scale, a.stages);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Bytes of dynamic shared memory that a launch at head dims dk, dv requests.
-extern "C" int poas_flash_sm90_smem(int64_t dk, int64_t dv) {
-  return static_cast<int>(
-      smem_bytes(static_cast<int>(dk), static_cast<int>(dv)));
-}
-
-// Plain C entry point for ctypes.  q (B, Sq, H, Dk), k (B, Skv, KH, Dk),
-// v (B, Skv, KH, Dv), o (B, Sq, H, Dv), bf16, each with unit stride on its
-// last dim, 16-byte aligned base and (batch, seq, head) strides that are
-// multiples of 8 elements; lse (B, H, Sq) f32, contiguous, or null (not
-// written); `strides` holds those 12 element strides of q, k, v, o in that
-// order; q_offset >= 0 is the position of query row 0.  The caller checks
-// H % KH == 0.  The launch is queued on `stream` and not synchronised; the
-// return value is cudaGetLastError(), or cudaErrorInvalidValue for head dims
-// other than 16, 32, ..., 256.
-extern "C" int poas_flash_sm90_bf16(const void* q, const void* k,
+// Plain C entry point for ctypes.  keys (64, or 128 where Dv <= 128) and
+// stages (2-4) are the K/V tile and ring depth the wrapper plans; q
+// (B, Sq, H, Dk), k (B, Skv, KH, Dk), v (B, Skv, KH, Dv), o (B, Sq, H, Dv),
+// bf16, each with unit stride on its last dim, 16-byte aligned base and
+// (batch, seq, head) strides that are multiples of 8 elements (nonzero
+// where the extent is above 1); lse (B, H, Sq) f32, contiguous, or null
+// (not written); `strides` holds those 12 element strides of q, k, v, o in
+// that order; q_offset >= 0 is the position of query row 0.  The caller
+// checks H % KH == 0.  The launch is queued on `stream` and not
+// synchronised; the return value is cudaGetLastError(), or
+// cudaErrorInvalidValue for head dims other than 16, 32, ..., 256, a tile
+// or ring no instantiation takes or a block's shared memory does not hold,
+// views no tensor map describes, or a kernel whose register count is not
+// the one its setmaxnreg split needs.
+extern "C" int poas_flash_sm90_bf16(int64_t keys, int64_t stages,
+                                    const void* q, const void* k,
                                     const void* v, void* o, void* lse,
                                     int64_t batch, int64_t sq, int64_t skv,
                                     int64_t heads, int64_t kv_heads,
@@ -457,30 +713,27 @@ extern "C" int poas_flash_sm90_bf16(const void* q, const void* k,
                                     const int64_t* st, int64_t causal,
                                     int64_t window, float scale,
                                     int64_t q_offset, void* stream) {
-  if (dk < 16 || dk > 256 || dk % 16 || dv < 16 || dv > 256 || dv % 16)
+  const int dvb = static_cast<int>((dv + 63) / 64);
+  if (dk < 16 || dk > 256 || dk % 16 || dv < 16 || dv > 256 || dv % 16 ||
+      !(keys == 64 || (keys == 128 && dvb <= 2)) || stages < MIN_STAGES ||
+      stages > MAX_STAGES)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
-      vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
-  auto s = static_cast<cudaStream_t>(stream);
-  const int c = static_cast<int>(causal);
-  const int ik = static_cast<int>(dk), iv = static_cast<int>(dv);
-  float* l = static_cast<float*>(lse);
-  switch ((dv + 63) / 64) {
-    case 1:
-      return launch_cfg<1>(q, k, v, o, l, batch, sq, skv, heads, kv_heads, ik,
-                           iv, qs, ks, vs, os, c, window, q_offset, scale,
-                           s);
-    case 2:
-      return launch_cfg<2>(q, k, v, o, l, batch, sq, skv, heads, kv_heads, ik,
-                           iv, qs, ks, vs, os, c, window, q_offset, scale,
-                           s);
-    case 3:
-      return launch_cfg<3>(q, k, v, o, l, batch, sq, skv, heads, kv_heads, ik,
-                           iv, qs, ks, vs, os, c, window, q_offset, scale,
-                           s);
-    default:
-      return launch_cfg<4>(q, k, v, o, l, batch, sq, skv, heads, kv_heads, ik,
-                           iv, qs, ks, vs, os, c, window, q_offset, scale,
-                           s);
+  const int smem = smem_bytes(static_cast<int>(dk), static_cast<int>(dv),
+                              static_cast<int>(keys),
+                              static_cast<int>(stages));
+  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, k, v, o, static_cast<float*>(lse), batch, sq, skv, heads,
+               kv_heads, static_cast<int>(dk), static_cast<int>(dv),
+               Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
+               Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]},
+               static_cast<int>(causal), window, q_offset, scale,
+               static_cast<int>(stages), smem,
+               static_cast<cudaStream_t>(stream)};
+  if (keys == 128) return dvb == 1 ? launch<128, 1>(a) : launch<128, 2>(a);
+  switch (dvb) {
+    case 1: return launch<64, 1>(a);
+    case 2: return launch<64, 2>(a);
+    case 3: return launch<64, 3>(a);
+    default: return launch<64, 4>(a);
   }
 }

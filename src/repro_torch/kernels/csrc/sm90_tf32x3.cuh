@@ -2,10 +2,9 @@
 // the cp.async ring, the 128-byte swizzle, wgmma descriptors and issue, and
 // 3xTF32 -- f32 accuracy from the TF32 tensor cores.
 //
-// The ring, swizzle and descriptor helpers are the ones K2's
-// flash_attention_sm90.cu defines for itself (that source stays
-// self-contained); csrc/matmul.cu (K1), csrc/ssd_chunk.cu (K3) and the two
-// backward sources, csrc/flash_attention_bwd_sm90.cu (bf16 m64n64k16) and
+// csrc/matmul.cu (K1), csrc/flash_attention_sm90.cu (K2 in bf16),
+// csrc/ssd_chunk.cu (K3) and the two backward sources,
+// csrc/flash_attention_bwd_sm90.cu (bf16 m64n64k16) and
 // csrc/ssd_chunk_bwd.cu (3xTF32), include this header.
 //
 // 3xTF32.  A tf32 operand keeps 10 of f32's 23 mantissa bits, so one TF32

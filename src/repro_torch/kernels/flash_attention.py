@@ -5,8 +5,10 @@ with three CUDA C++ kernels for ``sm_90a`` (each source's header says what
 bounds it on an H100 and what its design does about it), built at their
 first CUDA launch by ``_nvcc``:
 
-* ``csrc/flash_attention_sm90.cu`` — bf16 on the tensor cores (wgmma, a
-  cp.async ring of K/V tiles); route ``"sm90"``.
+* ``csrc/flash_attention_sm90.cu`` — bf16 on the tensor cores (wgmma): a
+  TMA producer warpgroup and two consumer warpgroups in ping-pong on
+  128-row query tiles, its K/V tile and ring depth planned here by
+  ``sm90_plan(dk, dv)``; route ``"sm90"``.
 * ``csrc/flash_attention_tf32x3.cu`` — float32 on the tensor cores, each
   product as three TF32 products (3xTF32, f32 accuracy for the 2e-5 gate
   that one TF32 product cannot meet), K and V streamed in 64 x 64 chunks;
@@ -61,9 +63,10 @@ kernels (S and dP recomputed by both of their passes) 2 (4 Dk + 3 Dv).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -88,8 +91,8 @@ _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 7
              + [ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int64] * 2
              + [ctypes.c_float, ctypes.c_int64, ctypes.c_void_p])
 _ENTRIES = {n: _ARGTYPES for n in _ENTRY.values()}
-_ENTRIES_SM90 = {_ENTRY_SM90: _ARGTYPES,
-                 "poas_flash_sm90_smem": [ctypes.c_int64] * 2}
+# The sm90 entry takes the plan's keys a tile and stages first.
+_ENTRIES_SM90 = {_ENTRY_SM90: [ctypes.c_int64] * 2 + _ARGTYPES}
 _ENTRY_TF32X3 = "poas_flash_tf32x3_f32"
 _ENTRIES_TF32X3 = {_ENTRY_TF32X3: _ARGTYPES,
                    "poas_flash_tf32x3_smem": [ctypes.c_int64] * 2}
@@ -201,10 +204,29 @@ def bwd_sm90_kernel_smem_bytes(dk: int, dv: int) -> int:
                       _ENTRIES_BWD_SM90).poas_flash_bwd_sm90_smem(dk, dv)
 
 
-def sm90_smem_bytes(dk: int, dv: int) -> int:
-    """Dynamic shared memory an sm90 launch at head dims ``dk``, ``dv``
-    requests, as the kernel's source computes it (builds it if needed)."""
-    return _nvcc.load(SOURCE_SM90, _ENTRIES_SM90).poas_flash_sm90_smem(dk, dv)
+class Sm90Plan(NamedTuple):
+    """An sm90 launch: keys a K/V tile, stages of its ring and bytes of
+    dynamic shared memory."""
+    keys: int
+    stages: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def sm90_plan(dk: int, dv: int) -> Sm90Plan:
+    """The sm90 launch at head dims ``dk``, ``dv``, the only place its
+    rule lives (the source takes keys and stages from the call and refuses
+    what a block cannot hold): 128 keys a tile where both head dims are at
+    most 128 (where registers and shared memory allow it), else 64;
+    as many ring stages of K and V (up to 4) as fit a block's shared
+    memory beside 1024 bytes of alignment, Q's 128 rows (16 KiB per
+    64-column block of Dk) and 256 bytes of mbarriers."""
+    dkb, dvb = -(-dk // 64), -(-dv // 64)
+    keys = 128 if dk <= 128 and dv <= 128 else 64
+    fixed = 1024 + dkb * 128 * 128 + 256
+    stage = (dkb + dvb) * keys * 128
+    stages = min(4, (_nvcc.SMEM_LIMIT - fixed) // stage)
+    return Sm90Plan(keys, stages, fixed + stages * stage)
 
 
 def route(dtype: torch.dtype, dk: int, dv: int) -> str:
@@ -231,11 +253,14 @@ def route_bwd(dtype: torch.dtype, dk: int, dv: int) -> str:
 
 
 def _aligned16(x: torch.Tensor) -> torch.Tensor:
-    """``x`` if its rows start on 16-byte boundaries (what the tensor-core
-    kernels' 16-byte copies need), else a contiguous copy of it whose
-    rows are padded to 16 bytes, returned as a view of ``x``'s shape."""
+    """``x`` if its rows start on 16-byte boundaries and no dimension
+    repeats its rows with stride 0 (what the tensor-core kernels' 16-byte
+    copies and tensor maps need), else a contiguous copy of it whose rows
+    are padded to 16 bytes, returned as a view of ``x``'s shape."""
     step = 16 // x.element_size()
-    if x.data_ptr() % 16 or any(st % step for st in x.stride()[:3]):
+    st = x.stride()[:3]
+    if x.data_ptr() % 16 or any(s % step for s in st) or (
+            0 in st and any(n > 1 for s, n in zip(st, x.shape) if s == 0)):
         last = x.shape[-1]
         buf = x.new_empty((*x.shape[:-1], last + (-last) % step))
         buf[..., :last] = x
@@ -329,8 +354,10 @@ def _launch(kind: str, q, k, v, causal: bool, window: int, scale,
         raise ValueError(f"flash_attention: B={B}, H={H} exceed the grid")
     if scale is None:
         scale = 1.0 / math.sqrt(Dk)
+    plan = ()
     if kind == "sm90":   # built, or raises, before anything is allocated
         entry = getattr(_nvcc.load(SOURCE_SM90, _ENTRIES_SM90), _ENTRY_SM90)
+        plan = sm90_plan(Dk, Dv)[:2]
     elif kind == "tf32x3":
         entry = getattr(_nvcc.load(SOURCE_TF32X3, _ENTRIES_TF32X3),
                         _ENTRY_TF32X3)
@@ -349,7 +376,8 @@ def _launch(kind: str, q, k, v, causal: bool, window: int, scale,
             0 if lse is None else lse.data_ptr(), B, Sq, Skv, H, KH, Dk, Dv,
             strides, int(causal), window, scale, q_offset)
     with torch.cuda.device(q.device):
-        err = entry(*args, torch.cuda.current_stream(q.device).cuda_stream)
+        err = entry(*plan, *args,
+                    torch.cuda.current_stream(q.device).cuda_stream)
     _nvcc.check(err, f"flash_attention ({kind})")
     with _count_lock:
         flash_attention.launches += 1

@@ -43,7 +43,7 @@ SOURCE_BWD = _nvcc.CSRC / "ssd_chunk_bwd.cu"
 # hp and ds: hp is padded to the wgmma width 16, 32, 64 or 128 of the y
 # product, ds to the 8-deep k steps of C·Bᵀ; 128 bounds both.
 MAX_DIM = 128
-SMEM_LIMIT = 232_448     # bytes of shared memory one block may use (H100)
+SMEM_LIMIT = _nvcc.SMEM_LIMIT
 _TILE = 64               # q rows of a y block, t of a tile (TQ, TT)
 _ATOM = _TILE * 128      # a 64-row K-major tile over 32 of ds (8 KiB)
 _DTYPES = (torch.float32, torch.bfloat16)
